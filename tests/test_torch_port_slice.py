@@ -1,0 +1,256 @@
+"""PyTorch port (deepphysinet_tpu_torch) against the JAX package: the inference slice.
+
+``collapsed_decode_t``, ``predict_grid`` and ``predict_points`` run in both
+packages on the same weights (JAX init, exported with ``state_dict_from_jax``)
+and the same window of the smoke configuration's synthetic data tree: the JAX
+``PhysicsDataset`` reads it and the port's ``Window`` takes its arrays.  A
+subprocess with ``jax`` and ``flax`` blocked proves that the port imports and
+runs without them, as it must on the GPU machine.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import types
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from deepphysinet_tpu.config import Config
+from deepphysinet_tpu.models.physics_net import PhysicsNet as JaxPhysicsNet
+from deepphysinet_tpu.ops.coords import CoordSpec as JaxCoordSpec
+from deepphysinet_tpu.physics import engine as jengine
+
+from deepphysinet_tpu_torch.data.window import Window, synthetic_window
+from deepphysinet_tpu_torch.inference import runner as trunner
+from deepphysinet_tpu_torch.models.physics_net import PhysicsNet
+from deepphysinet_tpu_torch.ops.coords import CoordSpec
+from deepphysinet_tpu_torch.physics.engine import collapsed_decode_t
+from deepphysinet_tpu_torch.train.torch_import import state_dict_from_jax
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+COORD = dict(lon_size=257, lat_size=145, dx=27000.0, dy=27000.0, pred_t_span=86400.0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_collapsed_decode_t_matches_jax(dtype):
+    """Port engine (plain decode on CPU) == JAX engine, XLA twin and Pallas kernel."""
+    rng = np.random.RandomState(3)
+    meta = dict(enc_in=65, c_out=64, d_model=64, n_heads=4, e_layers=1, d_ff=64,
+                activation="gelu", learnable_token_num=8)
+    net = dict(in_channels=192, hidden_channels=64, learnable_token_num=16)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    jm = JaxPhysicsNet(meta_cfg=meta, net_cfg=net, compute_dtype=jd)
+    field = rng.randn(1, 12, 65).astype(np.float32)
+    fh = np.array([[0.1]], np.float32)
+    params = jm.init(jax.random.PRNGKey(0), jnp.asarray(field), jnp.ones((4, 192)),
+                     jnp.ones((4, 6)), jnp.asarray(fh))
+    tokens = jm.apply(params, jnp.asarray(field), jnp.asarray(fh), method=JaxPhysicsNet.encode)[0]
+
+    n = 200
+    coords = np.stack([rng.rand(n) * 27000 * 256, rng.rand(n) * 27000 * 144,
+                       rng.randint(0, 25, n) * 3600.0], -1).astype(np.float32)
+    coord_data = (rng.randn(n, 6) * 0.1).astype(np.float32)
+    args = (jnp.asarray(coords), jnp.asarray(coord_data), jnp.asarray(fh[0]), JaxCoordSpec(**COORD))
+    want_x = jengine.collapsed_decode_t(jm, params, tokens, *args)
+    want_k = jengine.collapsed_decode_t(jm, params, tokens, *args, use_kernel=True, interpret=True)
+
+    model = PhysicsNet(meta, net, compute_dtype=td)
+    model.load_state_dict(state_dict_from_jax(params), strict=True)
+    got = collapsed_decode_t(model, torch.from_numpy(np.array(tokens, np.float32)).to(td),
+                             torch.from_numpy(coords), torch.from_numpy(coord_data),
+                             torch.from_numpy(fh[0]), CoordSpec(**COORD))
+    assert tuple(got.shape) == (6, n) and got.dtype == torch.float32
+    # f32: the bar of test_decode_kernel_v4t.py.  bf16: the PE inputs are
+    # bf16, so an ulp-level sin/cos difference between XLA and torch can flip
+    # a rounding (2^-8 of one of 192 terms); measured max |diff| 3.2e-5 at
+    # |out| ~ 32
+    tol = dict(rtol=2e-4, atol=2e-5) if dtype == "float32" else dict(rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want_x), **tol)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want_k), **tol)
+
+
+# ---- the slice on the smoke configuration's synthetic tree ------------------
+
+@pytest.fixture(scope="module")
+def smoke(tmp_path_factory):
+    """JAX interface + dataset on a fresh synthetic tree, the port twin, and one window."""
+    from deepphysinet_tpu.data.dataset import PhysicsDataset
+    from deepphysinet_tpu.interface.build import builder_models
+
+    old = os.environ.get("DPN_SMOKE_DATA")
+    os.environ["DPN_SMOKE_DATA"] = str(tmp_path_factory.mktemp("port_smoke"))
+    try:
+        cfg = Config.fromfile(os.path.join(REPO, "configs", "smoke_cpu_cfg.py"))["config"]
+    finally:
+        if old is None:
+            del os.environ["DPN_SMOKE_DATA"]
+        else:
+            os.environ["DPN_SMOKE_DATA"] = old
+    iface = builder_models(**cfg)
+    iface.dx = iface.dy = float(cfg["train_cfg"]["dx"])
+    ds = PhysicsDataset(**cfg["train_cfg"]["train_data"], input_variable_cfg=iface.variable_cfg,
+                        out_variable_cfg=iface.obs_norm_cfg, dx=iface.dx, dy=iface.dy)
+    jcfg = iface._step_cfg(86400.0, ds.forecast_time_period)
+    input_file = ds.input_files[0]
+    window = Window.from_dataset(ds, input_file)
+    params = iface.physics_net.init(
+        jax.random.PRNGKey(4), jnp.asarray(window.field[None]), jnp.zeros((2, 192)),
+        jnp.zeros((2, 6)), jnp.asarray([[0.1]], jnp.float32))
+    model = PhysicsNet(cfg["meta_cfg"], cfg["net_cfg"])
+    model.load_state_dict(state_dict_from_jax(params), strict=True)
+    return types.SimpleNamespace(cfg=cfg, iface=iface, ds=ds, jcfg=jcfg, input_file=input_file,
+                                 window=window, params=params, model=model,
+                                 tcfg=trunner.decode_config_from_cfg(cfg))
+
+
+def test_decode_config_matches_jax_step_config(smoke):
+    import dataclasses
+
+    t, j = smoke.tcfg, smoke.jcfg
+    assert dataclasses.astuple(t.coord_spec) == dataclasses.astuple(j.coord_spec)
+    assert t.forecast_time_period == j.forecast_time_period
+    assert [dataclasses.astuple(s) for s in t.obs_specs] == [dataclasses.astuple(s) for s in j.obs_specs]
+
+
+def test_window_matches_dataset(smoke):
+    ds, w, f = smoke.ds, smoke.window, smoke.input_file
+    np.testing.assert_array_equal(w.field, np.concatenate([ds.get_item_input(f), ds.constant_variables]))
+    assert (w.begin_lon, w.begin_lat, w.fine_lon_step, w.fine_lat_step) == (
+        ds.begin_lon, ds.begin_lat, ds.fine_lon_step, ds.fine_lat_step)
+    rng = np.random.RandomState(5)
+    lon = ds.begin_lon + rng.rand(300) * 16.5 - 0.2  # a few points off the grid's edge
+    lat = ds.begin_lat + rng.rand(300) * 9.3 - 0.1
+    t = rng.rand(300) * 24.0
+    np.testing.assert_allclose(w.interp_cube_at(lon, lat, t), ds._interp_cube_at(ds._nwp_cube(f), lon, lat, t),
+                               rtol=1e-6, atol=1e-6)
+    xs, ys = np.meshgrid(np.arange(5.0), np.arange(3.0))
+    tl = np.full(xs.size, 7.5)
+    for a, b in zip(w.get_margin_grid(xs.ravel(), ys.ravel(), tl),
+                    ds.get_margin_grid(f, xs.ravel(), ys.ravel(), tl)):
+        np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-6)
+
+
+def _tol(cfg):
+    """float32 decode differences of 2e-5 normalized units, in physical units."""
+    from deepphysinet_tpu_torch.ops.normalization import OBS_NAME_ORDER
+
+    return np.array([float(cfg["obs_norm_cfg"][k]["norm_factor"][1]) for k in OBS_NAME_ORDER]) * 2e-5
+
+
+@pytest.mark.parametrize("time_h, out_size", [(3.0, None), (6.5, None), (23.0, (19, 33))])
+def test_predict_grid_matches_jax(smoke, time_h, out_size):
+    from deepphysinet_tpu.inference.runner import predict_grid
+
+    field = smoke.window.field[None]
+    want = predict_grid(smoke.iface.physics_net, smoke.params, smoke.jcfg, smoke.ds, smoke.input_file,
+                        jnp.asarray(field), 0.0, time_h, out_size=out_size)
+    got = trunner.predict_grid(smoke.model, smoke.tcfg, smoke.window, torch.from_numpy(field), 0.0,
+                               time_h, out_size=out_size)
+    tol = _tol(smoke.cfg)
+    for i, k in enumerate(("u", "v", "P", "T", "q", "rio")):
+        assert got[k].shape == want[k].shape and got[k].dtype == np.float32
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-5, atol=tol[i], err_msg=k)
+
+
+def test_predict_points_matches_jax(smoke):
+    from deepphysinet_tpu.inference.runner import predict_points
+
+    field = smoke.window.field[None]
+    lon = np.array([75.37, 80.123, 84.9, 72.0])
+    lat = np.array([19.61, 23.456, 26.2, 18.0])
+    t = np.array([2.5, 13.75, 21.1, 0.0])
+    want = predict_points(smoke.iface.physics_net, smoke.params, smoke.jcfg, smoke.ds, smoke.input_file,
+                          jnp.asarray(field), 6.0, lon, lat, t)
+    got = trunner.predict_points(smoke.model, smoke.tcfg, smoke.window, torch.from_numpy(field), 6.0,
+                                 lon, lat, t)
+    assert got.shape == (4, 6)
+    err = np.abs(got - want) - (1e-5 * np.abs(want) + _tol(smoke.cfg)[None, :])
+    assert err.max() <= 0, np.abs(got - want).max(axis=0)
+
+
+def test_chunked_decode_matches_whole(smoke):
+    """Chunking (40,960 points per decode) does not change any point's output."""
+    rng = np.random.RandomState(6)
+    n = 53
+    cs = smoke.tcfg.coord_spec
+    x = rng.rand(n).astype(np.float32) * cs.dx * (cs.lon_size - 1)
+    y = rng.rand(n).astype(np.float32) * cs.dy * (cs.lat_size - 1)
+    t = rng.rand(n).astype(np.float32) * 86400.0
+    nwp = (rng.randn(n, 6) * 0.1).astype(np.float32)
+    tokens = trunner._encode(smoke.model, torch.from_numpy(smoke.window.field[None]), 0.0)
+    whole = trunner._decode_points(smoke.model, smoke.tcfg, tokens, x, y, t, nwp, 0.0, True)
+    chunked = trunner._decode_points(smoke.model, smoke.tcfg, tokens, x, y, t, nwp, 0.0, True, chunk=16)
+    empty = trunner._decode_points(smoke.model, smoke.tcfg, tokens, x[:0], y[:0], t[:0], nwp[:0], 0.0, True)
+    assert tuple(whole.shape) == (6, n) and tuple(empty.shape) == (6, 0)
+    diff = np.abs(chunked.numpy() - whole.numpy())
+    assert (diff <= 1e-6 * np.abs(whole.numpy()) + _tol(smoke.cfg)[:, None] / 20).all(), diff.max(axis=1)
+
+
+def test_synthetic_window_flagship_sizes():
+    cfg = Config.fromfile(os.path.join(REPO, "configs", "DeepPhysiNet_NCEP_cfg.py"))["config"]
+    w = synthetic_window(cfg, seed=0)
+    assert w.field.shape == (159, 2405) and w.field.dtype == np.float32
+    assert w.nwp_cube.shape == (6, 37, 65, 5)
+    assert (w.in_lon[0], w.in_lon[-1], w.in_lat[-1]) == (72.0, 136.0, 54.0)
+    assert (len(w.out_lon), len(w.out_lat), w.fine_lon_step) == (257, 145, 0.25)
+    assert 0.0 <= w.field[-4:].min() and w.field[-4:].max() < 1.0
+    np.testing.assert_array_equal(synthetic_window(cfg, seed=0).field, w.field)
+    assert not np.array_equal(synthetic_window(cfg, seed=1).nwp_cube, w.nwp_cube)
+
+
+def test_port_never_imports_jax():
+    root = os.path.join(REPO, "deepphysinet_tpu_torch")
+    for d, _, files in os.walk(root):
+        for name in files:
+            if name.endswith(".py"):
+                text = open(os.path.join(d, name)).read()
+                for bad in ("import jax", "from jax", "import flax", "from flax"):
+                    assert bad not in text, (name, bad)
+
+
+_POISONED = r"""
+import json, pkgutil, sys, importlib
+sys.modules["jax"] = None
+sys.modules["flax"] = None
+import numpy as np, torch
+import deepphysinet_tpu_torch
+for m in pkgutil.walk_packages(deepphysinet_tpu_torch.__path__, "deepphysinet_tpu_torch."):
+    importlib.import_module(m.name)
+from deepphysinet_tpu.config import Config
+from deepphysinet_tpu_torch.data.window import synthetic_window
+from deepphysinet_tpu_torch.inference.runner import decode_config_from_cfg, predict_grid, predict_points
+from deepphysinet_tpu_torch.models.init import init_parameters
+from deepphysinet_tpu_torch.models.physics_net import PhysicsNet
+
+cfg = Config.fromfile("configs/DeepPhysiNet_NCEP_cfg.py")["config"]
+cfg["train_cfg"]["img_size"] = (37, 65)  # coarse grid 10 x 17 = enc_in 170
+cfg["meta_cfg"].update(enc_in=170, c_out=32, d_model=32, n_heads=4, e_layers=2, d_ff=32)
+cfg["net_cfg"].update(hidden_channels=32, learnable_token_num=40)
+model = init_parameters(PhysicsNet(cfg["meta_cfg"], cfg["net_cfg"], torch.bfloat16),
+                        torch.Generator().manual_seed(0))
+w = synthetic_window(cfg, seed=0)
+dc = decode_config_from_cfg(cfg)
+field = torch.from_numpy(w.field[None])
+grid = predict_grid(model, dc, w, field, w.forecast_h, 6.5)
+pts = predict_points(model, dc, w, field, w.forecast_h, [75.3, 80.1], [20.2, 25.0], [1.5, 20.0])
+loaded = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "flax", "jaxlib")
+                and sys.modules[k] is not None)
+print(json.dumps({"loaded": loaded, "T": list(grid["T"].shape), "pts": list(pts.shape),
+                  "finite": bool(np.isfinite(grid["T"]).all() and np.isfinite(pts).all())}))
+"""
+
+
+def test_port_runs_with_jax_blocked():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    res = subprocess.run([sys.executable, "-c", _POISONED], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert out == {"loaded": [], "T": [37, 65], "pts": [2, 6], "finite": True}
