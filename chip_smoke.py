@@ -1,4 +1,4 @@
-"""On-card check of the PyTorch port: builds its CUDA kernel and drives inference.
+"""On-card check of the PyTorch port: builds its CUDA kernels, drives inference and training.
 
 Run from the repository root on a machine with one NVIDIA H100:
 
@@ -6,16 +6,34 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 Phases, each of which raises (exit code 1) on failure:
 
-1. build   -- compile ``deepphysinet_tpu_torch/csrc/decode_primal.cu`` with nvcc;
-2. kernel  -- the decode kernel against its plain PyTorch version on the card,
-              at 37,265 (one 145 x 257 frame), 1,000 and 3 points, bf16 and f32;
-3. slice   -- the flagship model (configs/DeepPhysiNet_NCEP_cfg.py, random
-              weights from a seeded generator) on a seeded synthetic window:
-              ``predict_grid`` at three time offsets and ``predict_points`` at
-              3, 300 and 50,000 points, with the launch count of the kernel,
-              output checks, and one frame against the plain decode;
-4. timing  -- kernel and plain decode at 37,265 points (CUDA events), and one
-              full frame split into host conditioning, encode and decode.
+1. build    -- compile the three sources under ``deepphysinet_tpu_torch/csrc/`` with
+               nvcc, all at once, and log registers, spills and shared memory;
+2. primal   -- the primal decode kernel against its plain PyTorch version on the
+               card, at 37,265 (one 145 x 257 frame), 1,000 and 3 points, bf16 and f32;
+3. infer    -- the flagship model (configs/DeepPhysiNet_NCEP_cfg.py, random weights
+               from a seeded generator) on a seeded synthetic window:
+               ``predict_grid`` at three time offsets and ``predict_points`` at 3, 300
+               and 50,000 points, with the launch count of the kernel, output
+               checks, and one frame against the plain decode;
+4. forward  -- the v4s forward kernel (primal + three tangents) against its plain
+               version at 20,480, 4,096, 1,000 and 3 points of one flagship window,
+               bf16 and f32;
+5. backward -- the v4s backward kernel against its plain version at the same sizes
+               with seeded random cotangents, per weight; and the
+               ``torch.autograd.Function`` that joins the two kernels against
+               autograd of the plain forward (weights, ``ref_t``, the zero cotangents);
+6. train    -- the flagship training step under the ``'kernel'`` engine on a seeded
+               synthetic batch (20,480 margin + 4,096 collocation points): 3
+               data-only steps, then 3 steps with the PDE terms, with the launch
+               counts of both kernels; then, from one starting state, the
+               gradients of one PDE step under ``'kernel'`` against ``'jvp'`` (the
+               plain version under autograd);
+7. timing   -- by CUDA events, medians, alternating order: each kernel and its
+               plain version at the main path's sizes; by host clock around a
+               synchronize: one frame and one training step of each kind, split
+               into their parts;
+8. profile  -- only with ``--profile``: ``torch.profiler`` over three steps of each
+               kind and three frames, for the device's busy share.
 
 The last three lines of standard output are a JSON object with each kernel's
 numbers, the card's name and power limit, and ``{"ok": true, "device": ...}``.
@@ -24,6 +42,7 @@ Without CUDA it exits with code 1 and prints no result.
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import statistics
@@ -37,15 +56,79 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 FLAGSHIP_CFG = os.path.join(REPO, "configs", "DeepPhysiNet_NCEP_cfg.py")
 GRID_POINTS = 145 * 257
-MFLOP_PER_POINT = 6 * 2 * (192 * 256 + 256 * 256 + 192 * 256) / 1e6  # 1.97
+V4S_SIZES = (20480, 4096, 1000, 3)
+TIMING_POINTS = 20480 + 4096  # the points one PDE step decodes
 
-# Kernel against plain version, as max |kernel - plain| <= TOL * (1 + max |plain|).
+# The card's published peaks (NVIDIA H100 SXM data sheet): dense bf16 tensor-core
+# rate and HBM3 bandwidth.  A kernel's bound is the larger of its operations
+# over the first and its bytes (inputs read once, outputs written once) over
+# the second.
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES_PER_S = 3.35e12
+
+# Primal kernel against plain version, as max |kernel - plain| <= TOL * (1 + max |plain|).
 # Both sides use the same rounding points, so what is left is float32
 # summation order (the kernel sums in another order than cuBLAS): 2.9e-6 at
 # max |plain| ~ 17 on random weights, in bf16 and f32 alike.  bf16 keeps
 # room for a summation difference to flip one rounding of p (2^-8 of one of
 # 256 terms) before the w2f1 product.
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-3}
+
+# v4s forward kernel against its plain version: the primal as above; each
+# tangent output relative to its own largest value (the tangents carry the
+# folded scale 1 / (dx (lon - 1)) ~ 1e-7, so an absolute floor would hide them).
+# Same rounding points on both sides (p in f32 for the w2wo sum, the masked
+# tangents rounded once); measured 3e-6 on the primal and 2e-7 of the largest
+# tangent in both dtypes.  bf16 keeps the same room for a flipped rounding of p
+# or of a tangent.
+TOL_TANGENT = {torch.float32: 1e-5, torch.bfloat16: 1e-3}
+
+# v4s backward kernel against its plain version, per weight, as
+# max |kernel - plain| <= RTOL_BWD * max |plain| of that weight.  Both sides
+# round every operand of every product at the same places; what is left is the
+# float32 summation order, which the kernel's atomic adds change from run to run
+# (measured 2e-6 in f32 and bf16).  The JAX tests hold the f32 TPU kernel to 5e-4
+# of each weight's largest cotangent; f32 here is held to 1e-4.  bf16 gets 2e-3:
+# a summation difference upstream may flip the bf16 rounding of an operand
+# (2^-9 relative of one term of a sum over up to 20,480 points).
+RTOL_BWD = {torch.float32: 1e-4, torch.bfloat16: 2e-3}
+
+# One PDE step under 'kernel' against 'jvp', from the seeded starting state.  The
+# forwards agree to the kernel tolerance, so the losses do (RTOL_STEP_LOSS).  The
+# gradients are compared per parameter, relative to that parameter's largest
+# gradient entry, three ways, and the script prints all three readings:
+#   'same forward'   'kernel' against 'jvp' carrying the kernel's forward values to
+#                    the last bit, so that both backwards get the same cotangents:
+#                    what is left is the backward kernel against autograd;
+#   'forward alone'  'jvp' carrying the kernel's forward values against 'jvp': what
+#                    the forwards' last-bit difference alone does to the gradients.
+#                    The residuals are differences of large terms (the gas law
+#                    subtracts two pressures of 1e5 Pa), so it is far above float32
+#                    rounding on the density net, whose gradient is a small share
+#                    of the norm;
+#   'run to run'     two runs of 'kernel', which differ by the order of the backward
+#                    kernel's atomic adds.
+# Limits as (gradient norm, 'same forward'); 'kernel' against 'jvp' is held to
+# STEP_TIMES_EXPLAINED times the larger of 'forward alone' and 'run to run'.  Measured
+# on an H100, with float32 compute: 'kernel' against 'jvp' 3.71e-3 and 'forward alone'
+# 3.72e-3 on the same density-net parameters, 'same forward' 7.1e-6, 'run to run'
+# 2.1e-6.  The two backwards do the same arithmetic in another order, so 'same
+# forward' has the backward kernel's own limit.  With bf16 compute: 1.54e-2,
+# 1.53e-2, 9.6e-3 and 6.3e-3.  There the backwards round the cotangents at different
+# places (the backward kernel rounds g_rp, g_rt, g_z, g_tz as product inputs, as the
+# TPU kernel does; autograd rounds where the plain forward cast), and bf16 autograd
+# through the fusion and the encoder amplifies any difference, because a changed
+# input flips roundings of 2^-9; 'same forward' (None) is held to the multiple too.
+RTOL_STEP_LOSS = 1e-4
+RTOL_STEP = {torch.float32: (1e-4, RTOL_BWD[torch.float32]), torch.bfloat16: (5e-3, None)}
+STEP_TIMES_EXPLAINED = 2.0
+# A parameter's gradient is noise, not signal, when last-bit changes of the forward
+# alone move it by more than this share of its largest entry under 'jvp' (signal
+# moves by under 1e-2).  Softmax is invariant to the key-projection bias, so
+# its exact gradient is zero and what autograd returns is rounding.  Such a
+# parameter is held to ZERO_GRAD_NOISE of the gradient norm under both engines.
+NOISE_SHARE = 0.1
+ZERO_GRAD_NOISE = 1e-5
 
 
 def log(msg: str) -> None:
@@ -69,18 +152,46 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def alternating_ms(kernel_fn, plain_fn, iters: int):
+    """Median ms of kernel and plain version over four runs each, in turns."""
+    for fn in (kernel_fn, plain_fn):
+        for _ in range(2):
+            fn()
+    times = {"kernel": [], "plain": []}
+    for name in ("plain", "kernel", "kernel", "plain", "plain", "kernel", "kernel", "plain"):
+        times[name].append(cuda_ms(kernel_fn if name == "kernel" else plain_fn, iters))
+    return statistics.median(times["kernel"]), statistics.median(times["plain"]), times
+
+
+def host_ms(fn) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def bound(flops: float, nbytes: float):
+    """(least ms the card could take, what bounds it)."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def tensor_bytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    from deepphysinet_tpu.config import Config
-    from deepphysinet_tpu_torch.data.window import synthetic_window
+    from deepphysinet_tpu_torch.config import Config
+    from deepphysinet_tpu_torch.data.window import synthetic_batch, synthetic_window
     from deepphysinet_tpu_torch.inference import runner
-    from deepphysinet_tpu_torch.models.init import init_parameters
-    from deepphysinet_tpu_torch.models.physics_net import PhysicsNet
     from deepphysinet_tpu_torch.ops import cuda_build
     from deepphysinet_tpu_torch.ops import decode_kernel as dk
-    from deepphysinet_tpu_torch.physics.engine import _kernel_inputs
+    from deepphysinet_tpu_torch.physics import engine
+    from deepphysinet_tpu_torch.train import train_step as ts
     from deepphysinet_tpu_torch.train.point_fn import inverse_norm_stack_t
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -91,27 +202,37 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     # ---- 1. build ------------------------------------------------------------
+    sources = (dk.SOURCE, dk.SOURCE_JVP_V4S, dk.SOURCE_BWD_V4S)
     t0 = time.perf_counter()
+    cuda_build.build_libraries(sources)
     dk._library()
-    log(f"[build] {dk.SOURCE} built and loaded in {time.perf_counter() - t0:.1f} s")
-    for line in cuda_build.BUILD_LOGS.get(dk.SOURCE, "").splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            log(f"[build] {line.strip()}")
+    dk._library_v4s(dk.SOURCE_JVP_V4S)
+    dk._library_v4s(dk.SOURCE_BWD_V4S)
+    log(f"[build] {', '.join(sources)} built together and loaded in {time.perf_counter() - t0:.1f} s")
+    for source in sources:
+        for line in cuda_build.BUILD_LOGS.get(source, "").splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                log(f"[build] {source}: {line.strip()}")
 
-    # ---- set-up: flagship model and window -------------------------------------
+    # ---- set-up: flagship model, window and batch ---------------------------------
     cfg = Config.fromfile(FLAGSHIP_CFG)["config"]
     cd = torch.bfloat16 if cfg["train_cfg"]["tpu"]["compute_dtype"] == "bfloat16" else torch.float32
-    model = PhysicsNet(cfg["meta_cfg"], cfg["net_cfg"], compute_dtype=cd, device=dev)
-    init_parameters(model, torch.Generator().manual_seed(0))
-    model.eval()
+    state = ts.create_train_state(cfg["meta_cfg"], cfg["net_cfg"], cfg["train_cfg"]["optimizer"],
+                                  torch.Generator().manual_seed(0), compute_dtype=cd, device=dev)
+    model = state.model
     window = synthetic_window(cfg, seed=0)
     dcfg = runner.decode_config_from_cfg(cfg)
+    scfg = ts.step_config_from_cfg(cfg)
+    batch = ts.batch_to_device(synthetic_batch(cfg, seed=0), device=dev)
     field = torch.from_numpy(window.field[None]).to(dev)
+    n_vars = len(dcfg.obs_specs)
     log(f"[setup] field {tuple(field.shape)}, NWP cube {window.nwp_cube.shape}, "
-        f"{sum(p.numel() for p in model.parameters())} parameters, compute {cd}")
+        f"{sum(p.numel() for p in model.parameters())} parameters, compute {cd}; batch "
+        f"{batch.margin.x.shape[1]} margin + {batch.inter.x.shape[1]} collocation points, "
+        f"engine {scfg.pde_engine!r}, optimizer {cfg['train_cfg']['optimizer']}")
 
     def frame_inputs(time_h: float, dtype):
-        """Kernel inputs of one full-grid frame (the main path's shapes)."""
+        """Primal-kernel inputs of one full-grid frame (the inference path's shapes)."""
         xs, ys = np.meshgrid(np.arange(257.0), np.arange(145.0))
         px, py, pt, nwp, _ = window.get_margin_grid(xs.ravel(), ys.ravel(), np.full(xs.size, time_h))
         coords = torch.from_numpy(np.stack([px, py, pt], -1)).to(dev)
@@ -120,12 +241,12 @@ def main() -> int:
         tokens = runner._encode(model, field, fh_norm)
         fh = torch.tensor([fh_norm], device=dev)
         with torch.no_grad():
-            weights, pe, cd_pe = _kernel_inputs(model, tokens, coords, nwp_t, fh, dcfg.coord_spec)
+            weights, pe, cd_pe = engine._kernel_inputs(model, tokens, coords, nwp_t, fh, dcfg.coord_spec)
         fw = dk.fuse_decode_weights(weights)
         return fw, pe.to(dtype), cd_pe.to(dtype), nwp_t.t().contiguous()
 
-    # ---- 2. kernel against plain version ------------------------------------------
-    errs = {}
+    # ---- 2. primal kernel against plain version -------------------------------------
+    errs, rel_errs = {}, {}  # absolute; and as a share of what the tolerance is stated in
     for dtype in (torch.bfloat16, torch.float32):
         fw, pe, cd_pe, ref_t = frame_inputs(6.5, dtype)
         for n in (GRID_POINTS, 1000, 3):
@@ -135,15 +256,16 @@ def main() -> int:
             want = dk.decode_primal_v4t_ref(fw, pe[:n], cd_pe[:n], ref_t[:, :n], dtype)
             err = float((got - want).abs().max())
             scale = float(want.abs().max())
-            bound = TOL[dtype] * (1.0 + scale)
-            errs[(dtype, n)] = err
-            log(f"[kernel] {str(dtype):15s} N={n:6d}: max|kernel-plain| {err:.3e} "
-                f"(max|plain| {scale:.3f}, bound {bound:.3e})")
-            if not (got.shape == (6, n) and torch.isfinite(got).all() and err <= bound):
+            limit = TOL[dtype] * (1.0 + scale)
+            errs[(dtype, n)], rel_errs[(dtype, n)] = err, err / (1.0 + scale)
+            log(f"[primal] {str(dtype):15s} N={n:6d}: max|kernel-plain| {err:.3e} "
+                f"(max|plain| {scale:.3f}, bound {limit:.3e})")
+            if not (got.shape == (6, n) and torch.isfinite(got).all() and err <= limit):
                 raise AssertionError(f"decode kernel disagrees with its plain version "
-                                     f"({dtype}, N={n}): {err} > {bound}")
+                                     f"({dtype}, N={n}): {err} > {limit}")
 
-    # ---- 3. the slice ------------------------------------------------------------------
+    # ---- 3. the inference slice ---------------------------------------------------------
+    model.eval()
     rng = np.random.RandomState(1)
     queries = []
     for n in (3, 300, 50000):
@@ -155,11 +277,11 @@ def main() -> int:
              for h in (0.0, 6.5, 23.0)}
     points = [runner.predict_points(model, dcfg, window, field, window.forecast_h, *q) for q in queries]
     torch.cuda.synchronize()
-    launches = dk.decode_primal_v4t.launches
+    primal_launches = dk.decode_primal_v4t.launches
     expected = 3 + 1 + 1 + 2  # 50,000 points decode in two chunks of at most 40,960
-    log(f"[slice] decode kernel launches in the main path: {launches} (expected {expected})")
-    if launches != expected:
-        raise AssertionError(f"main path launched the decode kernel {launches} times, not {expected}")
+    log(f"[infer] decode kernel launches in the inference path: {primal_launches} (expected {expected})")
+    if primal_launches != expected:
+        raise AssertionError(f"inference launched the decode kernel {primal_launches} times, not {expected}")
 
     bounds = [cfg["obs_norm_cfg"][k].get("bound") for k in ("u10", "v10", "pres", "t2", "q2", "rio")]
     for h, g in grids.items():
@@ -168,14 +290,14 @@ def main() -> int:
                 raise AssertionError(f"grid {k} at {h} h: shape {a.shape}, finite {np.isfinite(a).all()}")
             if i >= 2 and not (bounds[i][0] <= a.min() and a.max() <= bounds[i][1]):
                 raise AssertionError(f"grid {k} at {h} h outside its clip bounds {bounds[i]}")
-        log(f"[slice] grid at {h:4.1f} h: " + ", ".join(f"{k} {a.mean():.4g}" for k, a in g.items()))
+        log(f"[infer] grid at {h:4.1f} h: " + ", ".join(f"{k} {a.mean():.4g}" for k, a in g.items()))
     for q, p in zip(queries, points):
         if p.shape != (len(q[0]), 6) or not np.isfinite(p).all():
             raise AssertionError(f"points: shape {p.shape}")
         for i in range(2, 6):
             if not (bounds[i][0] <= p[:, i].min() and p[:, i].max() <= bounds[i][1]):
                 raise AssertionError(f"points column {i} outside its clip bounds {bounds[i]}")
-        log(f"[slice] {len(q[0])} points -> {p.shape}, mean T {p[:, 3].mean():.4g} K")
+        log(f"[infer] {len(q[0])} points -> {p.shape}, mean T {p[:, 3].mean():.4g} K")
 
     # one frame through the plain decode, called explicitly
     fw, pe, cd_pe, ref_t = frame_inputs(6.5, cd)
@@ -184,31 +306,260 @@ def main() -> int:
     stds = np.array([s.norm_factor[1] for s in dcfg.obs_specs])[:, None]
     frame = np.stack([grids[6.5][k].reshape(-1) for k in grids[6.5]])
     frame_err = float((np.abs(frame - plain) / stds).max())  # in normalized units
-    bound = TOL[cd] * (1.0 + float(plain_norm.abs().max()))
-    log(f"[slice] frame at 6.5 h against the plain decode: max error {frame_err:.3e} "
-        f"normalized units (bound {bound:.3e})")
-    if frame_err > bound:
-        raise AssertionError(f"frame disagrees with the plain decode: {frame_err} > {bound}")
+    limit = TOL[cd] * (1.0 + float(plain_norm.abs().max()))
+    log(f"[infer] frame at 6.5 h against the plain decode: max error {frame_err:.3e} "
+        f"normalized units (bound {limit:.3e})")
+    if frame_err > limit:
+        raise AssertionError(f"frame disagrees with the plain decode: {frame_err} > {limit}")
+    model.train()
 
-    # ---- 4. timing -----------------------------------------------------------------------
+    # ---- v4s inputs of one flagship window (the training path's shapes) ---------------------
+    def v4s_inputs(n: int, dtype):
+        """Fused weights, trig operand, cd PE and reference values of the first n margin points."""
+        with torch.no_grad():
+            fh_norm = (batch.forecast_h / scfg.forecast_time_period)[:, None]
+            tokens = model.encode(batch.field, fh_norm)[0]
+            pts = batch.margin if n <= batch.margin.x.shape[1] else None
+            if pts is None:  # the timing size: margin and collocation points together
+                pts = ts.PointBatch(*(torch.cat([a, b], dim=1) for a, b in zip(batch.margin, batch.inter)))
+            coords = torch.stack([pts.x[0, :n], pts.y[0, :n], pts.t[0, :n]], dim=-1)
+            nwp = pts.nwp[0, :n]
+            weights, pe_cm, cd_pe = engine._kernel_inputs_s(model, tokens, coords, nwp, fh_norm[0],
+                                                            scfg.coord_spec)
+            fw6 = dk.fuse_v6_from_v4(dk.fuse_decode_weights(weights), scfg.coord_spec)
+        return fw6, pe_cm.to(dtype), cd_pe.to(dtype), nwp.t().contiguous()
+
+    def cotangents(n: int, seed: int):
+        g = np.random.RandomState(seed)
+        return (torch.from_numpy(g.randn(n_vars, n).astype(np.float32)).to(dev),
+                torch.from_numpy(g.randn(3, n_vars, n).astype(np.float32)).to(dev))
+
+    # ---- 4. v4s forward kernel against plain version -------------------------------------------
+    fwd_err, fwd_rel, bwd_err, bwd_rel = {}, {}, {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for n in V4S_SIZES:
+            fw6, pe_cm, cd_pe, ref_t = v4s_inputs(n, dtype)
+            p, t = dk.fused_decode_jvp_v4s(fw6, pe_cm, cd_pe, ref_t, dtype)
+            torch.cuda.synchronize()
+            p0, t0_ = dk.decode_jvp_v4s_ref(fw6, pe_cm, cd_pe, ref_t, dtype)
+            e_p, s_p = float((p - p0).abs().max()), float(p0.abs().max())
+            lim_p = TOL[dtype] * (1.0 + s_p)
+            ok = p.shape == (n_vars, n) and t.shape == (3, n_vars, n) and bool(
+                torch.isfinite(p).all() and torch.isfinite(t).all()) and e_p <= lim_p
+            e_t = []
+            for k in range(3):
+                e, s = float((t[k] - t0_[k]).abs().max()), float(t0_[k].abs().max())
+                e_t.append(e / s)
+                ok = ok and e <= TOL_TANGENT[dtype] * s
+            fwd_err[(dtype, n)] = max(e_p, float((t - t0_).abs().max()))
+            fwd_rel[(dtype, n)] = max(e_p / (1.0 + s_p), *e_t)
+            log(f"[forward] {str(dtype):15s} N={n:6d}: primal max|kernel-plain| {e_p:.3e} (max|plain| "
+                f"{s_p:.3f}, bound {lim_p:.3e}); tangents x, y, t relative to their largest: "
+                + ", ".join(f"{e:.2e}" for e in e_t) + f" (bound {TOL_TANGENT[dtype]:.0e})")
+            if not ok:
+                raise AssertionError(f"v4s forward kernel disagrees with its plain version ({dtype}, N={n})")
+
+    # ---- 5. v4s backward kernel against plain version -------------------------------------------
+    for dtype in (torch.bfloat16, torch.float32):
+        for n in V4S_SIZES:
+            fw6, pe_cm, cd_pe, _ = v4s_inputs(n, dtype)
+            g_p, g_t = cotangents(n, seed=n)
+            got = dk.decode_bwd_kernel_v4s(fw6, pe_cm, cd_pe, g_p, g_t, dtype)
+            again = dk.decode_bwd_kernel_v4s(fw6, pe_cm, cd_pe, g_p, g_t, dtype)
+            torch.cuda.synchronize()
+            want = dk.decode_bwd_v4s_ref(fw6, pe_cm, cd_pe, g_p, g_t, dtype)
+            rel, worst_abs, rerun = {}, 0.0, 0.0
+            for name in got._fields:
+                a, b = getattr(got, name), getattr(want, name)
+                scale = float(b.abs().max())
+                err = float((a - b).abs().max())
+                worst_abs = max(worst_abs, err)
+                rel[name] = err / scale if scale > 0 else err
+                rerun = max(rerun, float((getattr(again, name) - a).abs().max()) / max(scale, 1e-30))
+                if a.shape != b.shape or not torch.isfinite(a).all() or err > RTOL_BWD[dtype] * scale:
+                    raise AssertionError(f"v4s backward kernel disagrees with its plain version "
+                                         f"({dtype}, N={n}, {name}): {err} > {RTOL_BWD[dtype]} * {scale}")
+            worst = max(rel, key=rel.get)
+            bwd_err[(dtype, n)], bwd_rel[(dtype, n)] = worst_abs, rel[worst]
+            log(f"[backward] {str(dtype):15s} N={n:6d}: per weight max|kernel-plain| / max|plain| at most "
+                f"{rel[worst]:.2e} ({worst}; bound {RTOL_BWD[dtype]:.0e}); two runs of the kernel "
+                f"differ by {rerun:.1e} (atomic adds)")
+
+    # the autograd.Function against autograd of the plain forward, f32
+    fw6, pe_cm, cd_pe, ref_t = v4s_inputs(1000, torch.float32)
+    g_p, g_t = cotangents(1000, seed=7)
+
+    def weight_grads(fn):
+        leaves = dk.FusedDecodeWeightsV6(*(w.detach().clone().requires_grad_(True) for w in fw6))
+        pts = [x.detach().clone().requires_grad_(True) for x in (pe_cm, cd_pe, ref_t)]
+        p, t = fn(leaves, *pts)
+        ((p * g_p).sum() + (t * g_t).sum()).backward()
+        return leaves, pts
+
+    counts = dk.fused_decode_jvp_v4s.launches, dk.decode_bwd_kernel_v4s.launches
+    w_k, pts_k = weight_grads(lambda w, a, b, c: dk.fused_decode_jvp_v4s_kbwd(w, a, b, c, torch.float32))
+    if (dk.fused_decode_jvp_v4s.launches, dk.decode_bwd_kernel_v4s.launches) != (counts[0] + 1, counts[1] + 1):
+        raise AssertionError("FusedDecodeJvpV4s did not launch one forward and one backward kernel")
+    w_x, pts_x = weight_grads(lambda w, a, b, c: dk.decode_jvp_v4s_ref(w, a, b, c, torch.float32))
+    worst = 0.0
+    for name, a, b in zip(fw6._fields, w_k, w_x):
+        rel = float((a.grad - b.grad).abs().max()) / float(b.grad.abs().max())
+        worst = max(worst, rel)
+        if rel > RTOL_BWD[torch.float32]:
+            raise AssertionError(f"FusedDecodeJvpV4s: cotangent of {name} off by {rel}")
+    if not torch.equal(pts_k[2].grad, g_p):
+        raise AssertionError("FusedDecodeJvpV4s: the ref_t cotangent is not g_primal_t")
+    if pts_k[0].grad.any() or pts_k[1].grad.any() or not pts_x[0].grad.any():
+        raise AssertionError("FusedDecodeJvpV4s: pe_cm / cd_pe cotangents must be zeros")
+    log(f"[backward] autograd.Function against autograd of the plain forward (f32, N=1000): weights "
+        f"within {worst:.2e} of their largest cotangent; g_ref_t = g_primal_t; pe_cm, cd_pe zeros")
+
+    # ---- 6. the training slice ---------------------------------------------------------------------
+    # one PDE step's loss and gradients under 'kernel' against 'jvp', from the seeded
+    # starting state (before any update, so that every run compares the same state)
+    def plain_on_kernel_forward(fw6, pe_cm, cd_pe, ref_t, cdt):
+        """The plain forward's graph carrying the kernel's forward values to the last bit."""
+        p, t = dk.decode_jvp_v4s_ref(fw6, pe_cm, cd_pe, ref_t, cdt)
+        with torch.no_grad():
+            p_k, t_k = dk.fused_decode_jvp_v4s(fw6, pe_cm, cd_pe, ref_t, cdt)
+        return p_k + (p - p.detach()), t_k + (t - t.detach())
+
+    def engine_gradients(model_, name):
+        twin = copy.deepcopy(model_)
+        plain_forward = engine.decode_jvp_v4s_ref
+        if name == "jvp on kernel forward":
+            engine.decode_jvp_v4s_ref, name = plain_on_kernel_forward, "jvp"
+        try:
+            total, _ = ts.make_loss_fn(twin, ts.step_config_from_cfg(cfg, pde_engine=name))(batch, True)
+            total.backward()
+        finally:
+            engine.decode_jvp_v4s_ref = plain_forward
+        grads = {k: p.grad.float() for k, p in twin.named_parameters()}
+        norm = float(torch.linalg.vector_norm(torch.stack([g.norm() for g in grads.values()])))
+        return float(total.detach()), norm, grads
+
+    def compare_engines(model_, label, rtol_norm, rtol_same_forward):
+        """One PDE step's loss and gradients under 'kernel' against 'jvp' (see RTOL_STEP)."""
+        (l_k, n_k, g_k), (l_x, n_x, g_x) = engine_gradients(model_, "kernel"), engine_gradients(model_, "jvp")
+        g_k2, g_m = engine_gradients(model_, "kernel")[2], engine_gradients(model_, "jvp on kernel forward")[2]
+        largest = {k: float(g_x[k].abs().max()) for k in g_x}
+        noise = [k for k in g_x if float((g_m[k] - g_x[k]).abs().max()) > NOISE_SHARE * largest[k]]
+        noise_share = max(float(g[k].abs().max()) for g in (g_k, g_x) for k in noise) / n_x if noise else 0.0
+
+        def worst(a, b):
+            rel = {k: float((a[k] - b[k]).abs().max()) / largest[k] for k in a if k not in noise}
+            top = sorted(rel, key=rel.get, reverse=True)[:3]
+            return rel[top[0]], ", ".join(f"{k} {rel[k]:.1e}" for k in top)
+
+        engines, same_forward = worst(g_k, g_x), worst(g_k, g_m)
+        forward_alone, rerun = worst(g_m, g_x), worst(g_k, g_k2)
+        rtol_grad = STEP_TIMES_EXPLAINED * max(forward_alone[0], rerun[0])
+        if rtol_same_forward is None:
+            rtol_same_forward = rtol_grad
+        log(f"[train] one PDE step, {label}, 'kernel' against 'jvp': total loss {l_k:.8g} / {l_x:.8g} "
+            f"(relative {abs(l_k - l_x) / abs(l_x):.1e}, bound {RTOL_STEP_LOSS:.0e}); gradient norm "
+            f"{n_k:.6g} / {n_x:.6g} (relative {abs(n_k - n_x) / n_x:.1e}, bound {rtol_norm:.0e}); per "
+            f"parameter at most {engines[0]:.2e} of its largest gradient (bound {rtol_grad:.2e}, "
+            f"{STEP_TIMES_EXPLAINED:.0f} x the larger of the next two; largest: {engines[1]}); forward alone "
+            f"{forward_alone[0]:.2e} ({forward_alone[1]}); run to run {rerun[0]:.2e} ({rerun[1]}); same "
+            f"forward {same_forward[0]:.2e} (bound {rtol_same_forward:.2e}; {same_forward[1]}); "
+            f"{len(noise)} of {len(g_x)} parameters hold noise, at most {noise_share:.1e} of the gradient "
+            f"norm (bound {ZERO_GRAD_NOISE:.0e}): " + ", ".join(noise[:8]))
+        if not (abs(l_k - l_x) <= RTOL_STEP_LOSS * abs(l_x) and abs(n_k - n_x) <= rtol_norm * n_x
+                and engines[0] <= rtol_grad and same_forward[0] <= rtol_same_forward
+                and noise_share <= ZERO_GRAD_NOISE and np.isfinite(l_k) and np.isfinite(n_k)):
+            raise AssertionError(f"one PDE step under 'kernel' disagrees with one under 'jvp' ({label})")
+
+    counts = dk.fused_decode_jvp_v4s.launches, dk.decode_bwd_kernel_v4s.launches
+    compare_engines(model, f"{cd} compute", *RTOL_STEP[cd])
+    if cd != torch.float32:  # the same weights with float32 compute: no rounding to amplify
+        model32 = ts.create_train_state(cfg["meta_cfg"], cfg["net_cfg"], cfg["train_cfg"]["optimizer"],
+                                        torch.Generator().manual_seed(0), compute_dtype=torch.float32,
+                                        device=dev).model
+        compare_engines(model32, "float32 compute", *RTOL_STEP[torch.float32])
+        del model32
+    if dk.fused_decode_jvp_v4s.launches == counts[0] or dk.decode_bwd_kernel_v4s.launches == counts[1]:
+        raise AssertionError("the 'kernel' engine launched no kernel")
+    torch.cuda.empty_cache()
+
+    step = ts.make_train_step(scfg)
+    before = [p.detach().clone() for p in model.parameters()]
+    dk.fused_decode_jvp_v4s.launches = dk.decode_bwd_kernel_v4s.launches = 0
+    history = []
+    for i in range(6):
+        with_pde = i >= 3
+        counts = dk.fused_decode_jvp_v4s.launches, dk.decode_bwd_kernel_v4s.launches
+        state, metrics = step(state, batch, with_pde)
+        torch.cuda.synchronize()
+        metrics = {k: float(v) for k, v in metrics.items()}
+        history.append(metrics)
+        launched = (dk.fused_decode_jvp_v4s.launches - counts[0], dk.decode_bwd_kernel_v4s.launches - counts[1])
+        log(f"[train] step {i} ({'pde' if with_pde else 'data-only'}): total {metrics['total_loss']:.6g}, "
+            f"margin {metrics['margin_loss']:.6g}, grad_norm {metrics['grad_norm']:.6g}, forward / backward "
+            f"kernel launches {launched[0]} / {launched[1]}")
+        bad = [k for k, v in metrics.items() if not np.isfinite(v)]
+        if bad or metrics["skipped_nonfinite"] != 0.0:
+            raise AssertionError(f"train step {i}: non-finite metrics {bad}, skipped {metrics['skipped_nonfinite']}")
+        if launched != ((2, 2) if with_pde else (0, 0)):
+            raise AssertionError(f"train step {i} launched the kernels {launched} times")
+    fwd_launches, bwd_launches = dk.fused_decode_jvp_v4s.launches, dk.decode_bwd_kernel_v4s.launches
+    log(f"[train] kernel launches in the training path: forward {fwd_launches}, backward {bwd_launches} "
+        f"(expected 6 and 6); PDE metrics: " + ", ".join(
+            f"{k} {history[-1][k]:.4g}" for k in ("inter_total", "margin_total", "margin_vapor_loss", "inter_gas_loss")))
+    if (fwd_launches, bwd_launches) != (6, 6) or state.step != 6:
+        raise AssertionError("the training path did not go through the kernels as expected")
+    if not all(bool((a != b).any()) for a, b in zip(before, model.parameters())):
+        raise AssertionError("a parameter did not change in six training steps")
+    if not history[2]["margin_loss"] < history[0]["margin_loss"]:
+        raise AssertionError("the data loss did not fall over three data-only steps on one batch")
+
+    # ---- 7. timing ---------------------------------------------------------------------------------
+    hid, in_ch = cfg["net_cfg"]["hidden_channels"], cfg["net_cfg"]["in_channels"]
+    two_f = in_ch // 3
+
     fw, pe, cd_pe, ref_t = frame_inputs(6.5, cd)
-    kern = lambda: dk.decode_primal_v4t(fw, pe, cd_pe, ref_t, cd)  # noqa: E731
-    plain_fn = lambda: dk.decode_primal_v4t_ref(fw, pe, cd_pe, ref_t, cd)  # noqa: E731
-    for fn in (kern, plain_fn):
-        for _ in range(3):
-            fn()
-    times = {"kernel": [], "plain": []}
-    for name in ("plain", "kernel", "kernel", "plain", "plain", "kernel", "kernel", "plain"):
-        times[name].append(cuda_ms(kern if name == "kernel" else plain_fn, 10))
-    k_ms, p_ms = statistics.median(times["kernel"]), statistics.median(times["plain"])
-    log(f"[timing] decode at N={GRID_POINTS} {cd}: kernel {k_ms:.4f} ms "
-        f"({MFLOP_PER_POINT * GRID_POINTS / k_ms / 1e3:.2f} TFLOP/s), plain {p_ms:.4f} ms; "
-        f"runs kernel {[round(t, 4) for t in times['kernel']]} plain {[round(t, 4) for t in times['plain']]}")
+    k_ms, p_ms, times = alternating_ms(lambda: dk.decode_primal_v4t(fw, pe, cd_pe, ref_t, cd),
+                                       lambda: dk.decode_primal_v4t_ref(fw, pe, cd_pe, ref_t, cd), 10)
+    primal_flops = 2.0 * n_vars * (in_ch * hid + hid * hid + in_ch * hid) * GRID_POINTS
+    primal_out = torch.empty((n_vars, GRID_POINTS), device=dev)
+    primal_bound = bound(primal_flops, tensor_bytes(pe, cd_pe, ref_t, primal_out, *(
+        w.to(cd) if w.ndim == 3 else w for w in fw)))
+    log(f"[timing] primal decode at N={GRID_POINTS} {cd}: kernel {k_ms:.4f} ms "
+        f"({primal_flops / k_ms / 1e9:.2f} TFLOP/s), plain {p_ms:.4f} ms, bound {primal_bound[0]:.4f} ms "
+        f"({primal_bound[1]}); runs kernel {[round(t, 4) for t in times['kernel']]} "
+        f"plain {[round(t, 4) for t in times['plain']]}")
 
+    fwd_macs = in_ch * hid + 3 * two_f * hid + hid * hid + in_ch * hid + 3 * hid * hid  # per point and variable
+    bwd_macs = fwd_macs + (4 * hid * hid + in_ch * hid) + 4 * hid * hid + (in_ch * hid + 3 * two_f * hid)
+    v4s_ms = {}
+    for n in (TIMING_POINTS, 20480, 4096):
+        fw6, pe_cm, cd_pe6, ref6 = v4s_inputs(n, cd)
+        g_p, g_t = cotangents(n, seed=3)
+        f_ms, fp_ms, f_times = alternating_ms(
+            lambda: dk.fused_decode_jvp_v4s(fw6, pe_cm, cd_pe6, ref6, cd),
+            lambda: dk.decode_jvp_v4s_ref(fw6, pe_cm, cd_pe6, ref6, cd), 5)
+        b_ms, bp_ms, b_times = alternating_ms(
+            lambda: dk.decode_bwd_kernel_v4s(fw6, pe_cm, cd_pe6, g_p, g_t, cd),
+            lambda: dk.decode_bwd_v4s_ref(fw6, pe_cm, cd_pe6, g_p, g_t, cd), 5)
+        matrices = [w.to(cd) if w.ndim >= 3 else w for w in fw6]
+        f_bound = bound(2.0 * n_vars * fwd_macs * n, tensor_bytes(
+            pe_cm, cd_pe6, ref6, *matrices) + 4 * (n_vars * n + 3 * n_vars * n))
+        b_bound = bound(2.0 * n_vars * bwd_macs * n, tensor_bytes(
+            pe_cm, cd_pe6, g_p, g_t, *matrices[:-1]) + 4 * sum(w.numel() for w in fw6[:-1]))
+        v4s_ms[n] = dict(fwd=f_ms, fwd_plain=fp_ms, bwd=b_ms, bwd_plain=bp_ms, fwd_bound=f_bound, bwd_bound=b_bound)
+        log(f"[timing] v4s at N={n} {cd}: forward kernel {f_ms:.4f} ms ({2e-9 * n_vars * fwd_macs * n / f_ms:.2f} "
+            f"TFLOP/s), plain {fp_ms:.4f} ms, bound {f_bound[0]:.4f} ms ({f_bound[1]}); backward kernel "
+            f"{b_ms:.4f} ms ({2e-9 * n_vars * bwd_macs * n / b_ms:.2f} TFLOP/s), plain {bp_ms:.4f} ms, bound "
+            f"{b_bound[0]:.4f} ms ({b_bound[1]}); runs fwd {[round(t, 3) for t in f_times['kernel']]} "
+            f"bwd {[round(t, 3) for t in b_times['kernel']]}")
+    del fw6, pe_cm, cd_pe6, ref6, g_p, g_t
+
+    # one inference frame, split (host clock)
+    model.eval()
     xs, ys = np.meshgrid(np.arange(257.0), np.arange(145.0))
     fh_norm = window.forecast_h / dcfg.forecast_time_period
     split = {"host": [], "encode": [], "decode": [], "frame": []}
-    for _ in range(6):
+    for _ in range(4):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         px, py, pt, nwp, _ = window.get_margin_grid(xs.ravel(), ys.ravel(), np.full(xs.size, 6.5))
@@ -221,19 +572,133 @@ def main() -> int:
         for k, v in (("host", t1 - t0), ("encode", t2 - t1), ("decode", t3 - t2), ("frame", t3 - t0)):
             split[k].append(1e3 * v)
     split = {k: statistics.median(v[1:]) for k, v in split.items()}  # first frame is a warm-up
-    log(f"[timing] one frame (median of 5, host clock): " +
+    log("[timing] one frame (median of 3, host clock): " +
         ", ".join(f"{k} {v:.3f} ms" for k, v in split.items()) + f"; output {tuple(out.shape)}")
+    model.train()
 
-    print(json.dumps({"kernels": [{
-        "name": "decode_primal_v4t",
-        "route": "cuda",
-        "source": "deepphysinet_tpu_torch/csrc/decode_primal.cu",
-        "replaces": "deepphysinet_tpu/ops/decode_kernel.py:956",
-        "launches": launches,
-        "max_abs_err": errs[(cd, GRID_POINTS)],
-        "ms": k_ms,
-        "plain_ms": p_ms,
-    }]}))
+    # one training step of each kind (host clock around a synchronize), then split into parts
+    def whole_step(cfg_, with_pde):
+        times_ = [host_ms(lambda: step_fns[cfg_](state, batch, with_pde)) for _ in range(5)]
+        return statistics.median(times_[1:])
+
+    step_fns = {name: ts.make_train_step(ts.step_config_from_cfg(cfg, pde_engine=name))
+                for name in ("kernel", "jvp")}
+    whole = {"pde kernel": whole_step("kernel", True), "pde jvp": whole_step("jvp", True),
+             "data-only": whole_step("kernel", False)}
+    log("[timing] one training step (median of 4, host clock): " +
+        ", ".join(f"{k} {v:.3f} ms" for k, v in whole.items()))
+
+    def split_step(engine_name: str, with_pde: bool):
+        """The step's parts, each ended by a synchronize; mirrors train_step for one window."""
+        scfg_ = ts.step_config_from_cfg(cfg, pde_engine=engine_name)
+        pred_loss = ts.build_loss(scfg_.prediction_loss, beta=scfg_.prediction_beta)
+        factors = scfg_.factors()
+        parts, box = {}, {}
+        state.optimizer.zero_grad(set_to_none=True)
+
+        def encode():
+            fh = (batch.forecast_h / scfg_.forecast_time_period)[:, None]
+            box["fh"], box["tokens"] = fh[0], model.encode(batch.field, fh)[0]
+
+        def decode():
+            if with_pde:
+                for key, pts in (("margin", batch.margin), ("inter", batch.inter)):
+                    coords = torch.stack([pts.x[0], pts.y[0], pts.t[0]], dim=-1)
+                    box[key] = engine.fused_kernel_fields_t(model, box["tokens"], coords, pts.nwp[0], box["fh"],
+                                                            scfg_.coord_spec, engine=engine_name)
+            else:
+                m = batch.margin
+                pe_ = ts.encode_coord(m.x[0], m.y[0], m.t[0], scfg_.coord_spec)
+                box["pred"] = model.decode(box["tokens"], pe_, m.nwp[0], box["fh"])
+
+        def losses():
+            if with_pde:
+                total = pred_loss(box["margin"][0], batch.margin.labels[0].t()) * factors["margin_factor"]
+                for key, pts in (("margin", batch.margin), ("inter", batch.inter)):
+                    total = total + engine.packed_residual_losses_from_primal_tangents_t(
+                        *box[key], pts.f[0], scfg_.obs_specs, factors, with_clip=True,
+                        constants=scfg_.constants)["total"]
+            else:
+                total = pred_loss(box["pred"], batch.margin.labels[0]) * factors["margin_factor"]
+            box["total"] = total
+
+        parts["encode"] = host_ms(encode)
+        parts["decode forward"] = host_ms(decode)
+        parts["assembly + loss"] = host_ms(losses)
+        parts["backward"] = host_ms(lambda: box["total"].backward())
+        parts["clip + optimizer"] = host_ms(lambda: ts.apply_gradient_update(scfg_, state, {}))
+        return parts
+
+    for label, engine_name, with_pde in (("pde kernel", "kernel", True), ("pde jvp", "jvp", True),
+                                         ("data-only", "kernel", False)):
+        runs = [split_step(engine_name, with_pde) for _ in range(4)][1:]
+        parts = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+        log(f"[timing] {label} step split (median of 3, host clock, a synchronize after each part): " +
+            ", ".join(f"{k} {v:.3f} ms" for k, v in parts.items()) + f"; sum {sum(parts.values()):.3f} ms")
+    log(f"[timing] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # ---- 8. profile (only with --profile): the device's busy share and its largest kernels ----
+    if "--profile" in sys.argv[1:]:
+        from torch.profiler import ProfilerActivity, profile
+
+        def one_frame():
+            model.eval()
+            runner.predict_grid(model, dcfg, window, field, window.forecast_h, 6.5)
+            model.train()
+
+        from torch.autograd import DeviceType
+
+        for label, fn, plain_wall in (
+                ("pde kernel step", lambda: step_fns["kernel"](state, batch, True), whole["pde kernel"]),
+                ("pde jvp step", lambda: step_fns["jvp"](state, batch, True), whole["pde jvp"]),
+                ("data-only step", lambda: step_fns["kernel"](state, batch, False), whole["data-only"]),
+                ("frame", one_frame, split["frame"])):
+            fn()
+            torch.cuda.synchronize()
+            reps = 3
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                wall = host_ms(lambda: [fn() for _ in range(reps)]) / reps
+            # device-side events only: a host-side operator also carries its kernels' time,
+            # and an annotation mirrored onto the device's timeline spans kernels counted already
+            events = [e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+            busy = sum(e.self_device_time_total for e in events) / 1e3 / reps
+            if not busy > 0:
+                raise AssertionError(f"the profiler saw no device time in the {label}")
+            top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:6]
+            log(f"[profile] {label}: device busy {busy:.3f} ms in {sum(e.count for e in events) / reps:.0f} "
+                f"kernels and copies; {plain_wall:.3f} ms unprofiled (idle {100 * (1 - busy / plain_wall):.1f}%), "
+                f"{wall:.3f} ms under the profiler; largest: " + "; ".join(
+                    f"{e.key[:60]} {e.self_device_time_total / 1e3 / reps:.3f} ms x{e.count / reps:.0f}"
+                    for e in top))
+
+    # max_abs_err is over all outputs together; max_rel_err is the number held to the
+    # tolerance: of 1 + max|plain| (primal), of each tangent's or weight's own largest value
+    main_n = 20480  # the larger of the two launches of a PDE step
+    t = v4s_ms[main_n]
+    print(json.dumps({"kernels": [
+        {"name": "decode_primal_v4t", "route": "cuda",
+         "source": "deepphysinet_tpu_torch/csrc/decode_primal.cu",
+         "replaces": "deepphysinet_tpu/ops/decode_kernel.py:956",
+         "launches": primal_launches, "max_abs_err": errs[(cd, GRID_POINTS)],
+         "max_rel_err": rel_errs[(cd, GRID_POINTS)],
+         "ms": k_ms, "plain_ms": p_ms, "bound_ms": primal_bound[0], "bound_by": primal_bound[1],
+         "library_ms": None},
+        {"name": "fused_decode_jvp_v4s", "route": "cuda",
+         "source": "deepphysinet_tpu_torch/csrc/decode_jvp_v4s.cu",
+         "replaces": "deepphysinet_tpu/ops/decode_kernel.py:2358",
+         "launches": fwd_launches, "max_abs_err": fwd_err[(cd, main_n)],
+         "max_rel_err": fwd_rel[(cd, main_n)],
+         "ms": t["fwd"], "plain_ms": t["fwd_plain"], "bound_ms": t["fwd_bound"][0],
+         "bound_by": t["fwd_bound"][1], "library_ms": None},
+        {"name": "decode_bwd_kernel_v4s", "route": "cuda",
+         "source": "deepphysinet_tpu_torch/csrc/decode_bwd_v4s.cu",
+         "replaces": "deepphysinet_tpu/ops/decode_kernel.py:2508",
+         "launches": bwd_launches, "max_abs_err": bwd_err[(cd, main_n)],
+         "max_rel_err": bwd_rel[(cd, main_n)],
+         "ms": t["bwd"], "plain_ms": t["bwd_plain"], "bound_ms": t["bwd_bound"][0],
+         "bound_by": t["bwd_bound"][1], "library_ms": None},
+    ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,0 +1,103 @@
+// Shared device code of the v4s decode kernels (decode_jvp_v4s.cu and
+// decode_bwd_v4s.cu): type conversion with the TPU kernels' rounding rule, a
+// block-level matrix product on the CUDA cores, and the block's input rows.
+//
+// Rounding rule (deepphysinet_tpu/ops/decode_kernel.py, every `dot`): both
+// operands of a product are rounded to the compute type T (bf16 for the
+// flagship, float for parity runs), the products are summed in f32.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace dpn {
+
+constexpr int HID = 256;     // hidden width; the wrappers check it
+constexpr int KT = 32;       // weight rows per shared-memory tile
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr int TN = 8;        // accumulator columns per thread, strided by 32
+
+static_assert(32 * TN == HID, "one lane per column of each 32-column group");
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// Value of x after a round trip through T (round to nearest even, as XLA's
+// and PyTorch's float32 -> bfloat16 conversion).
+template <typename T> __device__ __forceinline__ float round_to(float x);
+template <> __device__ __forceinline__ float round_to<float>(float x) { return x; }
+template <> __device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+// Register tile of the row-times-weight products ("gemm layout"): thread
+// (tx = lane, ty = warp) holds rows ty*TM + r and columns tx + 32*c.
+template <int TM> __device__ __forceinline__ void zero_tile(float (&acc)[TM][TN]) {
+#pragma unroll
+  for (int r = 0; r < TM; ++r)
+#pragma unroll
+    for (int c = 0; c < TN; ++c) acc[r][c] = 0.0f;
+}
+
+// acc += A[block rows, 0:K] . W[0:K, 0:HID].  A lives in shared memory (row
+// stride lda, element type TA, rounded to T as it is read); W [K, HID] of T
+// lives in global memory and is staged through Ws one KT-row tile at a time.
+// The barrier at the top of each tile also publishes the caller's shared
+// writes and protects Ws and A from the previous stage's readers.
+template <typename T, typename TA, int TM>
+__device__ __forceinline__ void block_gemm(const TA* As, int lda, const T* __restrict__ W,
+                                           int K, T* Ws, float (&acc)[TM][TN]) {
+  const int tid = threadIdx.x;
+  const int tx = tid & 31, ty = tid >> 5;
+  constexpr int NVEC = KT * HID * (int)sizeof(T) / 16;
+  for (int k0 = 0; k0 < K; k0 += KT) {
+    __syncthreads();
+    const uint4* src = reinterpret_cast<const uint4*>(W + (size_t)k0 * HID);
+    uint4* dst = reinterpret_cast<uint4*>(Ws);
+    for (int i = tid; i < NVEC; i += THREADS) dst[i] = src[i];
+    __syncthreads();
+#pragma unroll 2
+    for (int kk = 0; kk < KT; ++kk) {
+      float a[TM], w[TN];
+#pragma unroll
+      for (int r = 0; r < TM; ++r) a[r] = round_to<T>(to_f32(As[(ty * TM + r) * lda + k0 + kk]));
+#pragma unroll
+      for (int c = 0; c < TN; ++c) w[c] = to_f32(Ws[kk * HID + tx + 32 * c]);
+#pragma unroll
+      for (int r = 0; r < TM; ++r)
+#pragma unroll
+        for (int c = 0; c < TN; ++c) acc[r][c] = fmaf(a[r], w[c], acc[r][c]);
+    }
+  }
+}
+
+// The block's rows of the two point inputs; rows past n are zero.
+template <typename T>
+__device__ __forceinline__ void load_rows(const T* __restrict__ pe, const T* __restrict__ cd,
+                                          T* pe_s, T* cd_s, int64_t n0, int64_t n, int nb,
+                                          int in_ch) {
+  const T zero = from_f32<T>(0.0f);
+  for (int i = threadIdx.x; i < nb * in_ch; i += THREADS) {
+    const bool live = n0 + i / in_ch < n;
+    const size_t g = (size_t)n0 * in_ch + i;
+    pe_s[i] = live ? pe[g] : zero;
+    cd_s[i] = live ? cd[g] : zero;
+  }
+}
+
+}  // namespace dpn

@@ -8,13 +8,16 @@ calls (``deepphysinet_tpu/data/dataset.py``): the window's token matrix
 dataset.py:101-115), the full-grid conditioning (``get_margin_grid``), the
 Coriolis parameter, the grid axes and dx/dy.  Reading GeoTIFF trees is not
 ported yet: a window comes from ``synthetic_window`` or from arrays that an
-existing dataset produced (``Window.from_dataset``).
+existing dataset produced (``Window.from_dataset``).  ``synthetic_batch`` draws
+one training batch (margin and collocation points with their conditioning,
+Coriolis parameter and labels) at the configuration's sizes; sampling points
+from real windows on the device is not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Mapping, Tuple
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 
@@ -151,3 +154,36 @@ def synthetic_window(config: Mapping[str, Any], seed: int) -> Window:
                   in_lon=in_lon[0], in_lat=in_lat[:, 0], out_lon=out_lon[0], out_lat=out_lat[:, 0],
                   dx=float(train["dx"]), dy=float(train["dy"]),
                   input_time_step=int(data_cfg.get("input_time_step", 6)))
+
+
+def synthetic_batch(config: Mapping[str, Any], seed: int) -> Dict[str, Any]:
+    """A seeded training batch of one window at the configuration's sizes, as nested numpy arrays.
+
+    The draws of the JAX package's ``bench.py`` (:73-93): points uniform over
+    the output grid in meters, times on whole hours of the 24 h window,
+    Coriolis ``1e-4 * U[0, 1)``, conditioning values and labels ``0.1 * N(0, 1)``,
+    token matrix ``0.5 * N(0, 1)``, lead 24 h.  The flagship gives 20,480 margin
+    and 4,096 collocation points per window.  ``train.train_step.
+    batch_to_device`` turns the result into a ``Batch`` of tensors."""
+    (lat_n, lon_n), _ = _grid_shapes(config)
+    train = config["train_cfg"]
+    data_cfg = train["train_data"]
+    dx, dy = float(train["dx"]), float(train["dy"])
+    rng = np.random.RandomState(seed)
+    b = 1  # windows in the batch
+
+    def points(n: int) -> Dict[str, np.ndarray]:
+        return dict(
+            x=(rng.rand(b, n) * dx * (lon_n - 1)).astype(np.float32),
+            y=(rng.rand(b, n) * dy * (lat_n - 1)).astype(np.float32),
+            t=(rng.randint(0, 25, (b, n)) * 3600.0).astype(np.float32),
+            f=(1e-4 * rng.rand(b, n, 1)).astype(np.float32),
+            nwp=(rng.randn(b, n, 6) * 0.1).astype(np.float32),
+            labels=(rng.randn(b, n, 6) * 0.1).astype(np.float32),
+        )
+
+    margin = points(int(data_cfg["label_batch_size"]))
+    inter = points(int(data_cfg["batch_size_inter"]))
+    field = (rng.randn(b, int(config["net_cfg"]["token_num"]), int(config["meta_cfg"]["enc_in"]))
+             * 0.5).astype(np.float32)
+    return dict(field=field, forecast_h=np.full(b, 24.0, np.float32), margin=margin, inter=inter)

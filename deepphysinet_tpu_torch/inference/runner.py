@@ -22,6 +22,7 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from deepphysinet_tpu_torch.device import resolve_device
 from deepphysinet_tpu_torch.ops.coords import CoordSpec
 from deepphysinet_tpu_torch.ops.normalization import OBS_NAME_ORDER, NormSpec, norm_specs_from_cfg
 from deepphysinet_tpu_torch.physics.engine import collapsed_decode_t
@@ -80,13 +81,26 @@ def _decode_points(model, cfg: DecodeConfig, tokens, x, y, t, nwp, fh_norm: floa
     return torch.cat(outs, dim=1)
 
 
-def predict_grid(model, cfg: DecodeConfig, window, field: torch.Tensor, forecast_h: float,
+def _place_field(model, field, device) -> torch.Tensor:
+    """``field`` on the run's device; the model must already be there."""
+    device = resolve_device(device)
+    param = next(model.parameters())
+    if param.device.type != device.type or (device.index is not None
+                                            and param.device.index != device.index):
+        raise ValueError(f"the model is on {param.device}, the run on {device}")
+    return torch.as_tensor(field).to(param.device)
+
+
+def predict_grid(model, cfg: DecodeConfig, window, field, forecast_h: float,
                  time_id_hours: float, with_clip: bool = True,
-                 out_size: Optional[tuple] = None) -> Dict[str, np.ndarray]:
+                 out_size: Optional[tuple] = None, device=None) -> Dict[str, np.ndarray]:
     """Full output-grid sweep at one time offset -> {var: [lat, lon] physical}.
 
-    ``field`` is the window's token matrix [1, L, enc_in] on the model's
-    device; ``out_size=(lat, lon)`` resamples the field over the same area."""
+    ``field`` is the window's token matrix [1, L, enc_in] (array or tensor);
+    ``out_size=(lat, lon)`` resamples the field over the same area.  The run
+    is on ``device``: the first CUDA device when ``None`` (an error without
+    one), and the model must already be there."""
+    field = _place_field(model, field, device)
     lon_size, lat_size = cfg.coord_spec.lon_size, cfg.coord_spec.lat_size
     if out_size is None:
         out_lat_n, out_lon_n = lat_size, lon_size
@@ -108,10 +122,13 @@ def predict_grid(model, cfg: DecodeConfig, window, field: torch.Tensor, forecast
     return {name: phys[i].reshape(out_lat_n, out_lon_n) for i, name in enumerate(_VAR_KEYS)}
 
 
-def predict_points(model, cfg: DecodeConfig, window, field: torch.Tensor, forecast_h: float,
+def predict_points(model, cfg: DecodeConfig, window, field, forecast_h: float,
                    lon: np.ndarray, lat: np.ndarray, t_hours: np.ndarray,
-                   with_clip: bool = True) -> np.ndarray:
-    """Continuous (station) queries at (lon, lat, hours into the window) -> [N, 6] physical."""
+                   with_clip: bool = True, device=None) -> np.ndarray:
+    """Continuous (station) queries at (lon, lat, hours into the window) -> [N, 6] physical.
+
+    ``device`` as in ``predict_grid``."""
+    field = _place_field(model, field, device)
     lon, lat, t_hours = np.asarray(lon), np.asarray(lat), np.asarray(t_hours)
     x = (lon - window.begin_lon) / window.fine_lon_step * window.dx
     y = (lat - window.begin_lat) / window.fine_lat_step * window.dy

@@ -14,6 +14,7 @@ from typing import Any, Dict, Tuple
 import torch
 from torch import nn
 
+from deepphysinet_tpu_torch.device import resolve_device
 from deepphysinet_tpu_torch.models.transformer_net import TransformerNet
 from deepphysinet_tpu_torch.models.variable_net import VariableNet
 
@@ -33,13 +34,18 @@ class MetaNet(nn.Module):
 
 
 class PhysicsNet(nn.Module):
+    """``device=None`` places the parameters on the first CUDA device and raises
+    when there is none; pass ``device="cpu"`` to build the model on the CPU."""
+
     def __init__(self, meta_cfg: Dict[str, Any], net_cfg: Dict[str, Any],
                  compute_dtype=torch.float32, device=None):
         super().__init__()
+        device = resolve_device(device)
         self.net_cfg = dict(net_cfg)
         self.compute_dtype = compute_dtype
         meta = {k: v for k, v in dict(meta_cfg).items()
                 if k not in ("name", "dropout", "output_attention")}
+        self.net_cfg.pop("name", None)
         self.meta_net = MetaNet(TransformerNet(compute_dtype=compute_dtype, device=device, **meta))
         for name in VARIABLE_NETS:
             setattr(self, name, VariableNet(

@@ -2,18 +2,20 @@
 
 Each ``csrc/*.cu`` file has a plain C interface and is built into its own
 shared library under ``csrc/build/`` (listed in ``.gitignore``) at first use,
-and again whenever the source is newer than the library.  Nothing is built at
+and again whenever the source or a shared header (``csrc/*.cuh``) is newer
+than the library.  ``build_libraries`` builds several sources at once.  Nothing is built at
 import time, and nothing here runs on a machine without a GPU.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import os
 import shutil
 import subprocess
 import threading
-from typing import Dict
+from typing import Dict, Sequence
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(CSRC_DIR, "build")
@@ -37,19 +39,43 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: put it on PATH or set CUDA_HOME")
 
 
+def _paths(source: str):
+    return (os.path.join(CSRC_DIR, source),
+            os.path.join(BUILD_DIR, os.path.splitext(source)[0] + ".so"))
+
+
+def _stale(src: str, so: str) -> bool:
+    """True when the library is missing or older than its source or a shared header."""
+    if not os.path.exists(so):
+        return True
+    deps = [src] + [os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR) if f.endswith(".cuh")]
+    return os.path.getmtime(so) < max(os.path.getmtime(d) for d in deps)
+
+
+def _build(source: str) -> None:
+    src, so = _paths(source)
+    tmp = f"{so}.{os.getpid()}.tmp"
+    res = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", tmp, src], capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed (exit {res.returncode}) on {source}:\n"
+                           f"{res.stdout[-2000:]}{res.stderr[-6000:]}")
+    BUILD_LOGS[source] = res.stdout + res.stderr
+    os.replace(tmp, so)
+
+
+def build_libraries(sources: Sequence[str]) -> None:
+    """Build every stale ``csrc/<source>``, one nvcc per source, all started together."""
+    with _LOCK:
+        todo = [s for s in sources if _stale(*_paths(s))]
+        if not todo:
+            return
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        with concurrent.futures.ThreadPoolExecutor(len(todo)) as pool:
+            for done in [pool.submit(_build, s) for s in todo]:
+                done.result()
+
+
 def load_library(source: str) -> ctypes.CDLL:
     """Build ``csrc/<source>`` if needed and return the loaded library."""
-    with _LOCK:
-        src = os.path.join(CSRC_DIR, source)
-        so = os.path.join(BUILD_DIR, os.path.splitext(source)[0] + ".so")
-        if not (os.path.exists(so) and os.path.getmtime(so) >= os.path.getmtime(src)):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{so}.{os.getpid()}.tmp"
-            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed (exit {res.returncode}) on {source}:\n"
-                                   f"{res.stdout[-2000:]}{res.stderr[-6000:]}")
-            BUILD_LOGS[source] = res.stdout + res.stderr
-            os.replace(tmp, so)
-        return ctypes.CDLL(so)
+    build_libraries([source])
+    return ctypes.CDLL(_paths(source)[1])

@@ -1,33 +1,47 @@
-"""Collapsed primal decode: per-window weight fusion and the Hopper kernel.
+"""Collapsed decode: per-window weight fusion and the Hopper kernels.
 
-Counterpart of the inference parts of ``deepphysinet_tpu/ops/decode_kernel.py``:
+Counterpart of the parts of ``deepphysinet_tpu/ops/decode_kernel.py`` that the
+inference path and the flagship training step run:
 
 * ``DecodeWeights`` / ``extract_decode_weights`` (:59-115): the effective
   decode weights of one window, generated from the encoder tokens (float32
   einsums, unlike VariableNet's compute-dtype dense layers);
 * ``FusedDecodeWeights`` / ``fuse_decode_weights`` (:480-525): the collapsed
   v4 algebra, which folds the trunk's second layer and the scalar head into
-  per-window matrices (the tangent rows ``w1c`` belong to the jvp kernels and
-  are not ported yet);
+  per-window matrices (the tangent rows ``w1c`` belong to the v4 / v4t jvp
+  kernels and are not ported);
 * ``pe_primal``: the primal half of ``pe_and_tangents`` (:118-155);
 * ``decode_primal_v4t``: the var-major primal decode, backed by the CUDA
   kernel ``csrc/decode_primal.cu`` on GPU tensors and by its plain version
   ``decode_primal_v4t_ref`` (a mirror of ``decode_xla_v4t_primal``,
-  :1053-1082) on CPU tensors.
+  :1053-1082) on CPU tensors;
+* the v4s pair of the training step (:2341-2722): ``trig_cm_inputs``,
+  ``FusedDecodeWeightsV6`` / ``fuse_v6_from_v4``, the forward
+  ``fused_decode_jvp_v4s`` (``csrc/decode_jvp_v4s.cu``; plain version
+  ``decode_jvp_v4s_ref``), the backward ``decode_bwd_kernel_v4s``
+  (``csrc/decode_bwd_v4s.cu``; plain version ``decode_bwd_v4s_ref``) and
+  ``FusedDecodeJvpV4s``, the ``torch.autograd.Function`` that joins them.
+
+Every wrapper picks by device: a CUDA tensor launches the kernel or raises, a
+CPU tensor takes the plain version.  Each wrapper counts its launches in its
+``launches`` attribute.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 from deepphysinet_tpu_torch.ops.position_encoding import make_freq_bands, sinecos_pe
 from deepphysinet_tpu_torch.ops.precision import dot_f32
 
 SOURCE = "decode_primal.cu"
+SOURCE_JVP_V4S = "decode_jvp_v4s.cu"
+SOURCE_BWD_V4S = "decode_bwd_v4s.cu"
 
 
 class DecodeWeights(NamedTuple):
@@ -125,17 +139,21 @@ def fuse_decode_weights(w: DecodeWeights) -> FusedDecodeWeights:
     )
 
 
+def coord_scales(coord_spec, device=None) -> torch.Tensor:
+    """d(normalized coord)/d(physical coord) for (x, y, t) -- [3] float32."""
+    return torch.tensor(
+        [1.0 / (coord_spec.dx * (coord_spec.lon_size - 1)),
+         1.0 / (coord_spec.dy * (coord_spec.lat_size - 1)),
+         1.0 / coord_spec.pred_t_span], dtype=torch.float32, device=device)
+
+
 def pe_primal(coords: torch.Tensor, coord_spec, dtype=torch.float32) -> torch.Tensor:
     """SineCos PE of physical (x, y, t) [N, 3] -> [N, 2F*3] in ``dtype``.
 
     The primal half of the JAX ``pe_and_tangents``: it normalizes with the
     product ``coords * scales`` (not ``encode_coord``'s divisions), so the
     angles round the same way as on the JAX decode path."""
-    scales = torch.tensor(
-        [1.0 / (coord_spec.dx * (coord_spec.lon_size - 1)),
-         1.0 / (coord_spec.dy * (coord_spec.lat_size - 1)),
-         1.0 / coord_spec.pred_t_span], dtype=torch.float32, device=coords.device)
-    cn = coords.float() * scales  # [N, 3] normalized
+    cn = coords.float() * coord_scales(coord_spec, coords.device)  # [N, 3] normalized
     fb = torch.as_tensor(coord_spec.freq_bands(), dtype=torch.float32, device=coords.device)
     xf = (cn[..., :, None] * fb).transpose(-1, -2)  # [N, F, 3]
     pe = torch.stack([torch.sin(xf), torch.cos(xf)], dim=-2).reshape(cn.shape[0], -1)
@@ -242,3 +260,360 @@ def decode_primal_v4t(fw: FusedDecodeWeights, pe: torch.Tensor, cd_pe: torch.Ten
 
 
 decode_primal_v4t.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# v4s: the decode pair of the training step.  The per-point operand is the
+# channel-major trig row [N, 3*2F]; the primal consumes the whole row through
+# the permuted layer-1 weights and direction k's tangent consumes lanes
+# k*2F:(k+1)*2F of the same row through weights that carry the PE derivative
+# (d/dcn sin(f cn) = f cos(f cn): a swap, a sign and a scale of the primal rows).
+# ---------------------------------------------------------------------------
+
+
+def channel_major_perm(in_ch: int, n_channels: int) -> np.ndarray:
+    """Permutation taking interleaved PE features (index = (f*2+s)*C + c) to
+    channel-major order [c][all sin(f), then all cos(f)]."""
+    n_freqs = in_ch // (2 * n_channels)
+    perm = []
+    for c in range(n_channels):
+        perm.extend((2 * f) * n_channels + c for f in range(n_freqs))  # sin rows
+        perm.extend((2 * f + 1) * n_channels + c for f in range(n_freqs))  # cos rows
+    return np.asarray(perm)
+
+
+def trig_cm_inputs(coords: torch.Tensor, coord_spec, dtype=torch.float32) -> torch.Tensor:
+    """Channel-major trig operand [N, 3*2F] of physical (x, y, t) [N, 3].
+
+    Block c (lanes ``c*2F : (c+1)*2F``) holds ``[sin(fb * cn_c) | cos(fb * cn_c)]``,
+    the row order of ``channel_major_perm``."""
+    fb = torch.as_tensor(coord_spec.freq_bands(), dtype=torch.float32, device=coords.device)
+    cn = coords.float() * coord_scales(coord_spec, coords.device)  # [N, 3]
+    xf = cn[:, :, None] * fb  # [N, 3, F]
+    out = torch.cat([torch.sin(xf), torch.cos(xf)], dim=-1)  # [N, 3, 2F]
+    return out.reshape(cn.shape[0], -1).to(dtype)
+
+
+class FusedDecodeWeightsV6(NamedTuple):
+    """The collapsed weights with layer 1 re-expressed over trig inputs."""
+
+    w1g: torch.Tensor  # [6, 3, 2F, hid] channel-major primal layer-1 rows
+    w1t: torch.Tensor  # [6, 3, 2F, hid] tangent rows (swap, sign, fb and scale folded in)
+    b1: torch.Tensor  # [6, hid]
+    w2f1: torch.Tensor  # [6, hid, hid]
+    wdf1: torch.Tensor  # [6, in_ch, hid]
+    rbias: torch.Tensor  # [6, hid]
+    fw2: torch.Tensor  # [6, hid]
+    w2wo: torch.Tensor  # [6, hid]
+    wdwo: torch.Tensor  # [6, in_ch]
+    obias: torch.Tensor  # [6]
+
+
+def fuse_v6_from_v4(fw: FusedDecodeWeights, coord_spec) -> FusedDecodeWeightsV6:
+    """Per-window re-expression of the fused weights over trig inputs (differentiable)."""
+    n_vars, in_ch, hid = fw.w1.shape
+    nf = in_ch // 6
+    perm = torch.as_tensor(channel_major_perm(in_ch, 3), device=fw.w1.device)
+    w1g = fw.w1[:, perm, :].reshape(n_vars, 3, 2 * nf, hid)
+    fb = torch.as_tensor(coord_spec.freq_bands(), dtype=torch.float32, device=fw.w1.device)
+    coef = (coord_scales(coord_spec, fw.w1.device)[:, None] * fb)[None, :, :, None]  # [1, 3, F, 1]
+    w1t = torch.cat([-coef * w1g[:, :, nf:], coef * w1g[:, :, :nf]], dim=2)
+    return FusedDecodeWeightsV6(
+        w1g=w1g, w1t=w1t, b1=fw.b1, w2f1=fw.w2f1, wdf1=fw.wdf1,
+        rbias=fw.rbias, fw2=fw.fw2, w2wo=fw.w2wo, wdwo=fw.wdwo, obias=fw.obias)
+
+
+def _dot_t(a: torch.Tensor, b: torch.Tensor, cdt) -> torch.Tensor:
+    """``a^T @ b`` over the second-to-last (point) axis, inputs rounded to ``cdt``."""
+    return torch.matmul(a.to(cdt).float().transpose(-1, -2), b.to(cdt).float())
+
+
+def decode_jvp_v4s_ref(fw: FusedDecodeWeightsV6, pe_cm: torch.Tensor, cd_pe: torch.Tensor,
+                       ref_t: torch.Tensor, compute_dtype=torch.bfloat16,
+                       round_tangents: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the forward kernel: ([6, N], [3, 6, N]) float32.
+
+    Differentiable.  With ``round_tangents`` (the default) it has the rounding
+    points of the kernels, TPU and CUDA alike: the masked tangents are rounded
+    to the compute dtype once, and both ``t . w2f1`` and the ``w2wo`` sum read
+    the rounded values (``_decode_kernel_v4s``, :2388-2392, :578-579).
+    Without it the tangents stay float32 for the ``w2wo`` sum, which is what
+    the JAX package's XLA twin ``decode_jvp_xla_v4s`` (:2486-2504) does; the
+    two agree exactly when the compute dtype is float32."""
+    cdt = compute_dtype
+    n_vars, _, two_f, hid = fw.w1t.shape
+    in_ch = pe_cm.shape[1]
+
+    z = dot_f32(pe_cm, fw.w1g.reshape(n_vars, in_ch, hid), cdt) + fw.b1[:, None, :]  # [V, N, hid]
+    mask = z > 0
+    p = torch.relu(z)
+    t = torch.stack(
+        [torch.where(mask, dot_f32(pe_cm[:, k * two_f:(k + 1) * two_f], fw.w1t[:, k], cdt), 0.0)
+         for k in range(3)], dim=0)  # [3, V, N, hid]
+    if round_tangents:
+        t = t.to(cdt).float()
+
+    rp = dot_f32(p, fw.w2f1, cdt) + dot_f32(cd_pe, fw.wdf1, cdt) + fw.rbias[:, None, :]
+    maskr = rp > 0
+    pr = torch.relu(rp)
+    tr = torch.where(maskr[None], dot_f32(t, fw.w2f1[None], cdt), 0.0)  # [3, V, N, hid]
+
+    o = ((pr * fw.fw2[:, None, :]).sum(-1)
+         + 2.0 * ((p * fw.w2wo[:, None, :]).sum(-1)
+                  + torch.einsum("nk,vk->vn", cd_pe.float(), fw.wdwo.float()))
+         + fw.obias[:, None] + ref_t)  # [V, N]
+    to = ((tr * fw.fw2[None, :, None, :]).sum(-1)
+          + 2.0 * (t * fw.w2wo[None, :, None, :]).sum(-1))  # [3, V, N]
+    return o, to
+
+
+@torch.no_grad()
+def decode_bwd_v4s_ref(fw: FusedDecodeWeightsV6, pe_cm: torch.Tensor, cd_pe: torch.Tensor,
+                       g_primal_t: torch.Tensor, g_tang_t: torch.Tensor,
+                       compute_dtype=torch.bfloat16) -> FusedDecodeWeightsV6:
+    """Plain PyTorch version of the backward kernel: the fused weights' cotangents.
+
+    Line for line ``_decode_bwd_kernel_v4s`` (:2554-2598) over all points at
+    once: the forward chain is recomputed (the tangents stay float32 after
+    masking and are rounded only as a product's input), every operand of every
+    product is rounded to the compute dtype, and the sums are float32.  The
+    ``obias`` slot carries ``sum_N g_primal_t``."""
+    cdt = compute_dtype
+    n_vars, _, two_f, hid = fw.w1t.shape
+    in_ch = pe_cm.shape[1]
+    w1g = fw.w1g.reshape(n_vars, in_ch, hid)
+    blocks = [pe_cm[:, k * two_f:(k + 1) * two_f] for k in range(3)]
+
+    # ---- recompute the forward chain ----
+    z = dot_f32(pe_cm, w1g, cdt) + fw.b1[:, None, :]  # [V, N, hid]
+    mask = z > 0
+    p = torch.relu(z)
+    t = torch.stack([torch.where(mask, dot_f32(blocks[k], fw.w1t[:, k], cdt), 0.0)
+                     for k in range(3)], dim=0)  # [3, V, N, hid]
+    w = fw.w2f1
+    rp = dot_f32(p, w, cdt) + dot_f32(cd_pe, fw.wdf1, cdt) + fw.rbias[:, None, :]
+    maskr = rp > 0
+    pr = torch.relu(rp)
+    tr = torch.where(maskr[None], dot_f32(t, w[None], cdt), 0.0)
+
+    # ---- backward ----
+    go = g_primal_t.float()[:, :, None]  # [V, N, 1]
+    gto = g_tang_t.float()[:, :, :, None]  # [3, V, N, 1]
+    a_v = fw.fw2.float()[:, None, :]  # [V, 1, hid]
+    b_v = fw.w2wo.float()[:, None, :]
+
+    g_rp = torch.where(maskr, go * a_v, 0.0)  # [V, N, hid]
+    g_rt = torch.where(maskr[None], gto * a_v[None], 0.0)  # [3, V, N, hid]
+
+    g_fw2 = (pr * go).sum(1) + (tr * gto).sum((0, 2))
+    g_w2wo = 2.0 * ((p * go).sum(1) + (t * gto).sum((0, 2)))
+    g_wdwo = 2.0 * torch.einsum("nk,vn->vk", cd_pe.float(), g_primal_t.float())
+    g_rbias = g_rp.sum(1)
+
+    g_w2f1 = _dot_t(p, g_rp, cdt) + _dot_t(t, g_rt, cdt).sum(0)
+    g_wdf1 = _dot_t(cd_pe, g_rp, cdt)
+
+    wt = w.transpose(-1, -2)
+    g_p = dot_f32(g_rp, wt, cdt) + 2.0 * (go * b_v)
+    g_t = dot_f32(g_rt, wt[None], cdt) + 2.0 * (gto * b_v[None])
+    g_z = torch.where(mask, g_p, 0.0)
+    g_tz = torch.where(mask[None], g_t, 0.0)
+
+    g_w1g = _dot_t(pe_cm, g_z, cdt)  # [V, in_ch, hid]
+    g_b1 = g_z.sum(1)
+    g_w1t = torch.stack([_dot_t(blocks[k], g_tz[k], cdt) for k in range(3)], dim=1)
+    return FusedDecodeWeightsV6(
+        w1g=g_w1g.reshape(n_vars, 3, two_f, hid), w1t=g_w1t, b1=g_b1, w2f1=g_w2f1,
+        wdf1=g_wdf1, rbias=g_rbias, fw2=g_fw2, w2wo=g_w2wo, wdwo=g_wdwo,
+        obias=g_primal_t.float().sum(1))
+
+
+@functools.cache
+def _library_v4s(source: str) -> ctypes.CDLL:
+    """Build (at first use) and load one of the v4s kernels; declare its C signatures."""
+    from deepphysinet_tpu_torch.ops.cuda_build import load_library
+
+    lib = load_library(source)
+    vp = ctypes.c_void_p
+    name = {SOURCE_JVP_V4S: "dpn_decode_jvp_v4s", SOURCE_BWD_V4S: "dpn_decode_bwd_v4s"}[source]
+    n_pointers = {SOURCE_JVP_V4S: 15, SOURCE_BWD_V4S: 22}[source]
+    launch = getattr(lib, name)
+    launch.argtypes = [ctypes.c_int] + [vp] * n_pointers + [
+        ctypes.c_int64, ctypes.c_int, ctypes.c_int, vp]
+    launch.restype = ctypes.c_int
+    for suffix, argtypes in (("_hid", []), ("_shared_bytes", [ctypes.c_int, ctypes.c_int])):
+        fn = getattr(lib, name + suffix)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+# rows of one pass of the backward kernel's point contraction; the tangent
+# blocks (two_f lanes each) must be a whole number of passes
+_CONTRACTION_ROWS = 64
+
+
+def _v4s_kernel_inputs(name: str, lib_name: str, lib: ctypes.CDLL, fw: FusedDecodeWeightsV6,
+                       pe_cm: torch.Tensor, cd_pe: torch.Tensor, compute_dtype, point_rows):
+    """Checks shared by the two v4s wrappers; returns the contiguous kernel operands.
+
+    ``point_rows`` are (name, tensor, shape) of the float32 var-major inputs."""
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name}: compute dtype {compute_dtype} not supported")
+    n_vars, _, two_f, hid = fw.w1t.shape
+    n, in_ch = pe_cm.shape
+    built_hid = getattr(lib, lib_name + "_hid")()
+    if hid != built_hid or in_ch != 3 * two_f or two_f % _CONTRACTION_ROWS:
+        raise ValueError(f"{name}: kernel built for hidden {built_hid} and three tangent blocks "
+                         f"of a multiple of {_CONTRACTION_ROWS} lanes; got hidden {hid}, "
+                         f"in_ch {in_ch}, block {two_f}")
+    smem = getattr(lib, lib_name + "_shared_bytes")(int(compute_dtype == torch.bfloat16), in_ch)
+    if smem > _MAX_SHARED_BYTES:
+        raise ValueError(f"{name}: in_ch {in_ch} needs {smem} bytes of shared memory")
+    rows = [("pe_cm", pe_cm, (n, in_ch), compute_dtype), ("cd_pe", cd_pe, (n, in_ch), compute_dtype)]
+    rows += [(nm, t, shape, torch.float32) for nm, t, shape in point_rows]
+    for nm, t, shape, dtype in rows:
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"{name}: {nm} is {tuple(t.shape)} {t.dtype}, expected {shape} {dtype}")
+    cd, f32 = compute_dtype, torch.float32
+    weights = dict(
+        w1g=fw.w1g.reshape(n_vars, in_ch, hid).to(cd), w1t=fw.w1t.to(cd), b1=fw.b1.to(f32),
+        w2f1=fw.w2f1.to(cd), wdf1=fw.wdf1.to(cd), rbias=fw.rbias.to(f32), fw2=fw.fw2.to(f32),
+        w2wo=fw.w2wo.to(f32), wdwo=fw.wdwo.to(f32), obias=fw.obias.to(f32))
+    weights = {k: w.detach().contiguous() for k, w in weights.items()}
+    for t in [r[1] for r in rows] + list(weights.values()):
+        if t.device != pe_cm.device:
+            raise ValueError(f"{name}: tensors on {t.device} and {pe_cm.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: inputs must be contiguous and 16-byte aligned")
+    return weights
+
+
+def fused_decode_jvp_v4s(fw: FusedDecodeWeightsV6, pe_cm: torch.Tensor, cd_pe: torch.Tensor,
+                         ref_t: torch.Tensor,
+                         compute_dtype=torch.bfloat16) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Primal [6, N] and tangents [3, 6, N] (float32): the CUDA kernel on GPU tensors.
+
+    ``pe_cm`` (``trig_cm_inputs``) and ``cd_pe`` [N, in_ch] in ``compute_dtype``,
+    ``ref_t`` [6, N] float32.  CPU tensors take ``decode_jvp_v4s_ref``; a CUDA
+    tensor launches the kernel or raises.  The kernel's result carries no
+    autograd graph: training goes through ``FusedDecodeJvpV4s``.
+    ``fused_decode_jvp_v4s.launches`` counts kernel launches."""
+    if pe_cm.device.type == "cpu":
+        return decode_jvp_v4s_ref(fw, pe_cm, cd_pe, ref_t, compute_dtype)
+    if pe_cm.device.type != "cuda":
+        raise ValueError(f"fused_decode_jvp_v4s: no kernel for device {pe_cm.device}")
+    lib = _library_v4s(SOURCE_JVP_V4S)
+    n_vars, n = fw.w1t.shape[0], pe_cm.shape[0]
+    w = _v4s_kernel_inputs("fused_decode_jvp_v4s", "dpn_decode_jvp_v4s", lib, fw, pe_cm, cd_pe,
+                           compute_dtype, [("ref_t", ref_t, (n_vars, n))])
+    primal = torch.empty((n_vars, n), dtype=torch.float32, device=pe_cm.device)
+    tang = torch.empty((3, n_vars, n), dtype=torch.float32, device=pe_cm.device)
+    if n == 0:
+        return primal, tang
+    with torch.cuda.device(pe_cm.device):
+        stream = torch.cuda.current_stream(pe_cm.device).cuda_stream
+        err = lib.dpn_decode_jvp_v4s(
+            int(compute_dtype == torch.bfloat16), pe_cm.data_ptr(), cd_pe.data_ptr(),
+            ref_t.data_ptr(), w["w1g"].data_ptr(), w["w1t"].data_ptr(), w["b1"].data_ptr(),
+            w["w2f1"].data_ptr(), w["wdf1"].data_ptr(), w["rbias"].data_ptr(),
+            w["fw2"].data_ptr(), w["w2wo"].data_ptr(), w["wdwo"].data_ptr(),
+            w["obias"].data_ptr(), primal.data_ptr(), tang.data_ptr(),
+            n, pe_cm.shape[1], n_vars, stream)
+    if err != 0:
+        raise RuntimeError(f"fused_decode_jvp_v4s: CUDA error {err} at launch")
+    fused_decode_jvp_v4s.launches += 1
+    return primal, tang
+
+
+fused_decode_jvp_v4s.launches = 0
+
+
+def decode_bwd_kernel_v4s(fw: FusedDecodeWeightsV6, pe_cm: torch.Tensor, cd_pe: torch.Tensor,
+                          g_primal_t: torch.Tensor, g_tang_t: torch.Tensor,
+                          compute_dtype=torch.bfloat16) -> FusedDecodeWeightsV6:
+    """Weight cotangents of ``fused_decode_jvp_v4s``: the CUDA kernel on GPU tensors.
+
+    ``g_primal_t`` [6, N] and ``g_tang_t`` [3, 6, N] float32.  The ``obias``
+    slot carries ``sum_N g_primal_t``, a ``torch.sum`` outside the kernel.  CPU
+    tensors take ``decode_bwd_v4s_ref``; a CUDA tensor launches the kernel or
+    raises.  The kernel sums across blocks with atomic adds, so its result is
+    not bit-reproducible from run to run.
+    ``decode_bwd_kernel_v4s.launches`` counts kernel launches."""
+    if pe_cm.device.type == "cpu":
+        return decode_bwd_v4s_ref(fw, pe_cm, cd_pe, g_primal_t, g_tang_t, compute_dtype)
+    if pe_cm.device.type != "cuda":
+        raise ValueError(f"decode_bwd_kernel_v4s: no kernel for device {pe_cm.device}")
+    lib = _library_v4s(SOURCE_BWD_V4S)
+    n_vars, _, two_f, hid = fw.w1t.shape
+    n, in_ch = pe_cm.shape
+    w = _v4s_kernel_inputs("decode_bwd_kernel_v4s", "dpn_decode_bwd_v4s", lib, fw, pe_cm, cd_pe,
+                           compute_dtype, [("g_primal_t", g_primal_t, (n_vars, n)),
+                                           ("g_tang_t", g_tang_t, (3, n_vars, n))])
+    w2f1_t = w["w2f1"].transpose(1, 2).contiguous()  # the kernel reads W^T row by row
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.float32, device=pe_cm.device)
+
+    out = FusedDecodeWeightsV6(
+        w1g=zeros(n_vars, 3, two_f, hid), w1t=zeros(n_vars, 3, two_f, hid), b1=zeros(n_vars, hid),
+        w2f1=zeros(n_vars, hid, hid), wdf1=zeros(n_vars, in_ch, hid), rbias=zeros(n_vars, hid),
+        fw2=zeros(n_vars, hid), w2wo=zeros(n_vars, hid), wdwo=zeros(n_vars, in_ch),
+        obias=g_primal_t.sum(1))
+    if n == 0:
+        return out
+    with torch.cuda.device(pe_cm.device):
+        stream = torch.cuda.current_stream(pe_cm.device).cuda_stream
+        err = lib.dpn_decode_bwd_v4s(
+            int(compute_dtype == torch.bfloat16), pe_cm.data_ptr(), cd_pe.data_ptr(),
+            g_primal_t.data_ptr(), g_tang_t.data_ptr(), w["w1g"].data_ptr(), w["w1t"].data_ptr(),
+            w["b1"].data_ptr(), w["w2f1"].data_ptr(), w2f1_t.data_ptr(), w["wdf1"].data_ptr(),
+            w["rbias"].data_ptr(), w["fw2"].data_ptr(), w["w2wo"].data_ptr(),
+            out.w1g.data_ptr(), out.w1t.data_ptr(), out.b1.data_ptr(), out.w2f1.data_ptr(),
+            out.wdf1.data_ptr(), out.rbias.data_ptr(), out.fw2.data_ptr(), out.w2wo.data_ptr(),
+            out.wdwo.data_ptr(), n, in_ch, n_vars, stream)
+    if err != 0:
+        raise RuntimeError(f"decode_bwd_kernel_v4s: CUDA error {err} at launch")
+    decode_bwd_kernel_v4s.launches += 1
+    return out
+
+
+decode_bwd_kernel_v4s.launches = 0
+
+
+class FusedDecodeJvpV4s(torch.autograd.Function):
+    """The v4s decode with a kernel on both passes (the training hot path).
+
+    ``FusedDecodeJvpV4s.apply(pe_cm, cd_pe, ref_t, compute_dtype, *fw)`` with
+    ``fw`` a ``FusedDecodeWeightsV6`` returns ``(primal_t [6, N], tang_t
+    [3, 6, N])``.  The contract of ``fused_decode_jvp_v4s_kbwd`` (:2678-2722):
+    exact cotangents for the ten fused weights, ``g_ref_t = g_primal_t``,
+    ``g_obias = sum_N g_primal_t``, and zeros for ``pe_cm`` and ``cd_pe``, which
+    are functions of data only in the training engine.  Saved for backward:
+    the fused weights, ``pe_cm`` and ``cd_pe``; no activations (the backward
+    kernel recomputes them).  First derivatives only."""
+
+    @staticmethod
+    def forward(ctx, pe_cm, cd_pe, ref_t, compute_dtype, *fw):
+        ctx.compute_dtype = compute_dtype
+        ctx.save_for_backward(pe_cm, cd_pe, *fw)
+        return fused_decode_jvp_v4s(FusedDecodeWeightsV6(*fw), pe_cm, cd_pe, ref_t, compute_dtype)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_primal_t, g_tang_t):
+        pe_cm, cd_pe, *fw = ctx.saved_tensors
+        g_primal_t = g_primal_t.float().contiguous()
+        gfw = decode_bwd_kernel_v4s(FusedDecodeWeightsV6(*fw), pe_cm, cd_pe, g_primal_t,
+                                    g_tang_t.float().contiguous(), ctx.compute_dtype)
+        needs = ctx.needs_input_grad
+        return (torch.zeros_like(pe_cm) if needs[0] else None,
+                torch.zeros_like(cd_pe) if needs[1] else None,
+                g_primal_t if needs[2] else None, None, *gfw)
+
+
+def fused_decode_jvp_v4s_kbwd(fw: FusedDecodeWeightsV6, pe_cm: torch.Tensor, cd_pe: torch.Tensor,
+                              ref_t: torch.Tensor,
+                              compute_dtype=torch.bfloat16) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``FusedDecodeJvpV4s`` with the argument order of the JAX function."""
+    return FusedDecodeJvpV4s.apply(pe_cm, cd_pe, ref_t, compute_dtype, *fw)

@@ -1,7 +1,7 @@
 """Inverse normalization of stacked model outputs.
 
-Counterpart of ``inverse_norm_stack_t`` in ``deepphysinet_tpu/train/point_fn.py``
-(:45-63): u and v are never clipped; P, T, q and rho clip to their bounds when
+Counterpart of ``inverse_norm_stack`` and ``inverse_norm_stack_t`` in
+``deepphysinet_tpu/train/point_fn.py`` (:32-63): u and v are never clipped; P, T, q and rho clip to their bounds when
 ``with_clip`` (reference interface_physics.py:256-261).
 """
 
@@ -15,6 +15,14 @@ from deepphysinet_tpu_torch.ops.normalization import NormSpec, inverse_normalize
 
 # obs_norm_cfg keys in output-row order
 _CLIPPED = (False, False, True, True, True, True)  # u, v never clip
+
+
+def inverse_norm_stack(out_norm: torch.Tensor, obs_specs: Sequence[NormSpec],
+                       with_clip: bool) -> torch.Tensor:
+    """[N, 6] normalized outputs -> [N, 6] physical."""
+    cols = [inverse_normalize(out_norm[:, i : i + 1], spec, with_clip=with_clip and _CLIPPED[i])
+            for i, spec in enumerate(obs_specs)]
+    return torch.cat(cols, dim=-1)
 
 
 def inverse_norm_stack_t(out_norm_t: torch.Tensor, obs_specs: Sequence[NormSpec],

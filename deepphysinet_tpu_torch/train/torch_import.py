@@ -12,6 +12,10 @@ export_torch_state_dict`` (:144) gives, without importing jax:
 * the FFN ``conv1`` / ``conv2`` are kernel-size-1 Conv1d weights [out, in, 1];
 * flax LayerNorm ``scale`` is torch ``weight``;
 * the six variable nets are stacked on a leading axis in VARIABLE_ORDER.
+
+``load_train_state`` carries a whole JAX ``TrainState`` across (parameters,
+Adam's first and second moments and its step count, handed over as numpy
+trees), so that both packages can continue the same run.
 """
 
 from __future__ import annotations
@@ -86,3 +90,27 @@ def load_pth(path: str) -> Tuple[Dict[str, torch.Tensor], int, int]:
     epoch = int(bundle.get("epoch", -1)) if has_model else -1
     step = int(bundle.get("gobal_step", 0)) if has_model else 0
     return sd, epoch, step
+
+
+def load_train_state(state, params: Mapping[str, Any], mu: Mapping[str, Any],
+                     nu: Mapping[str, Any], adam_count: int, step: int):
+    """Load a JAX ``TrainState`` into the port's ``TrainState`` (in place).
+
+    ``params`` is the flax parameter tree; ``mu`` / ``nu`` are optax's
+    ``ScaleByAdamState`` moment trees (the same structure as ``params``) and
+    ``adam_count`` its update count; ``step`` is ``TrainState.step``.  All
+    leaves are numpy arrays (or convertible).  The optimizer must be
+    ``torch.optim.Adam``, whose state per parameter is ``step`` / ``exp_avg`` /
+    ``exp_avg_sq``."""
+    model, optimizer = state.model, state.optimizer
+    if not isinstance(optimizer, torch.optim.Adam):
+        raise TypeError(f"load_train_state needs torch.optim.Adam, got {type(optimizer).__name__}")
+    model.load_state_dict(state_dict_from_jax(params), strict=True)
+    moments = {"exp_avg": state_dict_from_jax(mu), "exp_avg_sq": state_dict_from_jax(nu)}
+    for name, p in model.named_parameters():
+        optimizer.state[p] = {
+            "step": torch.tensor(float(adam_count), dtype=torch.float32),
+            **{k: sd[name].to(p.device).clone() for k, sd in moments.items()},
+        }
+    state.step = int(step)
+    return state

@@ -210,7 +210,7 @@ def jax_model():
 
 
 def _port(variables, dtype=torch.float32):
-    net = PhysicsNet(META, NET, compute_dtype=dtype)
+    net = PhysicsNet(META, NET, compute_dtype=dtype, device="cpu")
     net.load_state_dict(state_dict_from_jax(variables), strict=True)
     return net
 
@@ -224,7 +224,7 @@ def test_state_dict_from_jax_is_export_torch_state_dict(jax_model):
         assert got[k].dtype == torch.float32
         np.testing.assert_array_equal(got[k].numpy(), v, err_msg=k)
     # the port's own module tree has exactly these names and shapes
-    own = PhysicsNet(META, NET).state_dict()
+    own = PhysicsNet(META, NET, device="cpu").state_dict()
     assert sorted(own) == sorted(want)
     assert all(tuple(own[k].shape) == v.shape for k, v in want.items())
 
@@ -237,15 +237,15 @@ def test_load_pth_strict_roundtrip(jax_model, tmp_path):
                 "gobal_step": 77}, path)
     got, epoch, step = load_pth(path)
     assert (epoch, step) == (3, 77)
-    net = PhysicsNet(META, NET)
+    net = PhysicsNet(META, NET, device="cpu")
     net.load_state_dict(got, strict=True)
     for k, v in net.state_dict().items():
         torch.testing.assert_close(v, sd[k], rtol=0, atol=0)
 
 
 def test_init_parameters_is_seeded():
-    a = init_parameters(PhysicsNet(META, NET), torch.Generator().manual_seed(3)).state_dict()
-    b = init_parameters(PhysicsNet(META, NET), torch.Generator().manual_seed(3)).state_dict()
+    a = init_parameters(PhysicsNet(META, NET, device="cpu"), torch.Generator().manual_seed(3)).state_dict()
+    b = init_parameters(PhysicsNet(META, NET, device="cpu"), torch.Generator().manual_seed(3)).state_dict()
     for k in a:
         torch.testing.assert_close(a[k], b[k], rtol=0, atol=0)
     tok = a["meta_net.model.learnable_token"]

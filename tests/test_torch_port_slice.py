@@ -10,6 +10,7 @@ runs without them, as it must on the GPU machine.
 
 import json
 import os
+import re
 import subprocess
 import sys
 import types
@@ -60,7 +61,7 @@ def test_collapsed_decode_t_matches_jax(dtype):
     want_x = jengine.collapsed_decode_t(jm, params, tokens, *args)
     want_k = jengine.collapsed_decode_t(jm, params, tokens, *args, use_kernel=True, interpret=True)
 
-    model = PhysicsNet(meta, net, compute_dtype=td)
+    model = PhysicsNet(meta, net, compute_dtype=td, device="cpu")
     model.load_state_dict(state_dict_from_jax(params), strict=True)
     got = collapsed_decode_t(model, torch.from_numpy(np.array(tokens, np.float32)).to(td),
                              torch.from_numpy(coords), torch.from_numpy(coord_data),
@@ -102,7 +103,7 @@ def smoke(tmp_path_factory):
     params = iface.physics_net.init(
         jax.random.PRNGKey(4), jnp.asarray(window.field[None]), jnp.zeros((2, 192)),
         jnp.zeros((2, 6)), jnp.asarray([[0.1]], jnp.float32))
-    model = PhysicsNet(cfg["meta_cfg"], cfg["net_cfg"])
+    model = PhysicsNet(cfg["meta_cfg"], cfg["net_cfg"], device="cpu")
     model.load_state_dict(state_dict_from_jax(params), strict=True)
     return types.SimpleNamespace(cfg=cfg, iface=iface, ds=ds, jcfg=jcfg, input_file=input_file,
                                  window=window, params=params, model=model,
@@ -151,7 +152,7 @@ def test_predict_grid_matches_jax(smoke, time_h, out_size):
     want = predict_grid(smoke.iface.physics_net, smoke.params, smoke.jcfg, smoke.ds, smoke.input_file,
                         jnp.asarray(field), 0.0, time_h, out_size=out_size)
     got = trunner.predict_grid(smoke.model, smoke.tcfg, smoke.window, torch.from_numpy(field), 0.0,
-                               time_h, out_size=out_size)
+                               time_h, out_size=out_size, device="cpu")
     tol = _tol(smoke.cfg)
     for i, k in enumerate(("u", "v", "P", "T", "q", "rio")):
         assert got[k].shape == want[k].shape and got[k].dtype == np.float32
@@ -168,7 +169,7 @@ def test_predict_points_matches_jax(smoke):
     want = predict_points(smoke.iface.physics_net, smoke.params, smoke.jcfg, smoke.ds, smoke.input_file,
                           jnp.asarray(field), 6.0, lon, lat, t)
     got = trunner.predict_points(smoke.model, smoke.tcfg, smoke.window, torch.from_numpy(field), 6.0,
-                                 lon, lat, t)
+                                 lon, lat, t, device="cpu")
     assert got.shape == (4, 6)
     err = np.abs(got - want) - (1e-5 * np.abs(want) + _tol(smoke.cfg)[None, :])
     assert err.max() <= 0, np.abs(got - want).max(axis=0)
@@ -205,44 +206,94 @@ def test_synthetic_window_flagship_sizes():
 
 
 def test_port_never_imports_jax():
-    root = os.path.join(REPO, "deepphysinet_tpu_torch")
-    for d, _, files in os.walk(root):
-        for name in files:
-            if name.endswith(".py"):
-                text = open(os.path.join(d, name)).read()
-                for bad in ("import jax", "from jax", "import flax", "from flax"):
-                    assert bad not in text, (name, bad)
+    """No port module, and not chip_smoke.py, imports jax, flax or the JAX package."""
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for d, _, names in os.walk(os.path.join(REPO, "deepphysinet_tpu_torch")):
+        files += [os.path.join(d, name) for name in names if name.endswith(".py")]
+    assert len(files) > 20
+    jax_package = re.compile(r"^\s*(import|from)\s+deepphysinet_tpu(\.|\s|$)", re.M)
+    for path in files:
+        text = open(path).read()
+        for bad in ("import jax", "from jax", "import flax", "from flax", "import optax",
+                    "from optax"):
+            assert bad not in text, (path, bad)
+        assert not jax_package.search(text), path
+
+
+def test_default_device_raises_without_cuda():
+    """No entry point lands on the CPU silently: without a card, ``device=None`` raises."""
+    from deepphysinet_tpu_torch.device import default_device, resolve_device
+    from deepphysinet_tpu_torch.train.train_step import batch_to_device, create_train_state
+
+    assert resolve_device("cpu") == torch.device("cpu")
+    if torch.cuda.is_available():
+        assert default_device() == torch.device("cuda", 0)
+        return
+    meta = dict(enc_in=65, c_out=32, d_model=32, n_heads=4, e_layers=1, d_ff=32,
+                activation="gelu", learnable_token_num=8)
+    net = dict(in_channels=192, hidden_channels=32, learnable_token_num=16)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        default_device()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        PhysicsNet(meta, net)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        create_train_state(meta, net, dict(name="Adam"), torch.Generator().manual_seed(0))
+    cfg = Config.fromfile(os.path.join(REPO, "configs", "smoke_cpu_cfg.py"))["config"]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        batch_to_device(dict(field=np.zeros((1, 2, 3)), forecast_h=np.zeros(1),
+                             margin={}, inter={}))
+    model = PhysicsNet(meta, net, device="cpu")
+    dc = trunner.decode_config_from_cfg(cfg)
+    field = np.zeros((1, 12, 65), np.float32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        trunner.predict_grid(model, dc, None, field, 0.0, 1.0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        trunner.predict_points(model, dc, None, field, 0.0, [75.0], [20.0], [1.0])
 
 
 _POISONED = r"""
 import json, pkgutil, sys, importlib
 sys.modules["jax"] = None
 sys.modules["flax"] = None
+sys.modules["optax"] = None
+sys.modules["deepphysinet_tpu"] = None
 import numpy as np, torch
 import deepphysinet_tpu_torch
 for m in pkgutil.walk_packages(deepphysinet_tpu_torch.__path__, "deepphysinet_tpu_torch."):
     importlib.import_module(m.name)
-from deepphysinet_tpu.config import Config
-from deepphysinet_tpu_torch.data.window import synthetic_window
+from deepphysinet_tpu_torch.config import Config
+from deepphysinet_tpu_torch.data.window import synthetic_batch, synthetic_window
 from deepphysinet_tpu_torch.inference.runner import decode_config_from_cfg, predict_grid, predict_points
-from deepphysinet_tpu_torch.models.init import init_parameters
-from deepphysinet_tpu_torch.models.physics_net import PhysicsNet
+from deepphysinet_tpu_torch.train.train_step import (
+    batch_to_device, create_train_state, make_train_step, step_config_from_cfg)
 
 cfg = Config.fromfile("configs/DeepPhysiNet_NCEP_cfg.py")["config"]
 cfg["train_cfg"]["img_size"] = (37, 65)  # coarse grid 10 x 17 = enc_in 170
 cfg["meta_cfg"].update(enc_in=170, c_out=32, d_model=32, n_heads=4, e_layers=2, d_ff=32)
 cfg["net_cfg"].update(hidden_channels=32, learnable_token_num=40)
-model = init_parameters(PhysicsNet(cfg["meta_cfg"], cfg["net_cfg"], torch.bfloat16),
-                        torch.Generator().manual_seed(0))
+cfg["train_cfg"]["train_data"].update(label_batch_size=48, batch_size_inter=24)
+state = create_train_state(cfg["meta_cfg"], cfg["net_cfg"], cfg["train_cfg"]["optimizer"],
+                           torch.Generator().manual_seed(0), torch.bfloat16, device="cpu")
+model = state.model
 w = synthetic_window(cfg, seed=0)
 dc = decode_config_from_cfg(cfg)
-field = torch.from_numpy(w.field[None])
-grid = predict_grid(model, dc, w, field, w.forecast_h, 6.5)
-pts = predict_points(model, dc, w, field, w.forecast_h, [75.3, 80.1], [20.2, 25.0], [1.5, 20.0])
-loaded = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "flax", "jaxlib")
-                and sys.modules[k] is not None)
+grid = predict_grid(model, dc, w, w.field[None], w.forecast_h, 6.5, device="cpu")
+pts = predict_points(model, dc, w, w.field[None], w.forecast_h, [75.3, 80.1], [20.2, 25.0],
+                     [1.5, 20.0], device="cpu")
+# one PDE training step through the 'kernel' engine (its plain versions on the CPU)
+before = [p.detach().clone() for p in model.parameters()]
+step = make_train_step(step_config_from_cfg(cfg))
+state, metrics = step(state, batch_to_device(synthetic_batch(cfg, seed=1), device="cpu"), True)
+metrics = {k: float(v) for k, v in metrics.items()}
+moved = sum(bool((a != b).any()) for a, b in zip(before, model.parameters()))
+loaded = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "flax", "jaxlib", "optax",
+                "deepphysinet_tpu") and sys.modules[k] is not None)
 print(json.dumps({"loaded": loaded, "T": list(grid["T"].shape), "pts": list(pts.shape),
-                  "finite": bool(np.isfinite(grid["T"]).all() and np.isfinite(pts).all())}))
+                  "finite": bool(np.isfinite(grid["T"]).all() and np.isfinite(pts).all()),
+                  "metrics_finite": all(np.isfinite(v) for v in metrics.values()),
+                  "has_pde": "inter_total" in metrics and "margin_vapor_loss" in metrics,
+                  "skipped": metrics["skipped_nonfinite"], "step": state.step,
+                  "all_moved": moved == len(before)}))
 """
 
 
@@ -253,4 +304,6 @@ def test_port_runs_with_jax_blocked():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     out = json.loads(res.stdout.strip().splitlines()[-1])
-    assert out == {"loaded": [], "T": [37, 65], "pts": [2, 6], "finite": True}
+    assert out == {"loaded": [], "T": [37, 65], "pts": [2, 6], "finite": True,
+                   "metrics_finite": True, "has_pde": True, "skipped": 0.0, "step": 1,
+                   "all_moved": True}
