@@ -1,6 +1,8 @@
-// Shared device code of the v4s decode kernels (decode_jvp_v4s.cu and
-// decode_bwd_v4s.cu): type conversion with the TPU kernels' rounding rule, a
-// block-level matrix product on the CUDA cores, and the block's input rows.
+// Shared device code of the jvp decode kernels (decode_jvp_v4s.cu,
+// decode_bwd_v4s.cu, decode_jvp_v4.cu and decode_bwd_v4.cu): type conversion
+// with the TPU kernels' rounding rule, a block-level matrix product on the CUDA
+// cores, the block's input rows, and the backward kernels' contraction of the
+// point axis with its atomic add into global memory.
 //
 // Rounding rule (deepphysinet_tpu/ops/decode_kernel.py, every `dot`): both
 // operands of a product are rounded to the compute type T (bf16 for the
@@ -97,6 +99,60 @@ __device__ __forceinline__ void load_rows(const T* __restrict__ pe, const T* __r
     const size_t g = (size_t)n0 * in_ch + i;
     pe_s[i] = live ? pe[g] : zero;
     cd_s[i] = live ? cd[g] : zero;
+  }
+}
+
+// ---- backward kernels: sums over the block's points -------------------------
+
+__device__ __forceinline__ void load4(const float* p, float* o) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* o) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);  // bf16 is the top half of an f32
+  o[0] = __uint_as_float(v.x << 16); o[1] = __uint_as_float(v.x & 0xffff0000u);
+  o[2] = __uint_as_float(v.y << 16); o[3] = __uint_as_float(v.y & 0xffff0000u);
+}
+
+// out[0:4] += v[0:4] in global memory; out is 16-byte aligned.
+__device__ __forceinline__ void global_add4(float* out, const float* v) {
+  atomicAdd(reinterpret_cast<float4*>(out), make_float4(v[0], v[1], v[2], v[3]));
+}
+
+// out[0:rows, 0:HID] += A[0:nb, 0:rows]^T . G[0:nb, 0:HID], contracting the
+// block's points.  A (row stride lda, rounded to T as it is read) and G (of T)
+// live in shared memory; out [rows, HID] lives in global memory; rows is a
+// multiple of 64.  Per pass of 64 output rows, thread (tx, ty) sums rows
+// ty*8 + r and columns tx*4 + q and 128 + tx*4 + q over the points, then adds
+// its tile into out.  Reads shared memory only: the caller's barriers publish
+// A and G before and protect them after.
+template <typename T, typename TA>
+__device__ __forceinline__ void point_contraction(const TA* As, int lda, int rows, const T* Gs,
+                                                  int nb, float* __restrict__ out) {
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  for (int i0 = 0; i0 < rows; i0 += 64) {
+    float acc[8][8];
+    zero_tile<8>(acc);
+#pragma unroll 2
+    for (int pnt = 0; pnt < nb; ++pnt) {
+      float a[8], g[8];
+      load4(As + pnt * lda + i0 + ty * 8, a);
+      load4(As + pnt * lda + i0 + ty * 8 + 4, a + 4);
+      load4(Gs + pnt * HID + tx * 4, g);
+      load4(Gs + pnt * HID + 128 + tx * 4, g + 4);
+#pragma unroll
+      for (int r = 0; r < 8; ++r) a[r] = round_to<T>(a[r]);
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(a[r], g[c], acc[r][c]);
+    }
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      float* row = out + (size_t)(i0 + ty * 8 + r) * HID + tx * 4;
+      global_add4(row, &acc[r][0]);
+      global_add4(row + 128, &acc[r][4]);
+    }
   }
 }
 

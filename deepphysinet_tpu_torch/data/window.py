@@ -1,12 +1,14 @@
-"""One input window held in memory: the host conditioning inference needs.
+"""One input window held in memory: the host side of inference and of the evaluation sweeps.
 
-A stand-in for the ``PhysicsDataset`` methods that ``inference/runner.py``
-calls (``deepphysinet_tpu/data/dataset.py``): the window's token matrix
+A stand-in for the ``PhysicsDataset`` methods that ``inference/runner.py`` and
+``eval/`` call (``deepphysinet_tpu/data/dataset.py``): the window's token matrix
 (``get_item_input`` rows plus ``constant_variables``), its normalized NWP cube
 (``_nwp_cube``), trilinear interpolation of that cube at scattered points
 (``_interp_cube_at``, here with the numpy ``_np_trilinear`` of
 dataset.py:101-115), the full-grid conditioning (``get_margin_grid``), the
-Coriolis parameter, the grid axes and dx/dy.  Reading GeoTIFF trees is not
+Coriolis parameter, the grid axes and dx/dy, and for the evaluation sweeps the
+normalized label cube (``get_label_cube``) with the time steps that define the
+window's labelled hours.  Reading GeoTIFF trees is not
 ported yet: a window comes from ``synthetic_window`` or from arrays that an
 existing dataset produced (``Window.from_dataset``).  ``synthetic_batch`` draws
 one training batch (margin and collocation points with their conditioning,
@@ -17,7 +19,7 @@ from real windows on the device is not ported yet.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 
@@ -59,6 +61,15 @@ class Window:
     dx: float  # meters per fine grid step
     dy: float
     input_time_step: int = 6  # hours between the cube's time levels
+    input_time_step_nums: int = 4  # time levels after the first: the window spans their product
+    label_time_step: int = 1  # hours between the label cube's time levels
+    forecast_time_period: float = 360.0  # hours that normalize the forecast lead
+    label_cube: Optional[np.ndarray] = None  # [6, lat, lon, T] normalized labels on the fine grid
+
+    @property
+    def n_label_hours(self) -> int:
+        """Labelled hours of the window: every ``label_time_step`` from 0 to its end."""
+        return self.input_time_step * self.input_time_step_nums // self.label_time_step + 1
 
     @property
     def begin_lon(self) -> float:
@@ -102,8 +113,9 @@ class Window:
         )
 
     @classmethod
-    def from_dataset(cls, dataset: Any, input_file: str) -> "Window":
-        """Copy one window's arrays out of a ``PhysicsDataset``-like object."""
+    def from_dataset(cls, dataset: Any, input_file: str, labels: bool = True) -> "Window":
+        """Copy one window's arrays out of a ``PhysicsDataset``-like object; the
+        label cube too unless ``labels`` is off (a dataset without label files)."""
         field = np.concatenate([dataset.get_item_input(input_file),
                                 dataset.constant_variables], axis=0)
         _, _, forecast_h, _ = dataset._parse_item(input_file)
@@ -112,7 +124,11 @@ class Window:
                    in_lon=np.asarray(dataset.in_lon), in_lat=np.asarray(dataset.in_lat),
                    out_lon=np.asarray(dataset.out_lon), out_lat=np.asarray(dataset.out_lat),
                    dx=float(dataset.dx), dy=float(dataset.dy),
-                   input_time_step=int(dataset.input_time_step))
+                   input_time_step=int(dataset.input_time_step),
+                   input_time_step_nums=int(dataset.input_time_step_nums),
+                   label_time_step=int(dataset.label_time_step),
+                   forecast_time_period=float(dataset.forecast_time_period),
+                   label_cube=dataset.get_label_cube(input_file) if labels else None)
 
 
 def _grid_shapes(config: Mapping[str, Any]) -> Tuple[Tuple[int, int], Tuple[int, int]]:
@@ -126,8 +142,8 @@ def synthetic_window(config: Mapping[str, Any], seed: int) -> Window:
 
     ``config`` is the reference-schema ``config`` dict (``meta_cfg``,
     ``net_cfg``, ``train_cfg``, ...).  The flagship gives field [159, 2405]
-    (155 normalized NWP rows + 4 min-max constant rows in [0, 1)) and an NWP
-    cube [6, 37, 65, 5]."""
+    (155 normalized NWP rows + 4 min-max constant rows in [0, 1)), an NWP
+    cube [6, 37, 65, 5] and a label cube [6, 145, 257, 25]."""
     (lat_n, lon_n), (clat, clon) = _grid_shapes(config)
     enc_in = int(config["meta_cfg"]["enc_in"])
     if clat * clon != enc_in:
@@ -136,7 +152,10 @@ def synthetic_window(config: Mapping[str, Any], seed: int) -> Window:
     data_cfg = train["train_data"]
     n_const = len(data_cfg.get("constant_variables", ("landsea", "elevation")))
     token_num = int(config["net_cfg"]["token_num"])
-    n_times = int(data_cfg.get("input_time_step_nums", 4)) + 1
+    step_nums = int(data_cfg.get("input_time_step_nums", 4))
+    n_times = step_nums + 1
+    input_time_step = int(data_cfg.get("input_time_step", 6))
+    label_time_step = int(data_cfg.get("label_time_step", 1))
 
     rng = np.random.RandomState(seed)
     field = np.concatenate([
@@ -150,10 +169,16 @@ def synthetic_window(config: Mapping[str, Any], seed: int) -> Window:
     out_lon, out_lat = make_latlon_grid(
         ORIGIN_LON, ORIGIN_LAT, ORIGIN_LON + (lon_n - 1) * FINE_STEP_DEG,
         ORIGIN_LAT + (lat_n - 1) * FINE_STEP_DEG, FINE_STEP_DEG)
+    # drawn last, so that the field and the NWP cube of a seed stay what they were
+    label_cube = (0.5 * rng.standard_normal(
+        (6, lat_n, lon_n, input_time_step * step_nums // label_time_step + 1))).astype(np.float32)
     return Window(field=field, nwp_cube=cube, forecast_h=24.0,
                   in_lon=in_lon[0], in_lat=in_lat[:, 0], out_lon=out_lon[0], out_lat=out_lat[:, 0],
                   dx=float(train["dx"]), dy=float(train["dy"]),
-                  input_time_step=int(data_cfg.get("input_time_step", 6)))
+                  input_time_step=input_time_step, input_time_step_nums=step_nums,
+                  label_time_step=label_time_step,
+                  forecast_time_period=float(data_cfg.get("forecast_time_period", 360)),
+                  label_cube=label_cube)
 
 
 def synthetic_batch(config: Mapping[str, Any], seed: int) -> Dict[str, Any]:

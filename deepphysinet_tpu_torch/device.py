@@ -1,7 +1,7 @@
 """The device the port's entry points run on.
 
 Every entry point (``PhysicsNet``, ``create_train_state``, ``batch_to_device``,
-``predict_grid`` / ``predict_points``) takes ``device=None`` and resolves it
+``predict_grid`` / ``predict_points``, the sweeps of ``eval/``) takes ``device=None`` and resolves it
 here: the first CUDA device, or an error.  There is no fallback to the CPU; a
 caller that wants the CPU (the parity tests do) passes ``device="cpu"``.
 """
@@ -25,3 +25,14 @@ def default_device() -> torch.device:
 def resolve_device(device: Optional[Union[str, torch.device]]) -> torch.device:
     """``device`` as a ``torch.device``; ``None`` means ``default_device()``."""
     return default_device() if device is None else torch.device(device)
+
+
+def model_device(model: torch.nn.Module, device: Optional[Union[str, torch.device]]) -> torch.device:
+    """The device of a run on ``device`` (``None``: ``default_device()``), which
+    the model must already be on; the model's own device is returned."""
+    device = resolve_device(device)
+    param = next(model.parameters())
+    if param.device.type != device.type or (device.index is not None
+                                            and param.device.index != device.index):
+        raise ValueError(f"the model is on {param.device}, the run on {device}")
+    return param.device

@@ -22,7 +22,7 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from deepphysinet_tpu_torch.device import resolve_device
+from deepphysinet_tpu_torch.device import model_device
 from deepphysinet_tpu_torch.ops.coords import CoordSpec
 from deepphysinet_tpu_torch.ops.normalization import OBS_NAME_ORDER, NormSpec, norm_specs_from_cfg
 from deepphysinet_tpu_torch.physics.engine import collapsed_decode_t
@@ -83,12 +83,7 @@ def _decode_points(model, cfg: DecodeConfig, tokens, x, y, t, nwp, fh_norm: floa
 
 def _place_field(model, field, device) -> torch.Tensor:
     """``field`` on the run's device; the model must already be there."""
-    device = resolve_device(device)
-    param = next(model.parameters())
-    if param.device.type != device.type or (device.index is not None
-                                            and param.device.index != device.index):
-        raise ValueError(f"the model is on {param.device}, the run on {device}")
-    return torch.as_tensor(field).to(param.device)
+    return torch.as_tensor(field).to(model_device(model, device))
 
 
 def predict_grid(model, cfg: DecodeConfig, window, field, forecast_h: float,

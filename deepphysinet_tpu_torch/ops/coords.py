@@ -46,6 +46,12 @@ def encode_coord(x: torch.Tensor, y: torch.Tensor, t: torch.Tensor, spec: CoordS
     return sinecos_pe(coords, spec.freq_bands())
 
 
+def coriolis(lat_deg: torch.Tensor) -> torch.Tensor:
+    """f = 2 Omega sin(lat), [N] -> [N, 1] (reference dataset/physics_dataset.py:521-526)."""
+    f = 2.0 * OMEGA * torch.sin(lat_deg / 180.0 * torch.pi)
+    return f[:, None] if f.ndim == 1 else f
+
+
 def make_latlon_grid(
     lon0: float = 72.0,
     lat0: float = 18.0,

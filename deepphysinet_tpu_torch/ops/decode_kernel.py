@@ -8,9 +8,9 @@ inference path and the flagship training step run:
   einsums, unlike VariableNet's compute-dtype dense layers);
 * ``FusedDecodeWeights`` / ``fuse_decode_weights`` (:480-525): the collapsed
   v4 algebra, which folds the trunk's second layer and the scalar head into
-  per-window matrices (the tangent rows ``w1c`` belong to the v4 / v4t jvp
-  kernels and are not ported);
-* ``pe_primal``: the primal half of ``pe_and_tangents`` (:118-155);
+  per-window matrices, with the channel-sliced tangent rows ``w1c``
+  (``slice_tangent_weights``, :158);
+* ``pe_and_tangents`` (:118-155) and ``pe_primal``, its primal half;
 * ``decode_primal_v4t``: the var-major primal decode, backed by the CUDA
   kernel ``csrc/decode_primal.cu`` on GPU tensors and by its plain version
   ``decode_primal_v4t_ref`` (a mirror of ``decode_xla_v4t_primal``,
@@ -20,7 +20,18 @@ inference path and the flagship training step run:
   ``fused_decode_jvp_v4s`` (``csrc/decode_jvp_v4s.cu``; plain version
   ``decode_jvp_v4s_ref``), the backward ``decode_bwd_kernel_v4s``
   (``csrc/decode_bwd_v4s.cu``; plain version ``decode_bwd_v4s_ref``) and
-  ``FusedDecodeJvpV4s``, the ``torch.autograd.Function`` that joins them.
+  ``FusedDecodeJvpV4s``, the ``torch.autograd.Function`` that joins them;
+* the v4 / v4t pair of the evaluation sweeps and of the ``kernel_version=4``
+  step (:643-918, :1408-1783): the forward ``fused_decode_jvp_v4`` ([N, 6]
+  outputs) and ``fused_decode_jvp_v4t`` ([6, N]), both ``csrc/decode_jvp_v4.cu``
+  (plain version ``decode_jvp_v4_ref``); the backward ``decode_bwd_kernel_v4``
+  and ``decode_bwd_kernel_v4t``, both ``csrc/decode_bwd_v4.cu`` (plain version
+  ``decode_bwd_v4_ref``); and ``FusedDecodeJvpV4``, the
+  ``torch.autograd.Function`` behind ``fused_decode_jvp_v4_kbwd`` and
+  ``fused_decode_jvp_v4t_kbwd``.  The TPU's software-pipelined body
+  ``_decode_kernel_v4t_pipe`` is the same arithmetic with its instructions in another order, so
+  the one CUDA forward kernel stands for it too and the wrappers take no
+  ``pipeline`` option.
 
 Every wrapper picks by device: a CUDA tensor launches the kernel or raises, a
 CPU tensor takes the plain version.  Each wrapper counts its launches in its
@@ -42,6 +53,9 @@ from deepphysinet_tpu_torch.ops.precision import dot_f32
 SOURCE = "decode_primal.cu"
 SOURCE_JVP_V4S = "decode_jvp_v4s.cu"
 SOURCE_BWD_V4S = "decode_bwd_v4s.cu"
+SOURCE_JVP_V4 = "decode_jvp_v4.cu"
+SOURCE_BWD_V4 = "decode_bwd_v4.cu"
+SOURCES = (SOURCE, SOURCE_JVP_V4S, SOURCE_BWD_V4S, SOURCE_JVP_V4, SOURCE_BWD_V4)
 
 
 class DecodeWeights(NamedTuple):
@@ -111,6 +125,7 @@ class FusedDecodeWeights(NamedTuple):
     """
 
     w1: torch.Tensor  # [6, in_ch, hid] generated layer 1
+    w1c: torch.Tensor  # [6, 3, in_ch//3, hid] channel-sliced tangent rows of w1
     b1: torch.Tensor  # [6, hid]
     w2f1: torch.Tensor  # [6, hid, hid] = w2 @ f1
     wdf1: torch.Tensor  # [6, in_ch, hid] = wd @ f1
@@ -121,11 +136,19 @@ class FusedDecodeWeights(NamedTuple):
     obias: torch.Tensor  # [6] = g2.wo + 2 (b2 + bd + fh_add).wo + bo
 
 
+def slice_tangent_weights(w1: torch.Tensor) -> torch.Tensor:
+    """Channel-sliced rows of the generated layer-1 weights for the sparse
+    tangent products: [6, in_ch, hid] -> [6, 3, in_ch//3, hid], where slice k
+    holds rows k, k+3, k+6, ... (feature index = f*6 + s*3 + c)."""
+    return torch.stack([w1[:, k::3, :] for k in range(3)], dim=1)
+
+
 def fuse_decode_weights(w: DecodeWeights) -> FusedDecodeWeights:
     """Per-window float32 weight fusion for the collapsed decode."""
     cbias = w.b2 + w.bd + w.fh_add  # [6, hid] constant part of c
     return FusedDecodeWeights(
         w1=w.w1,
+        w1c=slice_tangent_weights(w.w1),
         b1=w.b1,
         w2f1=torch.einsum("vij,vjk->vik", w.w2, w.f1),
         wdf1=torch.einsum("vij,vjk->vik", w.wd, w.f1),
@@ -147,17 +170,39 @@ def coord_scales(coord_spec, device=None) -> torch.Tensor:
          1.0 / coord_spec.pred_t_span], dtype=torch.float32, device=device)
 
 
-def pe_primal(coords: torch.Tensor, coord_spec, dtype=torch.float32) -> torch.Tensor:
-    """SineCos PE of physical (x, y, t) [N, 3] -> [N, 2F*3] in ``dtype``.
+def _pe_sin_cos(coords: torch.Tensor, coord_spec):
+    """sin and cos [N, F, 3] of the PE angles, the frequencies [F] and the scales [3].
 
-    The primal half of the JAX ``pe_and_tangents``: it normalizes with the
-    product ``coords * scales`` (not ``encode_coord``'s divisions), so the
-    angles round the same way as on the JAX decode path."""
-    cn = coords.float() * coord_scales(coord_spec, coords.device)  # [N, 3] normalized
+    Normalizes with the product ``coords * scales`` (not ``encode_coord``'s
+    divisions), so the angles round the same way as on the JAX decode path."""
+    scales = coord_scales(coord_spec, coords.device)
+    cn = coords.float() * scales  # [N, 3] normalized
     fb = torch.as_tensor(coord_spec.freq_bands(), dtype=torch.float32, device=coords.device)
     xf = (cn[..., :, None] * fb).transpose(-1, -2)  # [N, F, 3]
-    pe = torch.stack([torch.sin(xf), torch.cos(xf)], dim=-2).reshape(cn.shape[0], -1)
-    return pe.to(dtype)
+    return torch.sin(xf), torch.cos(xf), fb, scales
+
+
+def pe_primal(coords: torch.Tensor, coord_spec, dtype=torch.float32) -> torch.Tensor:
+    """SineCos PE of physical (x, y, t) [N, 3] -> [N, 2F*3] in ``dtype``: the
+    primal half of ``pe_and_tangents``."""
+    sin, cos, _, _ = _pe_sin_cos(coords, coord_spec)
+    return torch.stack([sin, cos], dim=-2).reshape(coords.shape[0], -1).to(dtype)
+
+
+def pe_and_tangents(coords: torch.Tensor, coord_spec,
+                    dtype=torch.float32) -> Tuple[torch.Tensor, torch.Tensor]:
+    """SineCos PE of physical (x, y, t) and its three directional derivatives.
+
+    Closed form: feature (freq f, sin | cos, channel c) differentiates to
+    ``f cos`` | ``-f sin`` times the channel's normalization scale.  Direction k
+    touches only the channel-k features (a third of them), so the tangents are
+    compact: ``(pe [N, 2F*3], dpe [3, N, 2F])``, ordered (freq, sin | cos) to
+    match the rows of ``slice_tangent_weights``."""
+    sin, cos, fb, scales = _pe_sin_cos(coords, coord_spec)
+    pe = torch.stack([sin, cos], dim=-2).reshape(coords.shape[0], -1)
+    dfeat = torch.stack([cos * fb[None, :, None], -sin * fb[None, :, None]], dim=-2)  # [N, F, 2, 3]
+    dpe = torch.movedim(dfeat, -1, 0) * scales[:, None, None, None]  # [3, N, F, 2]
+    return pe.to(dtype), dpe.reshape(3, coords.shape[0], -1).to(dtype).contiguous()
 
 
 def decode_primal_v4t_ref(fw: FusedDecodeWeights, pe: torch.Tensor, cd_pe: torch.Tensor,
@@ -328,28 +373,37 @@ def _dot_t(a: torch.Tensor, b: torch.Tensor, cdt) -> torch.Tensor:
     return torch.matmul(a.to(cdt).float().transpose(-1, -2), b.to(cdt).float())
 
 
-def decode_jvp_v4s_ref(fw: FusedDecodeWeightsV6, pe_cm: torch.Tensor, cd_pe: torch.Tensor,
-                       ref_t: torch.Tensor, compute_dtype=torch.bfloat16,
-                       round_tangents: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the forward kernel: ([6, N], [3, 6, N]) float32.
+class _Layer1(NamedTuple):
+    """Layer-1 operands of one jvp decode: what v4 and v4s differ in.
 
-    Differentiable.  With ``round_tangents`` (the default) it has the rounding
-    points of the kernels, TPU and CUDA alike: the masked tangents are rounded
-    to the compute dtype once, and both ``t . w2f1`` and the ``w2wo`` sum read
-    the rounded values (``_decode_kernel_v4s``, :2388-2392, :578-579).
-    Without it the tangents stay float32 for the ``w2wo`` sum, which is what
-    the JAX package's XLA twin ``decode_jvp_xla_v4s`` (:2486-2504) does; the
-    two agree exactly when the compute dtype is float32."""
-    cdt = compute_dtype
+    v4 reads the interleaved PE through ``w1`` and the compact tangents ``dpe[k]``
+    through ``w1c[:, k]``; v4s reads the channel-major trig row through ``w1g``
+    and its lane block k through ``w1t[:, k]``.  Everything after layer 1 is the
+    same arithmetic."""
+
+    pe: torch.Tensor  # [N, in_ch] primal operand
+    w1: torch.Tensor  # [V, in_ch, hid]
+    tin: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # tangent operands, each [N, ch]
+    w1k: torch.Tensor  # [V, 3, ch, hid] tangent rows
+
+
+def _layer1_v4(fw: FusedDecodeWeights, pe, dpe) -> _Layer1:
+    return _Layer1(pe, fw.w1, (dpe[0], dpe[1], dpe[2]), fw.w1c)
+
+
+def _layer1_v4s(fw: FusedDecodeWeightsV6, pe_cm) -> _Layer1:
     n_vars, _, two_f, hid = fw.w1t.shape
-    in_ch = pe_cm.shape[1]
+    blocks = tuple(pe_cm[:, k * two_f:(k + 1) * two_f] for k in range(3))
+    return _Layer1(pe_cm, fw.w1g.reshape(n_vars, 3 * two_f, hid), blocks, fw.w1t)
 
-    z = dot_f32(pe_cm, fw.w1g.reshape(n_vars, in_ch, hid), cdt) + fw.b1[:, None, :]  # [V, N, hid]
+
+def _jvp_ref(l1: _Layer1, fw, cd_pe, ref_t, cdt, round_tangents: bool):
+    """Var-major plain forward shared by v4 and v4s: ([V, N], [3, V, N]) float32."""
+    z = dot_f32(l1.pe, l1.w1, cdt) + fw.b1[:, None, :]  # [V, N, hid]
     mask = z > 0
     p = torch.relu(z)
-    t = torch.stack(
-        [torch.where(mask, dot_f32(pe_cm[:, k * two_f:(k + 1) * two_f], fw.w1t[:, k], cdt), 0.0)
-         for k in range(3)], dim=0)  # [3, V, N, hid]
+    t = torch.stack([torch.where(mask, dot_f32(l1.tin[k], l1.w1k[:, k], cdt), 0.0)
+                     for k in range(3)], dim=0)  # [3, V, N, hid]
     if round_tangents:
         t = t.to(cdt).float()
 
@@ -367,28 +421,20 @@ def decode_jvp_v4s_ref(fw: FusedDecodeWeightsV6, pe_cm: torch.Tensor, cd_pe: tor
     return o, to
 
 
-@torch.no_grad()
-def decode_bwd_v4s_ref(fw: FusedDecodeWeightsV6, pe_cm: torch.Tensor, cd_pe: torch.Tensor,
-                       g_primal_t: torch.Tensor, g_tang_t: torch.Tensor,
-                       compute_dtype=torch.bfloat16) -> FusedDecodeWeightsV6:
-    """Plain PyTorch version of the backward kernel: the fused weights' cotangents.
+def _bwd_ref(l1: _Layer1, fw, cd_pe, g_primal_t, g_tang_t, cdt) -> dict:
+    """Plain backward shared by v4 and v4s: the weights' cotangents by name
+    (``w1`` and ``w1k`` for the two layer-1 operands).
 
-    Line for line ``_decode_bwd_kernel_v4s`` (:2554-2598) over all points at
-    once: the forward chain is recomputed (the tangents stay float32 after
-    masking and are rounded only as a product's input), every operand of every
-    product is rounded to the compute dtype, and the sums are float32.  The
-    ``obias`` slot carries ``sum_N g_primal_t``."""
-    cdt = compute_dtype
-    n_vars, _, two_f, hid = fw.w1t.shape
-    in_ch = pe_cm.shape[1]
-    w1g = fw.w1g.reshape(n_vars, in_ch, hid)
-    blocks = [pe_cm[:, k * two_f:(k + 1) * two_f] for k in range(3)]
-
+    Line for line ``_decode_bwd_kernel_v4`` (:1408-1514) and
+    ``_decode_bwd_kernel_v4s`` (:2554-2598) over all points at once: the forward
+    chain is recomputed (the tangents stay float32 after masking and are rounded
+    only as a product's input), every operand of every product is rounded to the
+    compute dtype, and the sums are float32."""
     # ---- recompute the forward chain ----
-    z = dot_f32(pe_cm, w1g, cdt) + fw.b1[:, None, :]  # [V, N, hid]
+    z = dot_f32(l1.pe, l1.w1, cdt) + fw.b1[:, None, :]  # [V, N, hid]
     mask = z > 0
     p = torch.relu(z)
-    t = torch.stack([torch.where(mask, dot_f32(blocks[k], fw.w1t[:, k], cdt), 0.0)
+    t = torch.stack([torch.where(mask, dot_f32(l1.tin[k], l1.w1k[:, k], cdt), 0.0)
                      for k in range(3)], dim=0)  # [3, V, N, hid]
     w = fw.w2f1
     rp = dot_f32(p, w, cdt) + dot_f32(cd_pe, fw.wdf1, cdt) + fw.rbias[:, None, :]
@@ -405,41 +451,113 @@ def decode_bwd_v4s_ref(fw: FusedDecodeWeightsV6, pe_cm: torch.Tensor, cd_pe: tor
     g_rp = torch.where(maskr, go * a_v, 0.0)  # [V, N, hid]
     g_rt = torch.where(maskr[None], gto * a_v[None], 0.0)  # [3, V, N, hid]
 
-    g_fw2 = (pr * go).sum(1) + (tr * gto).sum((0, 2))
-    g_w2wo = 2.0 * ((p * go).sum(1) + (t * gto).sum((0, 2)))
-    g_wdwo = 2.0 * torch.einsum("nk,vn->vk", cd_pe.float(), g_primal_t.float())
-    g_rbias = g_rp.sum(1)
-
-    g_w2f1 = _dot_t(p, g_rp, cdt) + _dot_t(t, g_rt, cdt).sum(0)
-    g_wdf1 = _dot_t(cd_pe, g_rp, cdt)
-
     wt = w.transpose(-1, -2)
     g_p = dot_f32(g_rp, wt, cdt) + 2.0 * (go * b_v)
     g_t = dot_f32(g_rt, wt[None], cdt) + 2.0 * (gto * b_v[None])
     g_z = torch.where(mask, g_p, 0.0)
     g_tz = torch.where(mask[None], g_t, 0.0)
-
-    g_w1g = _dot_t(pe_cm, g_z, cdt)  # [V, in_ch, hid]
-    g_b1 = g_z.sum(1)
-    g_w1t = torch.stack([_dot_t(blocks[k], g_tz[k], cdt) for k in range(3)], dim=1)
-    return FusedDecodeWeightsV6(
-        w1g=g_w1g.reshape(n_vars, 3, two_f, hid), w1t=g_w1t, b1=g_b1, w2f1=g_w2f1,
-        wdf1=g_wdf1, rbias=g_rbias, fw2=g_fw2, w2wo=g_w2wo, wdwo=g_wdwo,
+    return dict(
+        w1=_dot_t(l1.pe, g_z, cdt),  # [V, in_ch, hid]
+        w1k=torch.stack([_dot_t(l1.tin[k], g_tz[k], cdt) for k in range(3)], dim=1),
+        b1=g_z.sum(1),
+        w2f1=_dot_t(p, g_rp, cdt) + _dot_t(t, g_rt, cdt).sum(0),
+        wdf1=_dot_t(cd_pe, g_rp, cdt),
+        rbias=g_rp.sum(1),
+        fw2=(pr * go).sum(1) + (tr * gto).sum((0, 2)),
+        w2wo=2.0 * ((p * go).sum(1) + (t * gto).sum((0, 2))),
+        wdwo=2.0 * torch.einsum("nk,vn->vk", cd_pe.float(), g_primal_t.float()),
         obias=g_primal_t.float().sum(1))
 
 
+def decode_jvp_v4s_ref(fw: FusedDecodeWeightsV6, pe_cm: torch.Tensor, cd_pe: torch.Tensor,
+                       ref_t: torch.Tensor, compute_dtype=torch.bfloat16,
+                       round_tangents: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the forward kernel: ([6, N], [3, 6, N]) float32.
+
+    Differentiable.  With ``round_tangents`` (the default) it has the rounding
+    points of the kernels, TPU and CUDA alike: the masked tangents are rounded
+    to the compute dtype once, and both ``t . w2f1`` and the ``w2wo`` sum read
+    the rounded values (``_decode_kernel_v4s``, :2388-2392, :578-579).
+    Without it the tangents stay float32 for the ``w2wo`` sum, which is what
+    the JAX package's XLA twin ``decode_jvp_xla_v4s`` (:2486-2504) does; the
+    two agree exactly when the compute dtype is float32."""
+    return _jvp_ref(_layer1_v4s(fw, pe_cm), fw, cd_pe, ref_t, compute_dtype, round_tangents)
+
+
+@torch.no_grad()
+def decode_bwd_v4s_ref(fw: FusedDecodeWeightsV6, pe_cm: torch.Tensor, cd_pe: torch.Tensor,
+                       g_primal_t: torch.Tensor, g_tang_t: torch.Tensor,
+                       compute_dtype=torch.bfloat16) -> FusedDecodeWeightsV6:
+    """Plain PyTorch version of the backward kernel: the fused weights' cotangents
+    (``_bwd_ref``).  The ``obias`` slot carries ``sum_N g_primal_t``."""
+    g = _bwd_ref(_layer1_v4s(fw, pe_cm), fw, cd_pe, g_primal_t, g_tang_t, compute_dtype)
+    g["w1g"], g["w1t"] = g.pop("w1").reshape(fw.w1g.shape), g.pop("w1k")
+    return FusedDecodeWeightsV6(**g)
+
+
+def decode_jvp_v4_ref(fw: FusedDecodeWeights, pe: torch.Tensor, dpe: torch.Tensor,
+                      cd_pe: torch.Tensor, ref: torch.Tensor, compute_dtype=torch.bfloat16,
+                      round_tangents: bool = True,
+                      t_layout: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the v4 forward kernel, both layouts, float32 out.
+
+    ``pe`` / ``cd_pe`` [N, in_ch] and ``dpe`` [3, N, in_ch//3] (``pe_and_tangents``).
+    ``t_layout=False``: ``ref`` [N, 6] -> ``([N, 6], [3, N, 6])``, the form of
+    ``fused_decode_jvp_v4``; ``t_layout=True``: ``ref`` [6, N] -> ``([6, N],
+    [3, 6, N])``, the form of ``fused_decode_jvp_v4t``.  Differentiable.
+
+    With ``round_tangents`` (the default) it has the rounding points of the
+    kernels (``_v4_var_column``, :627-634, and ``_v4_stage2``, :578-579): the
+    masked tangents are rounded to the compute dtype once and the ``w2wo`` sum
+    reads the rounded values.  Without it the tangents stay float32 for that
+    sum, as in the JAX package's XLA twin ``decode_jvp_xla_v4`` (:905, :913);
+    the two agree exactly when the compute dtype is float32."""
+    o, to = _jvp_ref(_layer1_v4(fw, pe, dpe), fw, cd_pe, ref if t_layout else ref.t(),
+                     compute_dtype, round_tangents)
+    return (o, to) if t_layout else (o.t(), to.transpose(1, 2))
+
+
+@torch.no_grad()
+def decode_bwd_v4_ref(fw: FusedDecodeWeights, pe: torch.Tensor, dpe: torch.Tensor,
+                      cd_pe: torch.Tensor, g_primal: torch.Tensor, g_tang: torch.Tensor,
+                      compute_dtype=torch.bfloat16, t_layout: bool = False) -> FusedDecodeWeights:
+    """Plain PyTorch version of the v4 backward kernel: the fused weights' cotangents.
+
+    ``g_primal`` [N, 6] and ``g_tang`` [3, N, 6], or [6, N] and [3, 6, N] with
+    ``t_layout``.  ``_bwd_ref`` follows ``_decode_bwd_kernel_v4`` (:1408-1514),
+    which keeps the recomputed tangents float32 where the forward kernel rounds
+    them (the ``w2wo`` and ``fw2`` sums, :1494-1495).  ``w1`` and ``w1c`` get
+    separate cotangents, as from the TPU kernel: autograd adds them through
+    ``slice_tangent_weights``.  The ``obias`` slot carries ``sum_N g_primal``."""
+    if not t_layout:
+        g_primal, g_tang = g_primal.t(), g_tang.transpose(1, 2)
+    g = _bwd_ref(_layer1_v4(fw, pe, dpe), fw, cd_pe, g_primal, g_tang, compute_dtype)
+    g["w1c"] = g.pop("w1k")
+    return FusedDecodeWeights(**g)
+
+
+# Per source: the launch function's name, its number of pointer arguments, and
+# whether a layout flag follows (n, in_ch, n_vars).
+_LAUNCHERS = {
+    SOURCE_JVP_V4S: ("dpn_decode_jvp_v4s", 15, False),
+    SOURCE_BWD_V4S: ("dpn_decode_bwd_v4s", 22, False),
+    SOURCE_JVP_V4: ("dpn_decode_jvp_v4", 16, True),
+    SOURCE_BWD_V4: ("dpn_decode_bwd_v4", 23, True),
+}
+
+
 @functools.cache
-def _library_v4s(source: str) -> ctypes.CDLL:
-    """Build (at first use) and load one of the v4s kernels; declare its C signatures."""
+def _jvp_library(source: str) -> ctypes.CDLL:
+    """Build (at first use) and load one of the jvp-pair kernels; declare its C signatures."""
     from deepphysinet_tpu_torch.ops.cuda_build import load_library
 
     lib = load_library(source)
     vp = ctypes.c_void_p
-    name = {SOURCE_JVP_V4S: "dpn_decode_jvp_v4s", SOURCE_BWD_V4S: "dpn_decode_bwd_v4s"}[source]
-    n_pointers = {SOURCE_JVP_V4S: 15, SOURCE_BWD_V4S: 22}[source]
+    name, n_pointers, has_layout = _LAUNCHERS[source]
     launch = getattr(lib, name)
-    launch.argtypes = [ctypes.c_int] + [vp] * n_pointers + [
-        ctypes.c_int64, ctypes.c_int, ctypes.c_int, vp]
+    launch.argtypes = ([ctypes.c_int] + [vp] * n_pointers
+                       + [ctypes.c_int64, ctypes.c_int, ctypes.c_int]
+                       + [ctypes.c_int] * has_layout + [vp])
     launch.restype = ctypes.c_int
     for suffix, argtypes in (("_hid", []), ("_shared_bytes", [ctypes.c_int, ctypes.c_int])):
         fn = getattr(lib, name + suffix)
@@ -448,45 +566,69 @@ def _library_v4s(source: str) -> ctypes.CDLL:
     return lib
 
 
-# rows of one pass of the backward kernel's point contraction; the tangent
-# blocks (two_f lanes each) must be a whole number of passes
+# rows of one pass of the backward kernels' point contraction; the tangent
+# operands (in_ch / 3 lanes each) must be a whole number of passes
 _CONTRACTION_ROWS = 64
 
 
-def _v4s_kernel_inputs(name: str, lib_name: str, lib: ctypes.CDLL, fw: FusedDecodeWeightsV6,
-                       pe_cm: torch.Tensor, cd_pe: torch.Tensor, compute_dtype, point_rows):
-    """Checks shared by the two v4s wrappers; returns the contiguous kernel operands.
+def _jvp_kernel_inputs(name: str, source: str, fw, matrices: dict, pe: torch.Tensor,
+                       cd_pe: torch.Tensor, compute_dtype, point_rows) -> Tuple[ctypes.CDLL, dict]:
+    """Checks shared by the jvp-pair wrappers; returns the library and the contiguous weights.
 
-    ``point_rows`` are (name, tensor, shape) of the float32 var-major inputs."""
+    ``matrices`` are the layer-1 weights by name, already in the kernel's shape
+    (the other weights are taken from ``fw`` by name); ``point_rows`` are
+    (name, tensor, shape, dtype or None for the compute dtype) of the per-point
+    inputs besides ``pe`` and ``cd_pe``."""
     if compute_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"{name}: compute dtype {compute_dtype} not supported")
-    n_vars, _, two_f, hid = fw.w1t.shape
-    n, in_ch = pe_cm.shape
+    lib = _jvp_library(source)
+    lib_name = _LAUNCHERS[source][0]
+    n_vars, hid = fw.b1.shape
+    n, in_ch = pe.shape
     built_hid = getattr(lib, lib_name + "_hid")()
-    if hid != built_hid or in_ch != 3 * two_f or two_f % _CONTRACTION_ROWS:
-        raise ValueError(f"{name}: kernel built for hidden {built_hid} and three tangent blocks "
-                         f"of a multiple of {_CONTRACTION_ROWS} lanes; got hidden {hid}, "
-                         f"in_ch {in_ch}, block {two_f}")
+    if hid != built_hid or in_ch % (3 * _CONTRACTION_ROWS):
+        raise ValueError(f"{name}: kernel built for hidden {built_hid} and three tangent operands "
+                         f"of a multiple of {_CONTRACTION_ROWS} lanes; got hidden {hid}, in_ch {in_ch}")
     smem = getattr(lib, lib_name + "_shared_bytes")(int(compute_dtype == torch.bfloat16), in_ch)
     if smem > _MAX_SHARED_BYTES:
         raise ValueError(f"{name}: in_ch {in_ch} needs {smem} bytes of shared memory")
-    rows = [("pe_cm", pe_cm, (n, in_ch), compute_dtype), ("cd_pe", cd_pe, (n, in_ch), compute_dtype)]
-    rows += [(nm, t, shape, torch.float32) for nm, t, shape in point_rows]
+    rows = [("pe", pe, (n, in_ch), None), ("cd_pe", cd_pe, (n, in_ch), None)] + list(point_rows)
     for nm, t, shape, dtype in rows:
-        if tuple(t.shape) != shape or t.dtype != dtype:
-            raise ValueError(f"{name}: {nm} is {tuple(t.shape)} {t.dtype}, expected {shape} {dtype}")
+        dtype = dtype or compute_dtype
+        if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
+            raise ValueError(f"{name}: {nm} is {tuple(t.shape)} {t.dtype}, expected {tuple(shape)} {dtype}")
     cd, f32 = compute_dtype, torch.float32
-    weights = dict(
-        w1g=fw.w1g.reshape(n_vars, in_ch, hid).to(cd), w1t=fw.w1t.to(cd), b1=fw.b1.to(f32),
-        w2f1=fw.w2f1.to(cd), wdf1=fw.wdf1.to(cd), rbias=fw.rbias.to(f32), fw2=fw.fw2.to(f32),
-        w2wo=fw.w2wo.to(f32), wdwo=fw.wdwo.to(f32), obias=fw.obias.to(f32))
+    weights = {k: w.to(cd) for k, w in matrices.items()}
+    weights.update(
+        b1=fw.b1.to(f32), w2f1=fw.w2f1.to(cd), wdf1=fw.wdf1.to(cd), rbias=fw.rbias.to(f32),
+        fw2=fw.fw2.to(f32), w2wo=fw.w2wo.to(f32), wdwo=fw.wdwo.to(f32), obias=fw.obias.to(f32))
     weights = {k: w.detach().contiguous() for k, w in weights.items()}
     for t in [r[1] for r in rows] + list(weights.values()):
-        if t.device != pe_cm.device:
-            raise ValueError(f"{name}: tensors on {t.device} and {pe_cm.device}")
+        if t.device != pe.device:
+            raise ValueError(f"{name}: tensors on {t.device} and {pe.device}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name}: inputs must be contiguous and 16-byte aligned")
-    return weights
+    return lib, weights
+
+
+def _launch(name: str, wrapper, fn, compute_dtype, tensors, ints, device) -> None:
+    """Call the C launcher ``fn`` on the current stream of ``device``; count the launch."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(int(compute_dtype == torch.bfloat16), *(t.data_ptr() for t in tensors), *ints, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+    wrapper.launches += 1
+
+
+def _zeros_f32(like: torch.Tensor) -> torch.Tensor:
+    """Contiguous float32 zeros of ``like``'s shape: a backward kernel's output."""
+    return torch.zeros(like.shape, dtype=torch.float32, device=like.device)
+
+
+def _v4s_matrices(fw: FusedDecodeWeightsV6) -> dict:
+    n_vars, _, two_f, hid = fw.w1t.shape
+    return dict(w1g=fw.w1g.reshape(n_vars, 3 * two_f, hid), w1t=fw.w1t)
 
 
 def fused_decode_jvp_v4s(fw: FusedDecodeWeightsV6, pe_cm: torch.Tensor, cd_pe: torch.Tensor,
@@ -503,30 +645,27 @@ def fused_decode_jvp_v4s(fw: FusedDecodeWeightsV6, pe_cm: torch.Tensor, cd_pe: t
         return decode_jvp_v4s_ref(fw, pe_cm, cd_pe, ref_t, compute_dtype)
     if pe_cm.device.type != "cuda":
         raise ValueError(f"fused_decode_jvp_v4s: no kernel for device {pe_cm.device}")
-    lib = _library_v4s(SOURCE_JVP_V4S)
-    n_vars, n = fw.w1t.shape[0], pe_cm.shape[0]
-    w = _v4s_kernel_inputs("fused_decode_jvp_v4s", "dpn_decode_jvp_v4s", lib, fw, pe_cm, cd_pe,
-                           compute_dtype, [("ref_t", ref_t, (n_vars, n))])
+    name = "fused_decode_jvp_v4s"
+    n_vars, (n, in_ch) = fw.w1t.shape[0], pe_cm.shape
+    lib, w = _jvp_kernel_inputs(name, SOURCE_JVP_V4S, fw, _v4s_matrices(fw), pe_cm, cd_pe,
+                                compute_dtype, [("ref_t", ref_t, (n_vars, n), torch.float32)])
     primal = torch.empty((n_vars, n), dtype=torch.float32, device=pe_cm.device)
     tang = torch.empty((3, n_vars, n), dtype=torch.float32, device=pe_cm.device)
     if n == 0:
         return primal, tang
-    with torch.cuda.device(pe_cm.device):
-        stream = torch.cuda.current_stream(pe_cm.device).cuda_stream
-        err = lib.dpn_decode_jvp_v4s(
-            int(compute_dtype == torch.bfloat16), pe_cm.data_ptr(), cd_pe.data_ptr(),
-            ref_t.data_ptr(), w["w1g"].data_ptr(), w["w1t"].data_ptr(), w["b1"].data_ptr(),
-            w["w2f1"].data_ptr(), w["wdf1"].data_ptr(), w["rbias"].data_ptr(),
-            w["fw2"].data_ptr(), w["w2wo"].data_ptr(), w["wdwo"].data_ptr(),
-            w["obias"].data_ptr(), primal.data_ptr(), tang.data_ptr(),
-            n, pe_cm.shape[1], n_vars, stream)
-    if err != 0:
-        raise RuntimeError(f"fused_decode_jvp_v4s: CUDA error {err} at launch")
-    fused_decode_jvp_v4s.launches += 1
+    _launch(name, fused_decode_jvp_v4s, lib.dpn_decode_jvp_v4s, compute_dtype,
+            [pe_cm, cd_pe, ref_t] + [w[k] for k in (
+                "w1g", "w1t", "b1", "w2f1", "wdf1", "rbias", "fw2", "w2wo", "wdwo", "obias")]
+            + [primal, tang], (n, in_ch, n_vars), pe_cm.device)
     return primal, tang
 
 
 fused_decode_jvp_v4s.launches = 0
+
+# order of the backward kernels' weight inputs after the layer-1 pair (w2f1_t is
+# the transposed copy the kernels read W^T from) and of their outputs
+_BWD_WEIGHTS = ("b1", "w2f1", "w2f1_t", "wdf1", "rbias", "fw2", "w2wo")
+_BWD_OUTPUTS = ("b1", "w2f1", "wdf1", "rbias", "fw2", "w2wo", "wdwo")
 
 
 def decode_bwd_kernel_v4s(fw: FusedDecodeWeightsV6, pe_cm: torch.Tensor, cd_pe: torch.Tensor,
@@ -544,37 +683,21 @@ def decode_bwd_kernel_v4s(fw: FusedDecodeWeightsV6, pe_cm: torch.Tensor, cd_pe: 
         return decode_bwd_v4s_ref(fw, pe_cm, cd_pe, g_primal_t, g_tang_t, compute_dtype)
     if pe_cm.device.type != "cuda":
         raise ValueError(f"decode_bwd_kernel_v4s: no kernel for device {pe_cm.device}")
-    lib = _library_v4s(SOURCE_BWD_V4S)
-    n_vars, _, two_f, hid = fw.w1t.shape
-    n, in_ch = pe_cm.shape
-    w = _v4s_kernel_inputs("decode_bwd_kernel_v4s", "dpn_decode_bwd_v4s", lib, fw, pe_cm, cd_pe,
-                           compute_dtype, [("g_primal_t", g_primal_t, (n_vars, n)),
-                                           ("g_tang_t", g_tang_t, (3, n_vars, n))])
-    w2f1_t = w["w2f1"].transpose(1, 2).contiguous()  # the kernel reads W^T row by row
-
-    def zeros(*shape):
-        return torch.zeros(shape, dtype=torch.float32, device=pe_cm.device)
-
-    out = FusedDecodeWeightsV6(
-        w1g=zeros(n_vars, 3, two_f, hid), w1t=zeros(n_vars, 3, two_f, hid), b1=zeros(n_vars, hid),
-        w2f1=zeros(n_vars, hid, hid), wdf1=zeros(n_vars, in_ch, hid), rbias=zeros(n_vars, hid),
-        fw2=zeros(n_vars, hid), w2wo=zeros(n_vars, hid), wdwo=zeros(n_vars, in_ch),
-        obias=g_primal_t.sum(1))
+    name = "decode_bwd_kernel_v4s"
+    n_vars, (n, in_ch) = fw.w1t.shape[0], pe_cm.shape
+    lib, w = _jvp_kernel_inputs(name, SOURCE_BWD_V4S, fw, _v4s_matrices(fw), pe_cm, cd_pe,
+                                compute_dtype, [("g_primal_t", g_primal_t, (n_vars, n), torch.float32),
+                                                ("g_tang_t", g_tang_t, (3, n_vars, n), torch.float32)])
+    w["w2f1_t"] = w["w2f1"].transpose(1, 2).contiguous()
+    out = FusedDecodeWeightsV6(*(
+        g_primal_t.sum(1) if k == "obias" else _zeros_f32(t)
+        for k, t in zip(fw._fields, fw)))
     if n == 0:
         return out
-    with torch.cuda.device(pe_cm.device):
-        stream = torch.cuda.current_stream(pe_cm.device).cuda_stream
-        err = lib.dpn_decode_bwd_v4s(
-            int(compute_dtype == torch.bfloat16), pe_cm.data_ptr(), cd_pe.data_ptr(),
-            g_primal_t.data_ptr(), g_tang_t.data_ptr(), w["w1g"].data_ptr(), w["w1t"].data_ptr(),
-            w["b1"].data_ptr(), w["w2f1"].data_ptr(), w2f1_t.data_ptr(), w["wdf1"].data_ptr(),
-            w["rbias"].data_ptr(), w["fw2"].data_ptr(), w["w2wo"].data_ptr(),
-            out.w1g.data_ptr(), out.w1t.data_ptr(), out.b1.data_ptr(), out.w2f1.data_ptr(),
-            out.wdf1.data_ptr(), out.rbias.data_ptr(), out.fw2.data_ptr(), out.w2wo.data_ptr(),
-            out.wdwo.data_ptr(), n, in_ch, n_vars, stream)
-    if err != 0:
-        raise RuntimeError(f"decode_bwd_kernel_v4s: CUDA error {err} at launch")
-    decode_bwd_kernel_v4s.launches += 1
+    _launch(name, decode_bwd_kernel_v4s, lib.dpn_decode_bwd_v4s, compute_dtype,
+            [pe_cm, cd_pe, g_primal_t, g_tang_t, w["w1g"], w["w1t"]] + [w[k] for k in _BWD_WEIGHTS]
+            + [out.w1g, out.w1t] + [getattr(out, k) for k in _BWD_OUTPUTS],
+            (n, in_ch, n_vars), pe_cm.device)
     return out
 
 
@@ -617,3 +740,164 @@ def fused_decode_jvp_v4s_kbwd(fw: FusedDecodeWeightsV6, pe_cm: torch.Tensor, cd_
                               compute_dtype=torch.bfloat16) -> Tuple[torch.Tensor, torch.Tensor]:
     """``FusedDecodeJvpV4s`` with the argument order of the JAX function."""
     return FusedDecodeJvpV4s.apply(pe_cm, cd_pe, ref_t, compute_dtype, *fw)
+
+
+# ---------------------------------------------------------------------------
+# v4 / v4t: the decode pair of the evaluation sweeps and of kernel_version=4.
+# The tangent input is the compact dpe [3, N, in_ch/3] through the channel
+# slices w1c of the layer-1 weights.  One kernel per pass serves both layouts.
+# ---------------------------------------------------------------------------
+
+
+def _point_shapes(n: int, n_vars: int, t_layout: bool):
+    """Shapes of the per-point primal and tangent arrays in the given layout."""
+    return ((n_vars, n), (3, n_vars, n)) if t_layout else ((n, n_vars), (3, n, n_vars))
+
+
+def _jvp_v4(wrapper, fw: FusedDecodeWeights, pe, dpe, cd_pe, ref, compute_dtype, t_layout: bool):
+    name = wrapper.__name__
+    if pe.device.type == "cpu":
+        return decode_jvp_v4_ref(fw, pe, dpe, cd_pe, ref, compute_dtype, t_layout=t_layout)
+    if pe.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {pe.device}")
+    n_vars, (n, in_ch) = fw.w1.shape[0], pe.shape
+    p_shape, t_shape = _point_shapes(n, n_vars, t_layout)
+    lib, w = _jvp_kernel_inputs(name, SOURCE_JVP_V4, fw, dict(w1=fw.w1, w1c=fw.w1c), pe, cd_pe,
+                                compute_dtype, [("dpe", dpe, (3, n, in_ch // 3), None),
+                                                ("ref", ref, p_shape, torch.float32)])
+    primal = torch.empty(p_shape, dtype=torch.float32, device=pe.device)
+    tang = torch.empty(t_shape, dtype=torch.float32, device=pe.device)
+    if n == 0:
+        return primal, tang
+    _launch(name, wrapper, lib.dpn_decode_jvp_v4, compute_dtype,
+            [pe, dpe, cd_pe, ref] + [w[k] for k in (
+                "w1", "w1c", "b1", "w2f1", "wdf1", "rbias", "fw2", "w2wo", "wdwo", "obias")]
+            + [primal, tang], (n, in_ch, n_vars, int(t_layout)), pe.device)
+    return primal, tang
+
+
+def fused_decode_jvp_v4(fw: FusedDecodeWeights, pe: torch.Tensor, dpe: torch.Tensor,
+                        cd_pe: torch.Tensor, ref: torch.Tensor,
+                        compute_dtype=torch.bfloat16) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Primal [N, 6] and tangents [3, N, 6] (float32): the CUDA kernel on GPU tensors.
+
+    ``pe`` / ``cd_pe`` [N, in_ch] and ``dpe`` [3, N, in_ch//3] in
+    ``compute_dtype``, ``ref`` [N, 6] float32.  CPU tensors take
+    ``decode_jvp_v4_ref``; a CUDA tensor launches the kernel or raises.  The
+    kernel's result carries no autograd graph: training goes through
+    ``FusedDecodeJvpV4``.  ``fused_decode_jvp_v4.launches`` counts kernel launches."""
+    return _jvp_v4(fused_decode_jvp_v4, fw, pe, dpe, cd_pe, ref, compute_dtype, False)
+
+
+def fused_decode_jvp_v4t(fw: FusedDecodeWeights, pe: torch.Tensor, dpe: torch.Tensor,
+                         cd_pe: torch.Tensor, ref_t: torch.Tensor,
+                         compute_dtype=torch.bfloat16) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Var-major form of ``fused_decode_jvp_v4``: ``ref_t`` [6, N] -> primal [6, N]
+    and tangents [3, 6, N], from the same kernel with the other layout flag.
+    ``fused_decode_jvp_v4t.launches`` counts kernel launches."""
+    return _jvp_v4(fused_decode_jvp_v4t, fw, pe, dpe, cd_pe, ref_t, compute_dtype, True)
+
+
+fused_decode_jvp_v4.launches = 0
+fused_decode_jvp_v4t.launches = 0
+
+
+def _bwd_v4(wrapper, fw: FusedDecodeWeights, pe, dpe, cd_pe, g_primal, g_tang, compute_dtype,
+            t_layout: bool) -> FusedDecodeWeights:
+    name = wrapper.__name__
+    if pe.device.type == "cpu":
+        return decode_bwd_v4_ref(fw, pe, dpe, cd_pe, g_primal, g_tang, compute_dtype, t_layout)
+    if pe.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {pe.device}")
+    n_vars, (n, in_ch) = fw.w1.shape[0], pe.shape
+    p_shape, t_shape = _point_shapes(n, n_vars, t_layout)
+    lib, w = _jvp_kernel_inputs(name, SOURCE_BWD_V4, fw, dict(w1=fw.w1, w1c=fw.w1c), pe, cd_pe,
+                                compute_dtype, [("dpe", dpe, (3, n, in_ch // 3), None),
+                                                ("g_primal", g_primal, p_shape, torch.float32),
+                                                ("g_tang", g_tang, t_shape, torch.float32)])
+    w["w2f1_t"] = w["w2f1"].transpose(1, 2).contiguous()
+    out = FusedDecodeWeights(*(
+        g_primal.sum(1 if t_layout else 0) if k == "obias" else _zeros_f32(t)
+        for k, t in zip(fw._fields, fw)))
+    if n == 0:
+        return out
+    _launch(name, wrapper, lib.dpn_decode_bwd_v4, compute_dtype,
+            [pe, dpe, cd_pe, g_primal, g_tang, w["w1"], w["w1c"]] + [w[k] for k in _BWD_WEIGHTS]
+            + [out.w1, out.w1c] + [getattr(out, k) for k in _BWD_OUTPUTS],
+            (n, in_ch, n_vars, int(t_layout)), pe.device)
+    return out
+
+
+def decode_bwd_kernel_v4(fw: FusedDecodeWeights, pe: torch.Tensor, dpe: torch.Tensor,
+                         cd_pe: torch.Tensor, g_primal: torch.Tensor, g_tang: torch.Tensor,
+                         compute_dtype=torch.bfloat16) -> FusedDecodeWeights:
+    """Weight cotangents of ``fused_decode_jvp_v4``: the CUDA kernel on GPU tensors.
+
+    ``g_primal`` [N, 6] and ``g_tang`` [3, N, 6] float32.  ``w1`` and ``w1c``
+    get separate cotangents; the ``obias`` slot carries ``sum_N g_primal``, a
+    ``torch.sum`` outside the kernel.  CPU tensors take ``decode_bwd_v4_ref``; a
+    CUDA tensor launches the kernel or raises.  The kernel sums across blocks
+    with atomic adds, so its result is not bit-reproducible from run to run.
+    ``decode_bwd_kernel_v4.launches`` counts kernel launches."""
+    return _bwd_v4(decode_bwd_kernel_v4, fw, pe, dpe, cd_pe, g_primal, g_tang, compute_dtype, False)
+
+
+def decode_bwd_kernel_v4t(fw: FusedDecodeWeights, pe: torch.Tensor, dpe: torch.Tensor,
+                          cd_pe: torch.Tensor, g_primal_t: torch.Tensor, g_tang_t: torch.Tensor,
+                          compute_dtype=torch.bfloat16) -> FusedDecodeWeights:
+    """Var-major form of ``decode_bwd_kernel_v4``: cotangents [6, N] and [3, 6, N],
+    into the same kernel with the other layout flag.
+    ``decode_bwd_kernel_v4t.launches`` counts kernel launches."""
+    return _bwd_v4(decode_bwd_kernel_v4t, fw, pe, dpe, cd_pe, g_primal_t, g_tang_t, compute_dtype,
+                   True)
+
+
+decode_bwd_kernel_v4.launches = 0
+decode_bwd_kernel_v4t.launches = 0
+
+
+class FusedDecodeJvpV4(torch.autograd.Function):
+    """The v4 decode with a kernel on both passes, in either layout.
+
+    ``FusedDecodeJvpV4.apply(pe, dpe, cd_pe, ref, compute_dtype, t_layout, *fw)``
+    with ``fw`` a ``FusedDecodeWeights``.  The contract of
+    ``fused_decode_jvp_v4_kbwd`` (:1678-1727) and ``fused_decode_jvp_v4t_kbwd``
+    (:1736-1783): exact cotangents for the fused weights (``w1`` and ``w1c``
+    separately), ``g_ref = g_primal``, and zeros for ``pe``, ``dpe`` and
+    ``cd_pe``, which are functions of data only in the training engine.  Saved
+    for backward: the fused weights and the three point inputs; no activations.
+    First derivatives only."""
+
+    @staticmethod
+    def forward(ctx, pe, dpe, cd_pe, ref, compute_dtype, t_layout, *fw):
+        ctx.compute_dtype, ctx.t_layout = compute_dtype, t_layout
+        ctx.save_for_backward(pe, dpe, cd_pe, *fw)
+        forward = fused_decode_jvp_v4t if t_layout else fused_decode_jvp_v4
+        return forward(FusedDecodeWeights(*fw), pe, dpe, cd_pe, ref, compute_dtype)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_primal, g_tang):
+        pe, dpe, cd_pe, *fw = ctx.saved_tensors
+        g_primal = g_primal.float().contiguous()
+        backward = decode_bwd_kernel_v4t if ctx.t_layout else decode_bwd_kernel_v4
+        gfw = backward(FusedDecodeWeights(*fw), pe, dpe, cd_pe, g_primal,
+                       g_tang.float().contiguous(), ctx.compute_dtype)
+        needs = ctx.needs_input_grad
+        return (*(torch.zeros_like(x) if need else None
+                  for x, need in zip((pe, dpe, cd_pe), needs)),
+                g_primal if needs[3] else None, None, None, *gfw)
+
+
+def fused_decode_jvp_v4_kbwd(fw: FusedDecodeWeights, pe: torch.Tensor, dpe: torch.Tensor,
+                             cd_pe: torch.Tensor, ref: torch.Tensor,
+                             compute_dtype=torch.bfloat16) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Trainable ``fused_decode_jvp_v4`` ([N, 6] layout) with the JAX argument order."""
+    return FusedDecodeJvpV4.apply(pe, dpe, cd_pe, ref, compute_dtype, False, *fw)
+
+
+def fused_decode_jvp_v4t_kbwd(fw: FusedDecodeWeights, pe: torch.Tensor, dpe: torch.Tensor,
+                              cd_pe: torch.Tensor, ref_t: torch.Tensor,
+                              compute_dtype=torch.bfloat16) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Trainable ``fused_decode_jvp_v4t`` ([6, N] layout) with the JAX argument order."""
+    return FusedDecodeJvpV4.apply(pe, dpe, cd_pe, ref_t, compute_dtype, True, *fw)

@@ -1,37 +1,153 @@
-"""Decode engine: the collapsed decode of inference and the PDE residual engine of training.
+"""Decode engine: the collapsed decode of inference and the PDE residual engines.
 
-Counterpart of these parts of ``deepphysinet_tpu/physics/engine.py``:
+Counterpart of ``deepphysinet_tpu/physics/engine.py``:
 
-* ``_kernel_inputs`` (:351-364, without the tangent input ``dpe``) and
-  ``collapsed_decode_t`` (:578-611), the forward-only decode of inference.  The
-  JAX package ships the XLA twin there because its Pallas kernel measured
-  slower on the TPU; the port always calls ``decode_primal_v4t``, which
-  launches the Hopper kernel whenever the tensors are on a GPU;
-* ``_kernel_inputs_s`` (:367) and ``fused_kernel_fields_t`` for ``version=7``
-  (:307-342): the trainable var-major decode, primal plus three space-time
-  tangents, through the v4s kernel pair (engine ``'kernel'``) or through its
-  plain version under autograd (engine ``'jvp'``);
-* the packed ``[6, N]`` residual assembly:
-  ``packed_physical_from_primal_tangents_t`` (:167),
-  ``saturation_specific_humidity_packed`` (:270), ``residual_losses_packed``
-  (:211, with ``detach()`` exactly where ``stop_gradient`` stands) and
-  ``packed_residual_losses_from_primal_tangents_t`` (:292).
+* ``FieldDerivatives``, ``linearized_fields`` (:41) and ``pde_residual_losses``
+  (:699): the ``'linearize'`` engine, forward-mode derivatives of a point
+  function (``train/point_fn.py::make_phys_fn``) through ``torch.func.jvp``;
+* ``residual_losses_from_fields`` (:72) and ``fields_from_primal_tangents``
+  (:106): the dict form of the residual assembly over
+  ``physics/equations.py``, which takes any PDE criterion;
+* ``_kernel_inputs`` (:351-364) and ``collapsed_decode_t`` (:578-611), the
+  forward-only decode of inference.  The JAX package ships the XLA twin there
+  because its Pallas kernel measured slower on the TPU; the port always calls
+  ``decode_primal_v4t``, which launches the Hopper kernel whenever the tensors
+  are on a GPU;
+* ``_kernel_inputs_s`` (:367) and ``fused_kernel_fields_t`` (:307-348): the
+  trainable var-major decode, primal plus three space-time tangents, through
+  the v4t pair (``version=4``) or the v4s pair (``version=7``), each with a
+  hand-written kernel on both passes (engine ``'kernel'``) or as its plain
+  version under autograd (engine ``'jvp'``);
+* ``fused_kernel_fields`` (:380-487) and ``jvp_fields`` (:490-548) for versions
+  4 and 7: the ``[N, 6]`` forms.  Versions 2 and 6 and ``in_kernel_pe`` wait for
+  their kernels (ROADMAP B8);
+* ``fused_residual_losses`` (:626-691) for versions 4 and 7: the forward-only
+  residual losses of the evaluation sweeps.  Other versions reach the
+  in-kernel residual assembly, which is not ported (ROADMAP B5, B8);
+* the packed residual assembly: ``packed_physical_from_primal_tangents`` (:147)
+  and its var-major form (:167), ``saturation_specific_humidity_packed``
+  (:270), ``residual_losses_packed`` (:211, with ``detach()`` exactly where
+  ``stop_gradient`` stands) and ``packed_residual_losses_from_primal_tangents``
+  (:277) and its var-major form (:292).
+
+The JAX functions take ``interpret`` (run the Pallas kernels in interpret mode)
+and the evaluation sweeps ``use_kernel``; the port carries neither: a wrapper
+launches its kernel on a CUDA tensor and runs its plain version on a CPU tensor.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import dataclasses
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from deepphysinet_tpu_torch.ops.decode_kernel import (
-    decode_jvp_v4s_ref, decode_primal_v4t, extract_decode_weights, fuse_decode_weights,
-    fuse_v6_from_v4, fused_decode_jvp_v4s_kbwd, pe_primal, trig_cm_inputs)
+    decode_jvp_v4_ref, decode_jvp_v4s_ref, decode_primal_v4t, extract_decode_weights,
+    fuse_decode_weights, fuse_v6_from_v4, fused_decode_jvp_v4, fused_decode_jvp_v4_kbwd,
+    fused_decode_jvp_v4s, fused_decode_jvp_v4s_kbwd, fused_decode_jvp_v4t,
+    fused_decode_jvp_v4t_kbwd, pe_and_tangents, pe_primal, trig_cm_inputs)
+from deepphysinet_tpu_torch.ops.normalization import inverse_normalize
 from deepphysinet_tpu_torch.ops.position_encoding import make_freq_bands, sinecos_pe_flat
+from deepphysinet_tpu_torch.physics import equations as eqs
 from deepphysinet_tpu_torch.physics.constants import DEFAULT_CONSTANTS, PhysicalConstants
 
-PDE_ENGINES = ("kernel", "jvp")
+PDE_ENGINES = ("kernel", "jvp", "linearize")
+FIELD_KEYS = ("u", "v", "p", "T", "q", "rio")
+_CLIPPED = (False, False, True, True, True, True)  # u, v never clip
+
+
+@dataclasses.dataclass
+class FieldDerivatives:
+    """Physical fields and their x / y / t derivatives at the collocation points."""
+
+    fields: Dict[str, torch.Tensor]  # each [N, 1]
+    derivs: Dict[str, Dict[str, torch.Tensor]]  # derivs[var][axis] -> [N, 1]
+
+
+def field_derivatives(primal: torch.Tensor, tangents) -> FieldDerivatives:
+    """``FieldDerivatives`` from physical fields [N, 6] and their x, y, t tangents (each [N, 6])."""
+    fields = {k: primal[:, i : i + 1] for i, k in enumerate(FIELD_KEYS)}
+    derivs = {k: {ax: tangents[j][:, i : i + 1] for j, ax in enumerate(("x", "y", "t"))}
+              for i, k in enumerate(FIELD_KEYS)}
+    return FieldDerivatives(fields=fields, derivs=derivs)
+
+
+def forward_tangents(fn: Callable[[torch.Tensor], torch.Tensor], coords: torch.Tensor):
+    """``fn(coords)`` and its derivatives along x, y and t: ``(primal, [dx, dy, dt])``.
+
+    Forward mode (``torch.func.jvp``), one pass per direction; the result stays
+    differentiable in reverse mode with respect to what ``fn`` closes over.
+    JAX's ``linearize`` traces the primal once; here each pass recomputes it."""
+    primal, tangents = None, []
+    for axis in range(3):
+        basis = torch.zeros_like(coords)
+        basis[:, axis] = 1.0
+        primal, tangent = torch.func.jvp(fn, (coords,), (basis,))
+        tangents.append(tangent)
+    return primal, tangents
+
+
+def linearized_fields(phys_fn: Callable[[torch.Tensor], torch.Tensor],
+                      coords: torch.Tensor) -> FieldDerivatives:
+    """Evaluate ``phys_fn`` and its x / y / t Jacobian columns at ``coords [N, 3]``."""
+    return field_derivatives(*forward_tangents(phys_fn, coords))
+
+
+def _mse(diff: torch.Tensor, const: torch.Tensor) -> torch.Tensor:
+    d = (diff - const).float()
+    return torch.mean(d * d)
+
+
+def _total(losses: Dict[str, torch.Tensor]) -> torch.Tensor:
+    return (losses["montion_u_loss"] + losses["montion_v_loss"] + losses["energy_loss"]
+            + losses["continous_loss"] + losses["vapor_loss"] + losses["gas_loss"])
+
+
+def residual_losses_from_fields(
+    fd: FieldDerivatives,
+    coriolis_f: torch.Tensor,
+    loss_factor: Dict[str, float],
+    constants: PhysicalConstants = DEFAULT_CONSTANTS,
+    criterion: Optional[Callable] = None,
+) -> Dict[str, torch.Tensor]:
+    """The six equation losses from already-computed fields and derivatives.
+
+    ``criterion(pred, target) -> scalar`` defaults to MSE (the reference
+    configuration's pde_loss); any registered loss can be passed."""
+    crit = criterion or _mse
+    fields, derivs = fd.fields, fd.derivs
+    pairs = {
+        "montion_u_loss": (eqs.momentum_u_residual(fields, derivs, coriolis_f, constants),
+                           "motion_u_factor"),
+        "montion_v_loss": (eqs.momentum_v_residual(fields, derivs, coriolis_f, constants),
+                           "motion_v_factor"),
+        "continous_loss": (eqs.continuity_residual(fields, derivs, constants), "continuous_factor"),
+        "energy_loss": (eqs.energy_residual(fields, derivs, constants), "energy_factor"),
+        "vapor_loss": (eqs.vapor_residual(fields, derivs, constants), "vapor_factor"),
+        "gas_loss": (eqs.gas_residual(fields, constants), "gas_factor"),
+    }
+    losses = {k: crit(diff, const) * loss_factor[fk] for k, ((diff, const), fk) in pairs.items()}
+    losses["total"] = _total(losses)
+    return losses
+
+
+def pde_residual_losses(
+    phys_fn: Callable[[torch.Tensor], torch.Tensor],
+    coords: torch.Tensor,  # [N, 3] physical (x m, y m, t s)
+    coriolis_f: torch.Tensor,  # [N, 1]
+    loss_factor: Dict[str, float],
+    constants: PhysicalConstants = DEFAULT_CONSTANTS,
+    criterion: Optional[Callable] = None,
+) -> Dict[str, torch.Tensor]:
+    """All six equation losses of one collocation batch through the ``'linearize'`` engine.
+
+    Mirrors place_one_batch (reference interface_physics.py:271-320): each
+    residual against its balance term under the PDE criterion (MSE by default),
+    scaled by its configured factor; their sum under ``"total"``."""
+    fd = linearized_fields(phys_fn, coords)
+    return residual_losses_from_fields(fd, coriolis_f, loss_factor, constants, criterion)
 
 
 def _cd_pe(model, coord_data: torch.Tensor) -> torch.Tensor:
@@ -40,11 +156,15 @@ def _cd_pe(model, coord_data: torch.Tensor) -> torch.Tensor:
     return sinecos_pe_flat(coord_data, cd_freqs, dtype=model.compute_dtype)
 
 
-def _kernel_inputs(model, tokens, coords, coord_data, fore_h, coord_spec):
-    """Per-window decode weights plus the compute-dtype PE inputs of the points."""
+def _kernel_inputs(model, tokens, coords, coord_data, fore_h, coord_spec, tangents: bool = True):
+    """Per-window decode weights plus the compute-dtype PE inputs of the points:
+    ``(weights, pe, dpe, cd_pe)``; ``dpe`` is ``None`` without ``tangents``."""
     weights = extract_decode_weights(model, tokens, fore_h)
-    pe = pe_primal(coords, coord_spec, dtype=model.compute_dtype)
-    return weights, pe, _cd_pe(model, coord_data)
+    if tangents:
+        pe, dpe = pe_and_tangents(coords, coord_spec, dtype=model.compute_dtype)
+    else:
+        pe, dpe = pe_primal(coords, coord_spec, dtype=model.compute_dtype), None
+    return weights, pe, dpe, _cd_pe(model, coord_data)
 
 
 def _kernel_inputs_s(model, tokens, coords, coord_data, fore_h, coord_spec):
@@ -64,10 +184,23 @@ def collapsed_decode_t(
     coord_spec,
 ) -> torch.Tensor:
     """Var-major normalized primal decode [6, N] via the collapsed v4 algebra."""
-    weights, pe, cd_pe = _kernel_inputs(model, tokens, coords, coord_data, fore_h, coord_spec)
+    weights, pe, _, cd_pe = _kernel_inputs(model, tokens, coords, coord_data, fore_h, coord_spec,
+                                           tangents=False)
     fw = fuse_decode_weights(weights)
     ref_t = coord_data.float().t().contiguous()
     return decode_primal_v4t(fw, pe, cd_pe, ref_t, compute_dtype=model.compute_dtype)
+
+
+def _check_engine(engine: str) -> None:
+    if engine not in ("kernel", "jvp"):
+        raise ValueError(f"unknown engine {engine!r}; expected 'kernel' or 'jvp'")
+
+
+def _check_version(version: int, what: str) -> None:
+    if version not in (4, 7):
+        raise NotImplementedError(
+            f"{what}: decode-kernel version {version} is not ported yet (ROADMAP B8: the v2, v3, "
+            "v5, v4pe and v6 kernels); use 4 or 7")
 
 
 def fused_kernel_fields_t(
@@ -78,29 +211,189 @@ def fused_kernel_fields_t(
     fore_h: torch.Tensor,  # [1]
     coord_spec,
     engine: str = "kernel",
+    version: int = 4,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Var-major trainable decode: ``(primal_t [6, N], tang_t [3, 6, N])``.
 
     Gradients reach the hypernet parameters and the tokens through the
-    per-window fusion (``extract_decode_weights`` -> ``fuse_decode_weights`` ->
-    ``fuse_v6_from_v4``).  The points' inputs are data: ``coord_data`` is
-    detached, and ``pe_cm`` / ``cd_pe`` carry no graph.  ``engine='kernel'``
-    runs ``FusedDecodeJvpV4s`` (a kernel on both passes on a GPU);
-    ``engine='jvp'`` runs its plain version ``decode_jvp_v4s_ref`` under
+    per-window fusion (``extract_decode_weights`` -> ``fuse_decode_weights``, and
+    ``fuse_v6_from_v4`` for version 7).  The points' inputs are data:
+    ``coord_data`` is detached, and the PE inputs carry no graph.
+    ``version=4`` runs the v4t pair on the interleaved PE and the compact
+    tangent input ``dpe``; ``version=7`` the v4s pair on the channel-major trig
+    operand.  ``engine='kernel'`` runs the pair's ``torch.autograd.Function`` (a
+    kernel on both passes on a GPU); ``engine='jvp'`` its plain version under
     autograd."""
-    if engine not in PDE_ENGINES:
-        raise ValueError(f"unknown engine {engine!r}; expected one of {PDE_ENGINES}")
+    _check_engine(engine)
+    _check_version(version, "fused_kernel_fields_t")
     coord_data = coord_data.detach()
-    weights, pe_cm, cd_pe = _kernel_inputs_s(model, tokens, coords.detach(), coord_data, fore_h,
-                                             coord_spec)
     ref_t = coord_data.float().t().contiguous()
-    fw6 = fuse_v6_from_v4(fuse_decode_weights(weights), coord_spec)
+    cdt = model.compute_dtype
+    if version == 7:
+        weights, pe_cm, cd_pe = _kernel_inputs_s(model, tokens, coords.detach(), coord_data, fore_h,
+                                                 coord_spec)
+        fw6 = fuse_v6_from_v4(fuse_decode_weights(weights), coord_spec)
+        if engine == "kernel":
+            return fused_decode_jvp_v4s_kbwd(fw6, pe_cm, cd_pe, ref_t, cdt)
+        return decode_jvp_v4s_ref(fw6, pe_cm, cd_pe, ref_t, cdt)
+    weights, pe, dpe, cd_pe = _kernel_inputs(model, tokens, coords.detach(), coord_data, fore_h,
+                                             coord_spec)
+    fw = fuse_decode_weights(weights)
     if engine == "kernel":
-        return fused_decode_jvp_v4s_kbwd(fw6, pe_cm, cd_pe, ref_t, model.compute_dtype)
-    return decode_jvp_v4s_ref(fw6, pe_cm, cd_pe, ref_t, model.compute_dtype)
+        return fused_decode_jvp_v4t_kbwd(fw, pe, dpe, cd_pe, ref_t, cdt)
+    return decode_jvp_v4_ref(fw, pe, dpe, cd_pe, ref_t, cdt, t_layout=True)
 
 
-_CLIPPED = (False, False, True, True, True, True)  # u, v never clip
+def fields_from_primal_tangents(
+    primal: torch.Tensor,  # [N, 6] normalized decode outputs
+    tang: torch.Tensor,  # [3, N, 6] d(normalized)/d(physical x, y, t)
+    obs_specs,
+    with_clip: bool,
+) -> FieldDerivatives:
+    """Inverse-normalization chain rule and clip masking -> physical fields and derivatives.
+
+    For mean_norm, d(phys)/dx = std * d(norm)/dx; where the clip is active the
+    derivative is zero (``torch.clip`` semantics, matching the linearize path)."""
+    fields, derivs = {}, {}
+    for i, key in enumerate(FIELD_KEYS):
+        spec = obs_specs[i]
+        if spec.use_norm and spec.norm_type.lower() != "mean_norm":
+            raise NotImplementedError(
+                "the fused decode's chain rule supports mean_norm only; use the "
+                f"linearize engine for {spec.name} ({spec.norm_type})")
+        p_norm = primal[:, i : i + 1]
+        clip = with_clip and _CLIPPED[i] and spec.bound is not None
+        scale = float(np.float32(spec.norm_factor[1])) if spec.use_norm else 1.0
+        if clip:
+            lo, hi = spec.bound
+            unclipped = inverse_normalize(p_norm, spec, with_clip=False)
+            scale = scale * ((unclipped > lo) & (unclipped < hi)).float()
+        fields[key] = inverse_normalize(p_norm, spec, with_clip=clip)
+        derivs[key] = {ax: tang[j, :, i : i + 1] * scale for j, ax in enumerate(("x", "y", "t"))}
+    return FieldDerivatives(fields=fields, derivs=derivs)
+
+
+def fused_kernel_fields(
+    model,
+    tokens: torch.Tensor,  # [T, D]
+    coords: torch.Tensor,  # [N, 3] physical
+    coord_data: torch.Tensor,  # [N, 6] normalized conditioning values
+    fore_h: torch.Tensor,  # [1]
+    coord_spec,
+    obs_specs,
+    with_clip: bool = True,
+    trainable: bool = False,
+    version: int = 4,
+    in_kernel_pe: bool = False,
+    raw_tangents: bool = False,
+):
+    """``(primal_norm [N, 6], FieldDerivatives)`` via the v4 decode kernel.
+
+    With ``raw_tangents`` the normalized ``tang [3, N, 6]`` is returned instead
+    of the assembled ``FieldDerivatives`` (for the packed assembly).  The
+    normalized primal comes back beside the fields so that the training step
+    can use it as the data-loss prediction.  ``trainable`` goes through
+    ``FusedDecodeJvpV4`` (a kernel on both passes on a GPU), so the result can
+    sit inside a differentiated loss; otherwise the forward kernel alone runs
+    and the result carries no graph on a GPU.  ``version=7`` means the v4
+    algebra here, as in ``jvp_fields``: v4s is a var-major variant
+    (``fused_kernel_fields_t``)."""
+    _check_version(version, "fused_kernel_fields")
+    if in_kernel_pe:
+        raise NotImplementedError(
+            "fused_kernel_fields: in_kernel_pe needs the v4pe kernel, which is not ported yet "
+            "(ROADMAP B8)")
+    coord_data = coord_data.detach()
+    weights, pe, dpe, cd_pe = _kernel_inputs(model, tokens, coords.detach(), coord_data, fore_h,
+                                             coord_spec)
+    fw = fuse_decode_weights(weights)
+    decode = fused_decode_jvp_v4_kbwd if trainable else fused_decode_jvp_v4
+    primal, tang = decode(fw, pe, dpe, cd_pe, coord_data.float().contiguous(), model.compute_dtype)
+    if raw_tangents:
+        return primal, tang
+    return primal, fields_from_primal_tangents(primal, tang, obs_specs, with_clip)
+
+
+def jvp_fields(
+    model,
+    tokens: torch.Tensor,  # [T, D]
+    coords: torch.Tensor,  # [N, 3] physical
+    coord_data: torch.Tensor,  # [N, 6] normalized conditioning values
+    fore_h: torch.Tensor,  # [1]
+    coord_spec,
+    obs_specs,
+    with_clip: bool = True,
+    version: int = 4,
+    raw_tangents: bool = False,
+):
+    """Analytic-tangent fields through the collapsed v4 algebra in plain PyTorch.
+
+    ``(primal_norm [N, 6], FieldDerivatives)``, fully differentiable by
+    autograd.  Mirrors the JAX ``jvp_fields`` over its XLA twin
+    ``decode_jvp_xla_v4``, which keeps the masked tangents float32 for the
+    ``w2wo`` sum (``round_tangents=False``).  ``version=7`` is a kernel layout
+    choice with no meaning here and is treated as 4."""
+    _check_version(version, "jvp_fields")
+    coord_data = coord_data.detach()
+    weights, pe, dpe, cd_pe = _kernel_inputs(model, tokens, coords.detach(), coord_data, fore_h,
+                                             coord_spec)
+    primal, tang = decode_jvp_v4_ref(fuse_decode_weights(weights), pe, dpe, cd_pe,
+                                     coord_data.float(), model.compute_dtype, round_tangents=False)
+    if raw_tangents:
+        return primal, tang
+    return primal, fields_from_primal_tangents(primal, tang, obs_specs, with_clip)
+
+
+@torch.no_grad()
+def fused_residual_losses(
+    model,
+    tokens: torch.Tensor,  # [T, D]
+    coords: torch.Tensor,  # [N, 3] physical
+    coord_data: torch.Tensor,  # [N, 6] normalized conditioning values
+    fore_h: torch.Tensor,  # [1]
+    coriolis_f: torch.Tensor,  # [N, 1]
+    coord_spec,
+    obs_specs,
+    loss_factor: Dict[str, float],
+    with_clip: bool = True,
+    constants: PhysicalConstants = DEFAULT_CONSTANTS,
+    version: int = 4,
+) -> Dict[str, torch.Tensor]:
+    """Forward-only residual losses (MSE criterion): the evaluation sweeps' path.
+
+    ``version=4``: the var-major v4t forward kernel, then the packed ``[6, N]``
+    assembly; ``version=7``: the same with the v4s forward kernel.  Not
+    differentiable; training goes through ``fused_kernel_fields_t``.  In the JAX
+    package every other version reaches the in-kernel residual assembly
+    (``ops/residual_kernel.py``) above 49,152 points."""
+    if version not in (4, 7):
+        raise NotImplementedError(
+            f"fused_residual_losses: version {version} needs the in-kernel residual assembly "
+            "(ROADMAP B5) and its decode kernel (ROADMAP B8), which are not ported yet; use 4 or 7")
+    ref_t = coord_data.float().t().contiguous()
+    if version == 7:
+        weights, pe_cm, cd_pe = _kernel_inputs_s(model, tokens, coords, coord_data, fore_h, coord_spec)
+        fw6 = fuse_v6_from_v4(fuse_decode_weights(weights), coord_spec)
+        primal_t, tang_t = fused_decode_jvp_v4s(fw6, pe_cm, cd_pe, ref_t, model.compute_dtype)
+    else:
+        weights, pe, dpe, cd_pe = _kernel_inputs(model, tokens, coords, coord_data, fore_h, coord_spec)
+        primal_t, tang_t = fused_decode_jvp_v4t(fuse_decode_weights(weights), pe, dpe, cd_pe, ref_t,
+                                                model.compute_dtype)
+    return packed_residual_losses_from_primal_tangents_t(
+        primal_t, tang_t, coriolis_f, obs_specs, loss_factor, with_clip=with_clip,
+        constants=constants)
+
+
+def packed_physical_from_primal_tangents(
+    primal: torch.Tensor,  # [N, 6] normalized decode outputs
+    tang: torch.Tensor,  # [3, N, 6] normalized tangents
+    obs_specs,
+    with_clip: bool,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``packed_physical_from_primal_tangents_t`` on the ``[N, 6]`` layout: the
+    vectorized form of ``fields_from_primal_tangents``, var-major out."""
+    return packed_physical_from_primal_tangents_t(primal.t(), tang.transpose(1, 2), obs_specs,
+                                                  with_clip)
 
 
 def packed_physical_from_primal_tangents_t(
@@ -193,11 +486,22 @@ def residual_losses_packed(
         "vapor_loss": mse(r_q) * loss_factor["vapor_factor"],
         "gas_loss": mse(r_g) * loss_factor["gas_factor"],
     }
-    losses["total"] = (
-        losses["montion_u_loss"] + losses["montion_v_loss"] + losses["energy_loss"]
-        + losses["continous_loss"] + losses["vapor_loss"] + losses["gas_loss"]
-    )
+    losses["total"] = _total(losses)
     return losses
+
+
+def packed_residual_losses_from_primal_tangents(
+    primal: torch.Tensor,  # [N, 6]
+    tang: torch.Tensor,  # [3, N, 6]
+    coriolis_f: torch.Tensor,
+    obs_specs,
+    loss_factor: Dict[str, float],
+    with_clip: bool = True,
+    constants: PhysicalConstants = DEFAULT_CONSTANTS,
+) -> Dict[str, torch.Tensor]:
+    """Packed assembly from the ``[N, 6]`` layout: the v4 pair's outputs -> per-equation losses."""
+    fields, derivs = packed_physical_from_primal_tangents(primal, tang, obs_specs, with_clip)
+    return residual_losses_packed(fields, derivs, coriolis_f, loss_factor, constants)
 
 
 def packed_residual_losses_from_primal_tangents_t(
@@ -209,6 +513,6 @@ def packed_residual_losses_from_primal_tangents_t(
     with_clip: bool = True,
     constants: PhysicalConstants = DEFAULT_CONSTANTS,
 ) -> Dict[str, torch.Tensor]:
-    """Var-major assembly: the v4s pair's outputs -> per-equation losses."""
+    """Var-major assembly: the v4t or v4s pair's outputs -> per-equation losses."""
     fields, derivs = packed_physical_from_primal_tangents_t(primal_t, tang_t, obs_specs, with_clip)
     return residual_losses_packed(fields, derivs, coriolis_f, loss_factor, constants)

@@ -6,21 +6,23 @@ Counterpart of ``deepphysinet_tpu/train/train_step.py``:
                + [with_pde] Sum_eq factor_eq * MSE(residual_eq(inter pts))
                + [with_pde] Sum_eq factor_eq * MSE(residual_eq(margin pts))
 
-with forward-mode space-time derivatives from the v4s decode pair
-(``physics/engine.py``), reverse mode over the whole objective for the
-parameter gradient, a global-norm clip at 2.5e7 and the optimizer update.
+with forward-mode space-time derivatives from a decode pair or from autograd's
+forward mode (``physics/engine.py``), reverse mode over the whole objective for
+the parameter gradient, a global-norm clip at 2.5e7 and the optimizer update.
 
 Differences from the JAX step, which is one jitted program:
 
 * the step runs eagerly, and the windows of a batch are a Python loop where
   JAX uses ``vmap``; every metric is the mean over the windows;
 * the model's parameters and the optimizer's state are updated in place;
-* ``pde_engine`` is ``'kernel'`` (default: ``FusedDecodeJvpV4s``, a CUDA
-  kernel on both passes on a GPU) or ``'jvp'`` (its plain version
-  ``decode_jvp_v4s_ref`` under autograd).  ``'linearize'`` (autograd's own
-  forward mode over ``PhysicsNet.decode``), ``tpu.kernel_version`` other than 7, the
-  dict-form residuals and PDE criteria other than ``MSELoss`` are not ported
-  yet (ROADMAP A5) and raise ``NotImplementedError``;
+* ``pde_engine`` is ``'kernel'`` (default: a decode pair with a CUDA kernel on
+  both passes on a GPU), ``'jvp'`` (the pair's plain version under autograd)
+  or ``'linearize'`` (``torch.func.jvp`` over ``PhysicsNet.decode``).
+  ``kernel_version`` 7 picks the v4s pair, 4 the v4t pair (or, with
+  ``var_major`` off, the ``[N, 6]`` v4 pair); 6 is not ported (ROADMAP B8) and
+  raises ``NotImplementedError``.  The var-major layout serves ``'jvp'`` as it
+  serves ``'kernel'`` (the JAX step runs ``'jvp'`` in ``[N, 6]`` only), so that
+  the two engines differ in nothing but kernel against plain version;
 * the non-finite guard decides on the host whether to step the optimizer,
   which costs one device-to-host read of the gradient norm per step.
 """
@@ -40,10 +42,13 @@ from deepphysinet_tpu_torch.ops.coords import CoordSpec, encode_coord
 from deepphysinet_tpu_torch.ops.normalization import OBS_NAME_ORDER, NormSpec, norm_specs_from_cfg
 from deepphysinet_tpu_torch.physics.constants import DEFAULT_CONSTANTS, PhysicalConstants
 from deepphysinet_tpu_torch.physics.engine import (
-    PDE_ENGINES, fused_kernel_fields_t, packed_residual_losses_from_primal_tangents_t)
+    PDE_ENGINES, field_derivatives, forward_tangents, fused_kernel_fields, fused_kernel_fields_t,
+    jvp_fields, packed_residual_losses_from_primal_tangents,
+    packed_residual_losses_from_primal_tangents_t, pde_residual_losses,
+    residual_losses_from_fields)
 from deepphysinet_tpu_torch.train.losses import build_loss
 from deepphysinet_tpu_torch.train.optim import build_optimizer
-from deepphysinet_tpu_torch.train.point_fn import inverse_norm_stack
+from deepphysinet_tpu_torch.train.point_fn import inverse_norm_stack, make_phys_fn
 
 
 class PointBatch(NamedTuple):
@@ -103,9 +108,22 @@ class StepConfig:
     pde_loss: str = "MSELoss"
     grad_clip_norm: float = 2.5e7
     constants: PhysicalConstants = DEFAULT_CONSTANTS
-    # 'kernel' = the v4s pair with a hand-written kernel on both passes;
-    # 'jvp' = the pair's plain version under autograd
+    # 'kernel' = a decode pair with a hand-written kernel on both passes;
+    # 'jvp' = the pair's plain version under autograd; 'linearize' = forward
+    # mode over the model's plain decode (needed for observation
+    # normalizations other than mean_norm)
     pde_engine: str = "kernel"
+    # decode-kernel generation of the 'kernel' and 'jvp' engines: 7 = the v4s
+    # pair (channel-major trig operand, PE derivative folded into the weights),
+    # 4 = the v4 / v4t pair (interleaved PE plus the compact tangent input dpe).
+    # The same function either way; train_cfg.tpu.kernel_version
+    kernel_version: int = 7
+    # packed [6, N] residual assembly for the 'kernel' and 'jvp' engines under
+    # the MSE criterion; any other criterion and 'linearize' take the dict form
+    # of physics/equations.py.  train_cfg.tpu.packed_assembly
+    packed_assembly: bool = True
+    # var-major [6, N] kernel outputs for the packed path; off = the [N, 6] pair
+    var_major: bool = True
 
     def factors(self) -> Dict[str, float]:
         return dict(self.loss_factor)
@@ -116,10 +134,9 @@ def step_config_from_cfg(config: Mapping[str, Any], pred_t_span: float = 86400.0
     """Hydrate from a reference-schema ``config`` dict, as the JAX interface does
     (interface_physics.py:218-238)."""
     train = config["train_cfg"]
-    kernel_version = int(train.get("tpu", {}).get("kernel_version", 7))
-    if kernel_version != 7:  # the decode-kernel generation; only 7 (v4s) is ported
-        raise NotImplementedError(
-            f"kernel_version={kernel_version} is not ported yet (ROADMAP A5, B3, B8); use 7")
+    tpu_cfg = train.get("tpu", {})
+    kernel_version = int(tpu_cfg.get("kernel_version", 7))
+    _check_kernel_version(kernel_version)
     img = train["img_size"]
     lat_size, lon_size = (int(img), int(img)) if isinstance(img, (int, float)) else map(int, img)
     specs = norm_specs_from_cfg(config["obs_norm_cfg"])
@@ -133,21 +150,24 @@ def step_config_from_cfg(config: Mapping[str, Any], pred_t_span: float = 86400.0
         prediction_loss=losses["prediction_loss"]["name"],
         prediction_beta=float(losses["prediction_loss"].get("beta", 0.1)),
         pde_loss=losses["pde_loss"]["name"],
+        kernel_version=kernel_version,
+        packed_assembly=bool(tpu_cfg.get("packed_assembly", True)),
     )
     fields.update(overrides)
     return StepConfig(**fields)
 
 
+def _check_kernel_version(kernel_version: int) -> None:
+    if kernel_version not in (4, 7):
+        raise NotImplementedError(
+            f"kernel_version={kernel_version} needs the v6 decode kernels, which are not "
+            "ported yet (ROADMAP B8); use 4 or 7")
+
+
 def _check_supported(cfg: StepConfig) -> None:
-    if cfg.pde_engine == "linearize":
-        raise NotImplementedError(
-            "pde_engine='linearize' is not ported yet (ROADMAP A5); use 'kernel' or 'jvp'")
     if cfg.pde_engine not in PDE_ENGINES:
-        raise ValueError(f"unknown pde_engine {cfg.pde_engine!r}; expected 'kernel' or 'jvp'")
-    if cfg.pde_loss != "MSELoss":
-        raise NotImplementedError(
-            f"pde_loss={cfg.pde_loss!r} needs the dict-form residuals of physics/equations.py, "
-            "which are not ported yet (ROADMAP A5); use 'MSELoss'")
+        raise ValueError(f"unknown pde_engine {cfg.pde_engine!r}; expected one of {PDE_ENGINES}")
+    _check_kernel_version(cfg.kernel_version)
 
 
 def _snap_forecast_h(forecast_h: torch.Tensor, cfg: StepConfig) -> torch.Tensor:
@@ -170,6 +190,7 @@ def _window_losses(
     cfg: StepConfig,
     with_pde: bool,
     pred_loss_fn,
+    pde_criterion=None,  # None = MSE, which has the packed assembly
 ) -> Dict[str, torch.Tensor]:
     """Losses of one window.
 
@@ -179,32 +200,84 @@ def _window_losses(
     factors = cfg.factors()
     out: Dict[str, torch.Tensor] = {}
 
-    def engine_losses(pts: PointBatch):
-        coords = torch.stack([pts.x, pts.y, pts.t], dim=-1)
-        primal_t, tang_t = fused_kernel_fields_t(model, tokens, coords, pts.nwp, fore_h,
-                                                 cfg.coord_spec, engine=cfg.pde_engine)
-        losses = packed_residual_losses_from_primal_tangents_t(
-            primal_t, tang_t, pts.f, cfg.obs_specs, factors, with_clip=True,
-            constants=cfg.constants)
-        return primal_t, losses
+    linearize = cfg.pde_engine == "linearize"
+    packed = cfg.packed_assembly and pde_criterion is None
+    # the packed path in [6, N] throughout: kernel outputs, assembly, data loss
+    var_major = cfg.var_major and packed and with_pde and not linearize
 
-    if with_pde:
-        pred_t, m_losses = engine_losses(margin)
-        for k, v in m_losses.items():
-            out[f"margin_{k}"] = v
-        # pred_t is var-major [6, N]; the loss is elementwise + mean, so the
-        # transposed labels (data) keep the whole gradient path in [6, N]
-        out["margin_loss"] = pred_loss_fn(pred_t, margin.labels.t()) * factors["margin_factor"]
-        out["_pred_norm"] = pred_t.detach().t()
-        _, i_losses = engine_losses(inter)
-        for k, v in i_losses.items():
-            out[f"inter_{k}"] = v
+    def engine_fields(pts: PointBatch):
+        """(normalized primal, raw tangents or FieldDerivatives) through cfg.pde_engine."""
+        coords = torch.stack([pts.x, pts.y, pts.t], dim=-1)
+        if var_major:
+            return fused_kernel_fields_t(model, tokens, coords, pts.nwp, fore_h, cfg.coord_spec,
+                                         engine=cfg.pde_engine, version=cfg.kernel_version)
+        if cfg.pde_engine == "kernel":
+            return fused_kernel_fields(model, tokens, coords, pts.nwp, fore_h, cfg.coord_spec,
+                                       cfg.obs_specs, with_clip=True, trainable=True,
+                                       version=cfg.kernel_version, raw_tangents=packed)
+        return jvp_fields(model, tokens, coords, pts.nwp, fore_h, cfg.coord_spec, cfg.obs_specs,
+                          with_clip=True, version=cfg.kernel_version, raw_tangents=packed)
+
+    def engine_losses(pred, fd_or_tang, coriolis_f):
+        """Residual losses from the second output of ``engine_fields``."""
+        if var_major:
+            return packed_residual_losses_from_primal_tangents_t(
+                pred, fd_or_tang, coriolis_f, cfg.obs_specs, factors, with_clip=True,
+                constants=cfg.constants)
+        if packed:
+            return packed_residual_losses_from_primal_tangents(
+                pred, fd_or_tang, coriolis_f, cfg.obs_specs, factors, with_clip=True,
+                constants=cfg.constants)
+        return residual_losses_from_fields(fd_or_tang, coriolis_f, factors, cfg.constants,
+                                           pde_criterion)
+
+    if with_pde and linearize:
+        # shared margin evaluation: data loss and PDE terms from one forward-mode
+        # evaluation of a combined (normalized, physical) head
+        margin_nwp = margin.nwp.detach()
+
+        def combo_fn(coords):
+            pe = encode_coord(coords[:, 0], coords[:, 1], coords[:, 2], cfg.coord_spec)
+            out_norm = model.decode(tokens, pe, margin_nwp, fore_h)
+            phys = inverse_norm_stack(out_norm, cfg.obs_specs, with_clip=True)
+            return torch.cat([out_norm, phys], dim=-1)  # [N, 12]
+
+        primal, tangents = forward_tangents(combo_fn, torch.stack([margin.x, margin.y, margin.t], dim=-1))
+        pred = primal[:, :6]
+        m_losses = residual_losses_from_fields(
+            field_derivatives(primal[:, 6:], [t[:, 6:] for t in tangents]), margin.f, factors,
+            cfg.constants, pde_criterion)
+    elif with_pde:
+        # shared margin evaluation through the jvp / kernel engine: the engine's
+        # normalized primal is the data-loss prediction
+        pred, fd = engine_fields(margin)
+        m_losses = engine_losses(pred, fd, margin.f)
     else:
         # data loss only, through the plain per-variable decode
         pe = encode_coord(margin.x, margin.y, margin.t, cfg.coord_spec)
         pred = model.decode(tokens, pe, margin.nwp, fore_h)
-        out["margin_loss"] = pred_loss_fn(pred, margin.labels) * factors["margin_factor"]
-        out["_pred_norm"] = pred.detach()
+    if with_pde:
+        for k, v in m_losses.items():
+            out[f"margin_{k}"] = v
+
+    # a var-major pred is [6, N]; the loss is elementwise + mean, so the
+    # transposed labels (data) keep the whole gradient path in [6, N]
+    labels = margin.labels.t() if var_major else margin.labels
+    out["margin_loss"] = pred_loss_fn(pred, labels) * factors["margin_factor"]
+    out["_pred_norm"] = pred.detach().t() if var_major else pred.detach()
+
+    if with_pde:
+        # interior collocation points
+        if linearize:
+            phys_fn = make_phys_fn(model, tokens, inter.nwp, fore_h, cfg.coord_spec, cfg.obs_specs,
+                                   with_clip=True)
+            i_losses = pde_residual_losses(
+                phys_fn, torch.stack([inter.x, inter.y, inter.t], dim=-1), inter.f, factors,
+                cfg.constants, pde_criterion)
+        else:
+            i_losses = engine_losses(*engine_fields(inter), inter.f)
+        for k, v in i_losses.items():
+            out[f"inter_{k}"] = v
     return out
 
 
@@ -215,13 +288,14 @@ def make_loss_fn(model: PhysicsNet, cfg: StepConfig):
     the windows of ``batch``."""
     _check_supported(cfg)
     pred_loss_fn = build_loss(cfg.prediction_loss, beta=cfg.prediction_beta)
+    pde_criterion = None if cfg.pde_loss == "MSELoss" else build_loss(cfg.pde_loss)
 
     def loss_fn(batch: Batch, with_pde: bool):
         fh_norm = (_snap_forecast_h(batch.forecast_h, cfg) / cfg.forecast_time_period)[:, None]
         tokens = model.encode(batch.field, fh_norm)  # [B, T, D]
         per_window = [
             _window_losses(model, tokens[b], fh_norm[b], _window(batch.margin, b),
-                           _window(batch.inter, b), cfg, with_pde, pred_loss_fn)
+                           _window(batch.inter, b), cfg, with_pde, pred_loss_fn, pde_criterion)
             for b in range(batch.field.shape[0])]
         pred_norm = torch.stack([w.pop("_pred_norm") for w in per_window])
         metrics = {k: torch.stack([w[k] for w in per_window]).mean() for k in per_window[0]}

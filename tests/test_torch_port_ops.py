@@ -158,7 +158,8 @@ def _jax_fw(fw):
 
 
 def _torch_fw(fw):
-    return tdk.FusedDecodeWeights(**{k: torch.from_numpy(v) for k, v in fw.items()})
+    fw = {k: torch.from_numpy(v) for k, v in fw.items()}
+    return tdk.FusedDecodeWeights(w1c=tdk.slice_tangent_weights(fw["w1"]), **fw)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -310,11 +311,12 @@ def test_decode_primal_kernel_matches_plain(cuda_device, dtype):
     """The CUDA kernel against its plain version at the kernel's hidden width."""
     rng = np.random.RandomState(11)
     n, in_ch, hid = 1000, 192, 256
-    fw = tdk.FusedDecodeWeights(**{
+    fw = {
         k: torch.from_numpy((rng.randn(*s) * 0.1).astype(np.float32)).to(cuda_device)
         for k, s in dict(w1=(6, in_ch, hid), b1=(6, hid), w2f1=(6, hid, hid),
                          wdf1=(6, in_ch, hid), rbias=(6, hid), fw2=(6, hid),
-                         w2wo=(6, hid), wdwo=(6, in_ch), obias=(6,)).items()})
+                         w2wo=(6, hid), wdwo=(6, in_ch), obias=(6,)).items()}
+    fw = tdk.FusedDecodeWeights(w1c=tdk.slice_tangent_weights(fw["w1"]), **fw)
     td = getattr(torch, dtype)
     pe = torch.from_numpy(rng.randn(n, in_ch).astype(np.float32)).to(cuda_device, td)
     cd = torch.from_numpy(rng.randn(n, in_ch).astype(np.float32)).to(cuda_device, td)

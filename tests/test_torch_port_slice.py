@@ -263,6 +263,8 @@ for m in pkgutil.walk_packages(deepphysinet_tpu_torch.__path__, "deepphysinet_tp
     importlib.import_module(m.name)
 from deepphysinet_tpu_torch.config import Config
 from deepphysinet_tpu_torch.data.window import synthetic_batch, synthetic_window
+from deepphysinet_tpu_torch.eval.residuals import evaluate_residuals
+from deepphysinet_tpu_torch.eval.rmse import evaluate_rmse_fullgrid
 from deepphysinet_tpu_torch.inference.runner import decode_config_from_cfg, predict_grid, predict_points
 from deepphysinet_tpu_torch.train.train_step import (
     batch_to_device, create_train_state, make_train_step, step_config_from_cfg)
@@ -271,7 +273,8 @@ cfg = Config.fromfile("configs/DeepPhysiNet_NCEP_cfg.py")["config"]
 cfg["train_cfg"]["img_size"] = (37, 65)  # coarse grid 10 x 17 = enc_in 170
 cfg["meta_cfg"].update(enc_in=170, c_out=32, d_model=32, n_heads=4, e_layers=2, d_ff=32)
 cfg["net_cfg"].update(hidden_channels=32, learnable_token_num=40)
-cfg["train_cfg"]["train_data"].update(label_batch_size=48, batch_size_inter=24)
+cfg["train_cfg"]["train_data"].update(label_batch_size=48, batch_size_inter=24,
+                                       label_time_step=6)  # 5 labelled hours per window
 state = create_train_state(cfg["meta_cfg"], cfg["net_cfg"], cfg["train_cfg"]["optimizer"],
                            torch.Generator().manual_seed(0), torch.bfloat16, device="cpu")
 model = state.model
@@ -283,9 +286,17 @@ pts = predict_points(model, dc, w, w.field[None], w.forecast_h, [75.3, 80.1], [2
 # one PDE training step through the 'kernel' engine (its plain versions on the CPU)
 before = [p.detach().clone() for p in model.parameters()]
 step = make_train_step(step_config_from_cfg(cfg))
-state, metrics = step(state, batch_to_device(synthetic_batch(cfg, seed=1), device="cpu"), True)
+batch = batch_to_device(synthetic_batch(cfg, seed=1), device="cpu")
+state, metrics = step(state, batch, True)
 metrics = {k: float(v) for k, v in metrics.items()}
 moved = sum(bool((a != b).any()) for a, b in zip(before, model.parameters()))
+# one PDE step with kernel_version=4 (the v4t pair) and the evaluation sweeps (v4t forward,
+# primal decode), again through the plain versions
+cfg["train_cfg"]["tpu"]["kernel_version"] = 4
+scfg4 = step_config_from_cfg(cfg)
+state, metrics4 = make_train_step(scfg4)(state, batch, True)
+sweeps = dict(evaluate_residuals(model, scfg4, [w], device="cpu"))
+sweeps.update(evaluate_rmse_fullgrid(model, scfg4, [w], per_lead=True, device="cpu"))
 loaded = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "flax", "jaxlib", "optax",
                 "deepphysinet_tpu") and sys.modules[k] is not None)
 print(json.dumps({"loaded": loaded, "T": list(grid["T"].shape), "pts": list(pts.shape),
@@ -293,7 +304,11 @@ print(json.dumps({"loaded": loaded, "T": list(grid["T"].shape), "pts": list(pts.
                   "metrics_finite": all(np.isfinite(v) for v in metrics.values()),
                   "has_pde": "inter_total" in metrics and "margin_vapor_loss" in metrics,
                   "skipped": metrics["skipped_nonfinite"], "step": state.step,
-                  "all_moved": moved == len(before)}))
+                  "all_moved": moved == len(before), "kernel_version": scfg4.kernel_version,
+                  "v4_finite": all(np.isfinite(float(v)) for v in metrics4.values()),
+                  "sweeps_finite": all(np.isfinite(v) for v in sweeps.values()),
+                  "sweep_hours": sweeps["n_hours"], "sweep_points": sweeps["n_points"],
+                  "has_lead": "rmse_t2_f048" in sweeps and "weighted_total" in sweeps}))
 """
 
 
@@ -305,5 +320,6 @@ def test_port_runs_with_jax_blocked():
     assert res.returncode == 0, res.stderr[-3000:]
     out = json.loads(res.stdout.strip().splitlines()[-1])
     assert out == {"loaded": [], "T": [37, 65], "pts": [2, 6], "finite": True,
-                   "metrics_finite": True, "has_pde": True, "skipped": 0.0, "step": 1,
-                   "all_moved": True}
+                   "metrics_finite": True, "has_pde": True, "skipped": 0.0, "step": 2,
+                   "all_moved": True, "kernel_version": 4, "v4_finite": True, "sweeps_finite": True,
+                   "sweep_hours": 5.0, "sweep_points": 5.0 * 37 * 65, "has_lead": True}

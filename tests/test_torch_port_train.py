@@ -6,7 +6,11 @@ from a seed) go through the JAX step -- ``make_train_step`` with
 ``pde_engine='kernel'``, ``kernel_interpret=True``, ``kernel_version=7``, i.e. the
 real Pallas kernels in interpret mode -- and through the port's step with its
 ``'kernel'`` engine, whose wrappers take their plain versions on CPU tensors.
-Three steps each, data-only and with the PDE terms.
+Three steps each, data-only and with the PDE terms.  The same again, with the PDE
+terms, for the step's other routes: ``kernel_version=4`` in both layouts (the
+v4t and the ``[N, 6]`` v4 Pallas pairs in interpret mode against the port's
+plain versions), the ``'linearize'`` engine (``jax.linearize`` against
+``torch.func.jvp``) and a PDE criterion other than MSE (the dict-form assembly).
 
 Tolerances.  Every metric of every step: rtol 1e-4 (float32 matmul chains in
 another summation order; the loss factors span 1e-7..1e14 but each metric is
@@ -265,14 +269,77 @@ def test_eval_step_makes_no_update_and_reports_the_step_losses(world):
 
 def test_unported_options_raise(world):
     tcfg = world["tcfg"]
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        tts.make_train_step(dataclasses.replace(tcfg, pde_engine="linearize"))
     with pytest.raises(ValueError, match="unknown pde_engine"):
         tts.make_train_step(dataclasses.replace(tcfg, pde_engine="pallas"))
-    with pytest.raises(NotImplementedError, match="kernel_version=4"):
-        tts.step_config_from_cfg(dict(train_cfg=dict(tpu=dict(kernel_version=4))))
-    with pytest.raises(NotImplementedError, match="L1Loss"):
-        tts.make_eval_step(dataclasses.replace(tcfg, pde_loss="L1Loss"))
+    # the v6 kernels are the one decode generation of the step still to port
+    with pytest.raises(NotImplementedError, match="kernel_version=6.*ROADMAP B8"):
+        tts.step_config_from_cfg(dict(train_cfg=dict(tpu=dict(kernel_version=6))))
+    with pytest.raises(NotImplementedError, match="kernel_version=6.*ROADMAP B8"):
+        tts.make_eval_step(dataclasses.replace(tcfg, kernel_version=6))
+    with pytest.raises(KeyError, match="NoSuchLoss"):
+        tts.make_eval_step(dataclasses.replace(tcfg, pde_loss="NoSuchLoss"))(
+            None, tts.batch_to_device(world["nb"], device="cpu"), True)
+
+
+# the step's other routes: (JAX StepConfig fields, port StepConfig fields)
+VARIANTS = {
+    "kernel_v4_var_major": (dict(pde_engine="kernel", kernel_interpret=True, kernel_version=4),
+                            dict(kernel_version=4)),
+    "kernel_v4_point_major": (dict(pde_engine="kernel", kernel_interpret=True, kernel_version=4,
+                                   var_major=False),
+                              dict(kernel_version=4, var_major=False)),
+    "kernel_v4_dict_assembly": (dict(pde_engine="kernel", kernel_interpret=True, kernel_version=4,
+                                     packed_assembly=False),
+                                dict(kernel_version=4, packed_assembly=False)),
+    "linearize": (dict(pde_engine="linearize"), dict(pde_engine="linearize")),
+    "l1_pde_criterion": (dict(pde_engine="kernel", kernel_interpret=True, pde_loss="L1Loss"),
+                         dict(pde_loss="L1Loss")),
+}
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_three_step_trajectory_of_variant_matches_jax(world, variant):
+    """Three PDE steps through one of the step's other routes: every metric of every
+    step at METRIC_RTOL, the parameters afterwards within PARAM_ATOL."""
+    jfields, tfields = VARIANTS[variant]
+    jspecs = j_norm_specs(OBS_CFG)
+    jcfg = jts.StepConfig(coord_spec=JaxCoordSpec(**COORD), obs_specs=tuple(jspecs[k] for k in J_ORDER),
+                          loss_factor=FACTORS, **jfields)
+    jmodel = JaxPhysicsNet(meta_cfg=META, net_cfg=NET)
+    tx = j_build_optimizer(**OPT)
+    jstep = jts.make_train_step(jmodel, tx, jcfg)
+    jbatch = _jax_batch(world["nb"])
+    jstate = jts.create_train_state(jmodel, tx, jax.random.PRNGKey(0), jbatch)
+    state = _port_state(_snapshot(jstate))
+    step = tts.make_train_step(dataclasses.replace(world["tcfg"], **tfields))
+    batch = tts.batch_to_device(world["nb"], device="cpu")
+    for i in range(STEPS):
+        jstate, jm = jstep(jstate, jbatch, with_pde=True)
+        state, tm = step(state, batch, True)
+        _assert_metrics_close({k: float(v) for k, v in tm.items()},
+                              {k: float(v) for k, v in jm.items()}, f"{variant} step {i}")
+        assert float(tm["skipped_nonfinite"]) == 0.0
+    _assert_params_close(state.model, jax.tree.map(np.asarray, jstate.params))
+
+
+def test_kernel_versions_and_layouts_agree(world):
+    """kernel_version 4 and 7 and the two layouts of 4 are one function: the same
+    losses to float32 rounding from the same state (the v4s pair folds the PE
+    derivative into the weights, the v4 pair reads it from dpe)."""
+    snaps, jmetrics = world["jax"][True]
+    batch = tts.batch_to_device(world["nb"], device="cpu")
+    got = {}
+    for name, fields in dict(v7=dict(), v4t=dict(kernel_version=4),
+                             v4=dict(kernel_version=4, var_major=False),
+                             v4_jvp=dict(kernel_version=4, pde_engine="jvp", var_major=False)).items():
+        state = _port_state(snaps[0])
+        cfg = dataclasses.replace(world["tcfg"], **fields)
+        got[name] = tts.make_eval_step(cfg)(state.model, batch, True)
+    for name in ("v4t", "v4", "v4_jvp"):
+        for k, v in got["v7"].items():
+            np.testing.assert_allclose(float(got[name][k]), float(v), rtol=METRIC_RTOL, err_msg=f"{name} {k}")
+    for k, v in got["v4t"].items():  # the two layouts of one pair: the same arithmetic
+        np.testing.assert_allclose(float(got["v4"][k]), float(v), rtol=1e-6, err_msg=k)
 
 
 def test_forecast_h_snap_matches_jax(world):
