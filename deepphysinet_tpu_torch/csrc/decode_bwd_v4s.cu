@@ -1,14 +1,22 @@
-// v4s collapsed decode, backward: cotangents of the nine fused weights, summed
-// over all points, for Hopper (sm_90a).
+// v4s and v6 collapsed decode, backward: cotangents of the nine fused weights,
+// summed over all points, for Hopper (sm_90a).
 //
-// Replaces the TPU kernel deepphysinet_tpu/ops/decode_kernel.py::
-// _decode_bwd_kernel_v4s (called through decode_bwd_kernel_v4s).  Per block of
-// points and variable v it recomputes the forward chain (no activations are
-// saved by the forward) and forms, with go = g_primal[v], gto_k = g_tang[k, v]
-// as per-point columns, a = fw2[v], b = w2wo[v], W = w2f1[v]:
+// Replaces two TPU kernels of deepphysinet_tpu/ops/decode_kernel.py that share
+// their algebra and their fused weights: _decode_bwd_kernel_v4s (called through
+// decode_bwd_kernel_v4s; v6 = 0 here: pe [n, 3 * two_f] channel-major rows,
+// cotangents [n_vars, n] and [3, n_vars, n]) and _decode_bwd_kernel_v6
+// (decode_bwd_kernel_v6; v6 = 1: trig [3, n, two_f] direction-major, cotangents
+// [n, n_vars] and [3, n, n_vars]).  The v6 operand is gathered into the
+// channel-major row as it is loaded, and gw1g [n_vars, 3, two_f, HID] has the
+// memory of [n_vars, 3 * two_f, HID], so the two forms share everything after the
+// loads: g_w1g[v, k] = trig_k^T g_z is rows k * two_f : (k + 1) * two_f of pe^T g_z.
+// Per block of points and variable v the kernel recomputes the forward chain (no
+// activations are saved by the forward) and forms, with go = g_primal[v],
+// gto_k = g_tang[k, v] as per-point columns, a = fw2[v], b = w2wo[v], W = w2f1[v]:
 //
 //   z, p, t_k, r, pr, tr_k        as the forward; t_k stays f32 here and is
-//                                 rounded only as a product's input (:2560-2568)
+//                                 rounded only as a product's input (:2560-2568,
+//                                 :2162-2164), where the forward kernels round it
 //   g_rp  = 1[r > 0] go a         g_rt_k = 1[r > 0] gto_k a
 //   gfw2  += sum_n pr go + sum_k sum_n tr_k gto_k
 //   gw2wo += 2 (sum_n p go + sum_k sum_n t_k gto_k)
@@ -62,7 +70,7 @@ decode_bwd_v4s_kernel(const T* __restrict__ pe, const T* __restrict__ cd,
                       float* __restrict__ gw2f1, float* __restrict__ gwdf1,
                       float* __restrict__ grbias, float* __restrict__ gfw2,
                       float* __restrict__ gw2wo, float* __restrict__ gwdwo,
-                      int64_t n, int in_ch, int n_vars) {
+                      int64_t n, int in_ch, int n_vars, int v6) {
   constexpr int NB = WARPS * TM;
   extern __shared__ __align__(16) unsigned char smem[];
   float* p_s = reinterpret_cast<float*>(smem);    // [NB, HID] f32: p, then t_k
@@ -81,14 +89,18 @@ decode_bwd_v4s_kernel(const T* __restrict__ pe, const T* __restrict__ cd,
   const T* W = w2f1 + (size_t)v * HID * HID;
   const T* Wt = w2f1_t + (size_t)v * HID * HID;
 
-  load_rows<T>(pe, cd, pe_s, cd_s, n0, n, NB, in_ch);
+  const bool var_major = v6 == 0;
+  if (v6)
+    load_rows_dm<T>(pe, cd, pe_s, cd_s, n0, n, NB, in_ch);
+  else
+    load_rows<T>(pe, cd, pe_s, cd_s, n0, n, NB, in_ch);
   for (int i = tid; i < 4 * NB; i += THREADS) {
     const int which = i / NB;  // 0: primal, 1..3: tangent direction which - 1
     const int64_t point = n0 + i % NB;
     float g = 0.0f;
     if (point < n)
-      g = which == 0 ? g_primal[(int64_t)v * n + point]
-                     : g_tang[((int64_t)(which - 1) * n_vars + v) * n + point];
+      g = which == 0 ? g_primal[primal_at(var_major, point, v, n, n_vars)]
+                     : g_tang[tangent_at(var_major, which - 1, point, v, n, n_vars)];
     go_s[i] = g;
   }
   for (int i = tid; i < CS_COUNT * HID; i += THREADS) cs[i] = 0.0f;
@@ -255,7 +267,7 @@ int launch(const void* pe, const void* cd, const float* g_primal, const float* g
            const void* w2f1_t, const void* wdf1, const float* rbias, const float* fw2,
            const float* w2wo, float* gw1g, float* gw1t, float* gb1, float* gw2f1, float* gwdf1,
            float* grbias, float* gfw2, float* gw2wo, float* gwdwo, int64_t n, int in_ch,
-           int n_vars, cudaStream_t stream) {
+           int n_vars, int v6, cudaStream_t stream) {
   constexpr int NB = WARPS * TM;
   const size_t smem = shared_bytes<T, TM>(in_ch);
   cudaError_t err = cudaFuncSetAttribute(decode_bwd_v4s_kernel<T, TM>,
@@ -266,7 +278,7 @@ int launch(const void* pe, const void* cd, const float* g_primal, const float* g
       static_cast<const T*>(pe), static_cast<const T*>(cd), g_primal, g_tang,
       static_cast<const T*>(w1g), static_cast<const T*>(w1t), b1, static_cast<const T*>(w2f1),
       static_cast<const T*>(w2f1_t), static_cast<const T*>(wdf1), rbias, fw2, w2wo, gw1g, gw1t,
-      gb1, gw2f1, gwdf1, grbias, gfw2, gw2wo, gwdwo, n, in_ch, n_vars);
+      gb1, gw2f1, gwdf1, grbias, gfw2, gw2wo, gwdwo, n, in_ch, n_vars, v6);
   return (int)cudaGetLastError();
 }
 
@@ -285,7 +297,9 @@ int dpn_decode_bwd_v4s_shared_bytes(int is_bf16, int in_ch) {
                        : shared_bytes<float, TM_F32>(in_ch));
 }
 
-// is_bf16: 1 for __nv_bfloat16 inputs, 0 for float.  The nine outputs must be
+// is_bf16: 1 for __nv_bfloat16 inputs, 0 for float.  v6: 0 for pe [n, in_ch],
+// g_primal [n_vars, n] and g_tang [3, n_vars, n]; 1 for pe = trig [3, n, in_ch / 3],
+// g_primal [n, n_vars] and g_tang [3, n, n_vars].  The nine outputs must be
 // zero on entry; the kernel adds into them.  Returns cudaGetLastError() after
 // the launch (0 on success).
 int dpn_decode_bwd_v4s(int is_bf16, const void* pe, const void* cd, const float* g_primal,
@@ -294,15 +308,15 @@ int dpn_decode_bwd_v4s(int is_bf16, const void* pe, const void* cd, const float*
                        const float* rbias, const float* fw2, const float* w2wo, float* gw1g,
                        float* gw1t, float* gb1, float* gw2f1, float* gwdf1, float* grbias,
                        float* gfw2, float* gw2wo, float* gwdwo, int64_t n, int in_ch,
-                       int n_vars, void* stream) {
+                       int n_vars, int v6, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return launch<__nv_bfloat16, TM_BF16>(pe, cd, g_primal, g_tang, w1g, w1t, b1, w2f1, w2f1_t,
                                           wdf1, rbias, fw2, w2wo, gw1g, gw1t, gb1, gw2f1, gwdf1,
-                                          grbias, gfw2, gw2wo, gwdwo, n, in_ch, n_vars, s);
+                                          grbias, gfw2, gw2wo, gwdwo, n, in_ch, n_vars, v6, s);
   return launch<float, TM_F32>(pe, cd, g_primal, g_tang, w1g, w1t, b1, w2f1, w2f1_t, wdf1, rbias,
                                fw2, w2wo, gw1g, gw1t, gb1, gw2f1, gwdf1, grbias, gfw2, gw2wo,
-                               gwdwo, n, in_ch, n_vars, s);
+                               gwdwo, n, in_ch, n_vars, v6, s);
 }
 
 }  // extern "C"

@@ -1,8 +1,9 @@
 // Shared device code of the jvp decode kernels (decode_jvp_v4s.cu,
-// decode_bwd_v4s.cu, decode_jvp_v4.cu and decode_bwd_v4.cu): type conversion
-// with the TPU kernels' rounding rule, a block-level matrix product on the CUDA
-// cores, the block's input rows, and the backward kernels' contraction of the
-// point axis with its atomic add into global memory.
+// decode_bwd_v4s.cu, decode_jvp_v4.cu, decode_bwd_v4.cu and residual_sums.cu):
+// type conversion with the TPU kernels' rounding rule, a block-level matrix
+// product on the CUDA cores, the block's input rows, the forward chain of one
+// variable (primal_stages, tangent_stage), and the backward kernels'
+// contraction of the point axis with its atomic add into global memory.
 //
 // Rounding rule (deepphysinet_tpu/ops/decode_kernel.py, every `dot`): both
 // operands of a product are rounded to the compute type T (bf16 for the
@@ -100,6 +101,149 @@ __device__ __forceinline__ void load_rows(const T* __restrict__ pe, const T* __r
     pe_s[i] = live ? pe[g] : zero;
     cd_s[i] = live ? cd[g] : zero;
   }
+}
+
+// The same for a direction-major operand trig [3, n, two_f] (the v6 kernels'):
+// the block's rows land channel-major, pe_s[row, k * two_f + j] = trig[k, n0 + row, j],
+// which is the row of the v4s operand, so everything after the load is shared.
+template <typename T>
+__device__ __forceinline__ void load_rows_dm(const T* __restrict__ trig, const T* __restrict__ cd,
+                                             T* pe_s, T* cd_s, int64_t n0, int64_t n, int nb,
+                                             int in_ch) {
+  const T zero = from_f32<T>(0.0f);
+  const int two_f = in_ch / 3;
+  for (int i = threadIdx.x; i < nb * in_ch; i += THREADS) {
+    const int row = i / in_ch, col = i - row * in_ch;
+    const int k = col / two_f, j = col - k * two_f;
+    const bool live = n0 + row < n;
+    pe_s[i] = live ? trig[((size_t)k * n + n0 + row) * two_f + j] : zero;
+    cd_s[i] = live ? cd[(size_t)n0 * in_ch + i] : zero;
+  }
+}
+
+// Offset of (point, v) in a primal-shaped array and of (k, point, v) in a
+// tangent-shaped one: var-major [V, N] / [3, V, N] or point-major [N, V] / [3, N, V].
+__device__ __forceinline__ int64_t primal_at(bool t_layout, int64_t point, int v, int64_t n,
+                                             int n_vars) {
+  return t_layout ? (int64_t)v * n + point : point * n_vars + v;
+}
+__device__ __forceinline__ int64_t tangent_at(bool t_layout, int k, int64_t point, int v,
+                                              int64_t n, int n_vars) {
+  return t_layout ? ((int64_t)k * n_vars + v) * n + point : ((int64_t)k * n + point) * n_vars + v;
+}
+
+// ---- forward kernels: one variable's chain for the block's points ------------
+//
+// Both functions work on the block's NB = WARPS * TM points with the thread
+// layout of block_gemm; every weight pointer is already offset to the variable.
+// The two relu masks live in registers as bits of the thread's own TM x TN tile
+// (the tangent products land on the same tile positions as z and r).  p is kept
+// in shared memory (p_s, [NB, HID] f32) only until r is done; one direction's
+// tangent block (t_s, [NB, HID] of T) then reuses that space.  Barriers: every
+// block_gemm starts each tile with one, which publishes the shared writes made
+// before the call and protects p_s / t_s / Ws from the previous product's readers.
+
+// Stages 1 and 2:  z = pe . w1 + b1,  p = relu(z) (f32),
+// r = T(p) . w2f1 + cd . wdf1 + rbias, and per point
+// o = sum(relu(r) * fw2) + 2 (sum(p * w2wo) + sum(cd * wdwo)), in every lane of
+// the point's warp.  The caller adds obias and the reference value.
+template <typename T, int TM>
+__device__ __forceinline__ void primal_stages(
+    const T* pe_s, int lda, int k1, const T* __restrict__ w1, const T* cd_s, int in_ch,
+    const float* __restrict__ b1, const T* __restrict__ w2f1, const T* __restrict__ wdf1,
+    const float* __restrict__ rbias, const float* __restrict__ fw2,
+    const float* __restrict__ w2wo, const float* __restrict__ wdwo, float* p_s, T* Ws,
+    uint32_t (&mask)[TM], uint32_t (&maskr)[TM], float (&o)[TM]) {
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  float acc[TM][TN];
+
+  // stage 1: p = relu(pe . w1 + b1) in shared memory (f32); sum(p * w2wo)
+  float s_p[TM];
+  zero_tile<TM>(acc);
+  block_gemm<T, T, TM>(pe_s, lda, w1, k1, Ws, acc);
+#pragma unroll
+  for (int r = 0; r < TM; ++r) { mask[r] = 0u; s_p[r] = 0.0f; }
+#pragma unroll
+  for (int c = 0; c < TN; ++c) {
+    const int col = tx + 32 * c;
+    const float bias = b1[col], wo = w2wo[col];
+#pragma unroll
+    for (int r = 0; r < TM; ++r) {
+      const float z = acc[r][c] + bias;
+      if (z > 0.0f) mask[r] |= 1u << c;
+      const float p = fmaxf(z, 0.0f);
+      p_s[(ty * TM + r) * HID + col] = p;
+      s_p[r] = fmaf(p, wo, s_p[r]);
+    }
+  }
+
+  // stage 2: r = T(p) . w2f1 + cd . wdf1 + rbias
+  zero_tile<TM>(acc);
+  block_gemm<T, float, TM>(p_s, HID, w2f1, HID, Ws, acc);
+  block_gemm<T, T, TM>(cd_s, in_ch, wdf1, in_ch, Ws, acc);
+  float s_r[TM], s_c[TM];
+#pragma unroll
+  for (int r = 0; r < TM; ++r) { maskr[r] = 0u; s_r[r] = s_c[r] = 0.0f; }
+#pragma unroll
+  for (int c = 0; c < TN; ++c) {
+    const int col = tx + 32 * c;
+    const float rb = rbias[col], f = fw2[col];
+#pragma unroll
+    for (int r = 0; r < TM; ++r) {
+      const float rv = acc[r][c] + rb;
+      if (rv > 0.0f) maskr[r] |= 1u << c;
+      s_r[r] = fmaf(fmaxf(rv, 0.0f), f, s_r[r]);
+    }
+  }
+  for (int k = tx; k < in_ch; k += 32) {
+    const float wd = wdwo[k];
+#pragma unroll
+    for (int r = 0; r < TM; ++r) s_c[r] = fmaf(to_f32(cd_s[(ty * TM + r) * in_ch + k]), wd, s_c[r]);
+  }
+#pragma unroll
+  for (int r = 0; r < TM; ++r)
+    o[r] = warp_sum(s_r[r]) + 2.0f * (warp_sum(s_p[r]) + warp_sum(s_c[r]));
+}
+
+// One direction's tangent:  t = T(1[z > 0] * (tin . w1k)) -> shared (over p_s),
+// to = sum(1[r > 0] * (t . w2f1) * fw2) + 2 sum(t * w2wo) per point, in every
+// lane of the point's warp.  tin_s [NB, kt] (row stride ldt) is the direction's
+// tangent operand and w1k [kt, HID] its layer-1 rows.
+template <typename T, int TM>
+__device__ __forceinline__ void tangent_stage(
+    const T* tin_s, int ldt, int kt, const T* __restrict__ w1k, const T* __restrict__ w2f1,
+    const float* __restrict__ fw2, const float* __restrict__ w2wo, T* t_s, T* Ws,
+    const uint32_t (&mask)[TM], const uint32_t (&maskr)[TM], float (&to)[TM]) {
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  float acc[TM][TN];
+  zero_tile<TM>(acc);
+  block_gemm<T, T, TM>(tin_s, ldt, w1k, kt, Ws, acc);
+  float s_t[TM], s_tr[TM];
+#pragma unroll
+  for (int r = 0; r < TM; ++r) s_t[r] = s_tr[r] = 0.0f;
+#pragma unroll
+  for (int c = 0; c < TN; ++c) {
+    const int col = tx + 32 * c;
+    const float wo = w2wo[col];
+#pragma unroll
+    for (int r = 0; r < TM; ++r) {
+      const T t16 = from_f32<T>((mask[r] >> c) & 1u ? acc[r][c] : 0.0f);
+      t_s[(ty * TM + r) * HID + col] = t16;
+      s_t[r] = fmaf(to_f32(t16), wo, s_t[r]);
+    }
+  }
+  // 1[r > 0] * (t . w2f1), reduced against fw2
+  zero_tile<TM>(acc);
+  block_gemm<T, T, TM>(t_s, HID, w2f1, HID, Ws, acc);
+#pragma unroll
+  for (int c = 0; c < TN; ++c) {
+    const float f = fw2[tx + 32 * c];
+#pragma unroll
+    for (int r = 0; r < TM; ++r)
+      if ((maskr[r] >> c) & 1u) s_tr[r] = fmaf(acc[r][c], f, s_tr[r]);
+  }
+#pragma unroll
+  for (int r = 0; r < TM; ++r) to[r] = warp_sum(s_tr[r]) + 2.0f * warp_sum(s_t[r]);
 }
 
 // ---- backward kernels: sums over the block's points -------------------------

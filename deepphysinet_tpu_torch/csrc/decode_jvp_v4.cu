@@ -28,9 +28,8 @@
 // runs the products on the CUDA cores (FMA), not the tensor cores.  Design, as
 // for the v4s forward: a block owns NB = 64 points and ONE variable (grid =
 // blocks x variables), so blocks are independent and a 4,096-point launch
-// still fills the card.  The two relu masks live in registers as bits of the
-// thread's own 8 x 8 tile.  p is kept in shared memory only until r is done;
-// one direction's tangent block then reuses that space.  The compact tangent
+// still fills the card.  The chain of one variable is decode_common.cuh's
+// primal_stages and tangent_stage.  The compact tangent
 // rows dpe [3, NB, ch] are as large as the block's pe rows, which the tangents
 // do not read, so they are loaded over pe once r is done: the f32 build stays
 // inside a block's shared memory without a smaller block.  The ragged last
@@ -46,17 +45,6 @@ using namespace dpn;
 
 constexpr int TM = 8;            // accumulator rows per thread
 constexpr int NB = WARPS * TM;   // points per block
-
-// Offset of (point, v) in a primal-shaped array and of (k, point, v) in a
-// tangent-shaped one: var-major [V, N] / [3, V, N] or point-major [N, V] / [3, N, V].
-__device__ __forceinline__ int64_t primal_at(bool t_layout, int64_t point, int v, int64_t n,
-                                             int n_vars) {
-  return t_layout ? (int64_t)v * n + point : point * n_vars + v;
-}
-__device__ __forceinline__ int64_t tangent_at(bool t_layout, int k, int64_t point, int v,
-                                              int64_t n, int n_vars) {
-  return t_layout ? ((int64_t)k * n_vars + v) * n + point : ((int64_t)k * n + point) * n_vars + v;
-}
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS, 1)
@@ -85,64 +73,18 @@ decode_jvp_v4_kernel(const T* __restrict__ pe, const T* __restrict__ dpe,
 
   load_rows<T>(pe, cd, pe_s, cd_s, n0, n, NB, in_ch);
 
-  float acc[TM][TN];
   uint32_t mask[TM], maskr[TM];  // bit c of row r: z > 0, r > 0
-
-  // stage 1: p = relu(pe . w1 + b1) in shared memory (f32); sum(p * w2wo)
-  float s_p[TM];
-  zero_tile<TM>(acc);
-  block_gemm<T, T, TM>(pe_s, in_ch, w1 + (size_t)v * in_ch * HID, in_ch, Ws, acc);
-#pragma unroll
-  for (int r = 0; r < TM; ++r) { mask[r] = 0u; s_p[r] = 0.0f; }
-#pragma unroll
-  for (int c = 0; c < TN; ++c) {
-    const int col = tx + 32 * c;
-    const float bias = b1[v * HID + col], wo = w2wo[v * HID + col];
-#pragma unroll
-    for (int r = 0; r < TM; ++r) {
-      const float z = acc[r][c] + bias;
-      if (z > 0.0f) mask[r] |= 1u << c;
-      const float p = fmaxf(z, 0.0f);
-      p_s[(ty * TM + r) * HID + col] = p;
-      s_p[r] = fmaf(p, wo, s_p[r]);
-    }
-  }
-
-  // stage 2: r = T(p) . w2f1 + cd . wdf1 + rbias; the primal output
-  zero_tile<TM>(acc);
-  block_gemm<T, float, TM>(p_s, HID, w2f1 + (size_t)v * HID * HID, HID, Ws, acc);
-  block_gemm<T, T, TM>(cd_s, in_ch, wdf1 + (size_t)v * in_ch * HID, in_ch, Ws, acc);
-  float s_r[TM], s_c[TM];
-#pragma unroll
-  for (int r = 0; r < TM; ++r) { maskr[r] = 0u; s_r[r] = s_c[r] = 0.0f; }
-#pragma unroll
-  for (int c = 0; c < TN; ++c) {
-    const int col = tx + 32 * c;
-    const float rb = rbias[v * HID + col], f = fw2[v * HID + col];
-#pragma unroll
-    for (int r = 0; r < TM; ++r) {
-      const float rv = acc[r][c] + rb;
-      if (rv > 0.0f) maskr[r] |= 1u << c;
-      s_r[r] = fmaf(fmaxf(rv, 0.0f), f, s_r[r]);
-    }
-  }
-  for (int k = tx; k < in_ch; k += 32) {
-    const float wd = wdwo[v * in_ch + k];
-#pragma unroll
-    for (int r = 0; r < TM; ++r) s_c[r] = fmaf(to_f32(cd_s[(ty * TM + r) * in_ch + k]), wd, s_c[r]);
-  }
-#pragma unroll
-  for (int r = 0; r < TM; ++r) {
-    s_r[r] = warp_sum(s_r[r]);
-    s_p[r] = warp_sum(s_p[r]);
-    s_c[r] = warp_sum(s_c[r]);
-  }
+  float o[TM];
+  const T* w2f1_v = w2f1 + (size_t)v * HID * HID;
+  primal_stages<T, TM>(pe_s, in_ch, in_ch, w1 + (size_t)v * in_ch * HID, cd_s, in_ch, b1 + v * HID,
+                       w2f1_v, wdf1 + (size_t)v * in_ch * HID, rbias + v * HID, fw2 + v * HID,
+                       w2wo + v * HID, wdwo + v * in_ch, p_s, Ws, mask, maskr, o);
 #pragma unroll
   for (int r = 0; r < TM; ++r) {
     const int64_t point = n0 + ty * TM + r;
     if (tx == r && point < n) {
-      const int64_t o = primal_at(tl, point, v, n, n_vars);
-      primal[o] = s_r[r] + 2.0f * (s_p[r] + s_c[r]) + obias[v] + ref[o];
+      const int64_t at = primal_at(tl, point, v, n, n_vars);
+      primal[at] = o[r] + obias[v] + ref[at];
     }
   }
 
@@ -162,44 +104,13 @@ decode_jvp_v4_kernel(const T* __restrict__ pe, const T* __restrict__ dpe,
 
   // tangents, one direction at a time
   for (int k = 0; k < 3; ++k) {
-    // t_k = T(1[z > 0] * (dpe[k] . w1c[v, k])) -> shared (over p_s: the first
-    // barrier of this product comes after every thread's last read of p_s)
-    zero_tile<TM>(acc);
-    block_gemm<T, T, TM>(d_s + k * NB * ch, ch, w1c + ((size_t)v * 3 + k) * ch * HID, ch, Ws, acc);
-    float s_t[TM], s_tr[TM];
-#pragma unroll
-    for (int r = 0; r < TM; ++r) s_t[r] = s_tr[r] = 0.0f;
-#pragma unroll
-    for (int c = 0; c < TN; ++c) {
-      const int col = tx + 32 * c;
-      const float wo = w2wo[v * HID + col];
-#pragma unroll
-      for (int r = 0; r < TM; ++r) {
-        const T t16 = from_f32<T>((mask[r] >> c) & 1u ? acc[r][c] : 0.0f);
-        t_s[(ty * TM + r) * HID + col] = t16;
-        s_t[r] = fmaf(to_f32(t16), wo, s_t[r]);
-      }
-    }
-    // 1[r > 0] * (t_k . w2f1), reduced against fw2
-    zero_tile<TM>(acc);
-    block_gemm<T, T, TM>(t_s, HID, w2f1 + (size_t)v * HID * HID, HID, Ws, acc);
-#pragma unroll
-    for (int c = 0; c < TN; ++c) {
-      const float f = fw2[v * HID + tx + 32 * c];
-#pragma unroll
-      for (int r = 0; r < TM; ++r)
-        if ((maskr[r] >> c) & 1u) s_tr[r] = fmaf(acc[r][c], f, s_tr[r]);
-    }
-#pragma unroll
-    for (int r = 0; r < TM; ++r) {
-      s_t[r] = warp_sum(s_t[r]);
-      s_tr[r] = warp_sum(s_tr[r]);
-    }
+    float to[TM];
+    tangent_stage<T, TM>(d_s + k * NB * ch, ch, ch, w1c + ((size_t)v * 3 + k) * ch * HID, w2f1_v,
+                         fw2 + v * HID, w2wo + v * HID, t_s, Ws, mask, maskr, to);
 #pragma unroll
     for (int r = 0; r < TM; ++r) {
       const int64_t point = n0 + ty * TM + r;
-      if (tx == r && point < n)
-        tang[tangent_at(tl, k, point, v, n, n_vars)] = s_tr[r] + 2.0f * s_t[r];
+      if (tx == r && point < n) tang[tangent_at(tl, k, point, v, n, n_vars)] = to[r];
     }
   }
 }

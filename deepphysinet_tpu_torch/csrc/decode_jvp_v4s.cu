@@ -1,34 +1,46 @@
-// v4s collapsed decode, forward: primal and three space-time tangents from the
-// channel-major trig operand, var-major outputs, for Hopper (sm_90a).
+// v4s and v6 collapsed decode, forward: primal and three space-time tangents
+// from the trig operand, for Hopper (sm_90a).
 //
-// Replaces the TPU kernel deepphysinet_tpu/ops/decode_kernel.py::
-// _decode_kernel_v4s (called through fused_decode_jvp_v4s).  Per point n,
-// variable v and direction k (FusedDecodeWeightsV6; two_f = in_ch / 3):
+// Replaces two TPU kernels of deepphysinet_tpu/ops/decode_kernel.py that share
+// their algebra and their fused weights (FusedDecodeWeightsV6):
+// _decode_kernel_v4s (called through fused_decode_jvp_v4s; v6 = 0 here) and
+// _decode_kernel_v6 (fused_decode_jvp_v6; v6 = 1).  They differ in where the
+// operand lies and where the results go:
+//
+//   v4s  pe [n, 3 * two_f] channel-major rows; ref and primal [n_vars, n],
+//        tangents [3, n_vars, n];
+//   v6   trig [3, n, two_f] direction-major; ref and primal [n, n_vars],
+//        tangents [3, n, n_vars].
+//
+// Per point n, variable v and direction k (two_f = in_ch / 3; pe[n] below is the
+// channel-major row, which for v6 is trig[0, n] | trig[1, n] | trig[2, n]):
 //
 //   z    = pe[n] . w1g[v] + b1[v]                            [HID]
 //   p    = relu(z)                                           f32
 //   t_k  = T(1[z > 0] * (pe[n, k*two_f:(k+1)*two_f] . w1t[v, k]))   stored in T
 //   r    = T(p) . w2f1[v] + cd[n] . wdf1[v] + rbias[v]
 //   o    = sum(relu(r) * fw2[v]) + 2 (sum(p * w2wo[v]) + sum(cd[n] * wdwo[v]))
-//          + obias[v] + ref_t[v, n]
+//          + obias[v] + ref[v, n]
 //   to_k = sum(1[r > 0] * (t_k . w2f1[v]) * fw2[v]) + 2 sum(t_k * w2wo[v])
 //
-// with the TPU kernel's rounding points (decode_kernel.py:2385-2392, :548-579):
-// matmul inputs in the compute type T, sums in f32, p kept in f32 for the
-// w2wo sum, and the masked tangents rounded to T once, so that both
-// t_k . w2f1 and the w2wo sum read the rounded values.
+// with the TPU kernels' rounding points (decode_kernel.py:2385-2392, :1963-1969,
+// :548-579): matmul inputs in the compute type T, sums in f32, p kept in f32 for
+// the w2wo sum, and the masked tangents rounded to T once, so that both
+// t_k . w2f1 and the w2wo sum read the rounded values.  The TPU's v6 kernel sums
+// z as three K = two_f products; here it is one K = 3 two_f sum in f32, the
+// same terms in another order.
 //
 // What bounds it: 4.92 MFLOP per point (6 variables x 409,600 MACs) against
 // about 900 bytes of point I/O, so it is compute bound; this first version
 // runs the products on the CUDA cores (FMA), not the tensor cores.  Design:
 // a block owns NB = 64 points and ONE variable (grid = blocks x variables), so
 // blocks are independent and a 4,096-point launch still fills the card.  The
-// two relu masks live in registers as bits of the thread's own 8 x 8 tile
-// (the tangent products land on the same tile positions as z and r).  p is
-// kept in shared memory only until r is done; one direction's tangent block
-// then reuses that space, so the tangents are processed one direction at a
-// time and w2f1 is streamed four times per block from L2.  The ragged last
-// block is masked here (zero rows in, no stores out).
+// chain of one variable is decode_common.cuh's primal_stages and tangent_stage:
+// the tangents are processed one direction at a time and w2f1 is streamed four
+// times per block from L2.  The v6 operand is gathered into the channel-major
+// row as it is loaded, so the two forms share everything after the load; a v6
+// block stores one float per point at a stride of n_vars floats.  The ragged
+// last block is masked here (zero rows in, no stores out).
 
 #include "decode_common.cuh"
 
@@ -42,13 +54,13 @@ constexpr int NB = WARPS * TM;   // points per block
 template <typename T>
 __global__ void __launch_bounds__(THREADS, 1)
 decode_jvp_v4s_kernel(const T* __restrict__ pe, const T* __restrict__ cd,
-                      const float* __restrict__ ref_t, const T* __restrict__ w1g,
+                      const float* __restrict__ ref, const T* __restrict__ w1g,
                       const T* __restrict__ w1t, const float* __restrict__ b1,
                       const T* __restrict__ w2f1, const T* __restrict__ wdf1,
                       const float* __restrict__ rbias, const float* __restrict__ fw2,
                       const float* __restrict__ w2wo, const float* __restrict__ wdwo,
                       const float* __restrict__ obias, float* __restrict__ primal,
-                      float* __restrict__ tang, int64_t n, int in_ch, int n_vars) {
+                      float* __restrict__ tang, int64_t n, int in_ch, int n_vars, int v6) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* p_s = reinterpret_cast<float*>(smem);   // [NB, HID] f32, stage 1 and 2
   T* t_s = reinterpret_cast<T*>(smem);           // [NB, HID] T, reuses p_s afterwards
@@ -56,116 +68,41 @@ decode_jvp_v4s_kernel(const T* __restrict__ pe, const T* __restrict__ cd,
   T* pe_s = Ws + KT * HID;                       // [NB, in_ch]
   T* cd_s = pe_s + NB * in_ch;                   // [NB, in_ch]
 
-  const int tid = threadIdx.x;
-  const int tx = tid & 31, ty = tid >> 5;
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
   const int v = blockIdx.y;
   const int64_t n0 = (int64_t)blockIdx.x * NB;
   const int two_f = in_ch / 3;
+  const bool var_major = v6 == 0;
 
-  load_rows<T>(pe, cd, pe_s, cd_s, n0, n, NB, in_ch);
+  if (v6)
+    load_rows_dm<T>(pe, cd, pe_s, cd_s, n0, n, NB, in_ch);
+  else
+    load_rows<T>(pe, cd, pe_s, cd_s, n0, n, NB, in_ch);
 
-  float acc[TM][TN];
   uint32_t mask[TM], maskr[TM];  // bit c of row r: z > 0, r > 0
-
-  // stage 1: p = relu(pe . w1g + b1) in shared memory (f32); sum(p * w2wo)
-  float s_p[TM];
-  zero_tile<TM>(acc);
-  block_gemm<T, T, TM>(pe_s, in_ch, w1g + (size_t)v * in_ch * HID, in_ch, Ws, acc);
-#pragma unroll
-  for (int r = 0; r < TM; ++r) { mask[r] = 0u; s_p[r] = 0.0f; }
-#pragma unroll
-  for (int c = 0; c < TN; ++c) {
-    const int col = tx + 32 * c;
-    const float bias = b1[v * HID + col], wo = w2wo[v * HID + col];
-#pragma unroll
-    for (int r = 0; r < TM; ++r) {
-      const float z = acc[r][c] + bias;
-      if (z > 0.0f) mask[r] |= 1u << c;
-      const float p = fmaxf(z, 0.0f);
-      p_s[(ty * TM + r) * HID + col] = p;
-      s_p[r] = fmaf(p, wo, s_p[r]);
-    }
-  }
-
-  // stage 2: r = T(p) . w2f1 + cd . wdf1 + rbias; the primal output
-  zero_tile<TM>(acc);
-  block_gemm<T, float, TM>(p_s, HID, w2f1 + (size_t)v * HID * HID, HID, Ws, acc);
-  block_gemm<T, T, TM>(cd_s, in_ch, wdf1 + (size_t)v * in_ch * HID, in_ch, Ws, acc);
-  float s_r[TM], s_c[TM];
-#pragma unroll
-  for (int r = 0; r < TM; ++r) { maskr[r] = 0u; s_r[r] = s_c[r] = 0.0f; }
-#pragma unroll
-  for (int c = 0; c < TN; ++c) {
-    const int col = tx + 32 * c;
-    const float rb = rbias[v * HID + col], f = fw2[v * HID + col];
-#pragma unroll
-    for (int r = 0; r < TM; ++r) {
-      const float rv = acc[r][c] + rb;
-      if (rv > 0.0f) maskr[r] |= 1u << c;
-      s_r[r] = fmaf(fmaxf(rv, 0.0f), f, s_r[r]);
-    }
-  }
-  for (int k = tx; k < in_ch; k += 32) {
-    const float wd = wdwo[v * in_ch + k];
-#pragma unroll
-    for (int r = 0; r < TM; ++r) s_c[r] = fmaf(to_f32(cd_s[(ty * TM + r) * in_ch + k]), wd, s_c[r]);
-  }
-#pragma unroll
-  for (int r = 0; r < TM; ++r) {
-    s_r[r] = warp_sum(s_r[r]);
-    s_p[r] = warp_sum(s_p[r]);
-    s_c[r] = warp_sum(s_c[r]);
-  }
+  float o[TM];
+  const T* w2f1_v = w2f1 + (size_t)v * HID * HID;
+  primal_stages<T, TM>(pe_s, in_ch, in_ch, w1g + (size_t)v * in_ch * HID, cd_s, in_ch,
+                       b1 + v * HID, w2f1_v, wdf1 + (size_t)v * in_ch * HID, rbias + v * HID,
+                       fw2 + v * HID, w2wo + v * HID, wdwo + v * in_ch, p_s, Ws, mask, maskr, o);
 #pragma unroll
   for (int r = 0; r < TM; ++r) {
     const int64_t point = n0 + ty * TM + r;
     if (tx == r && point < n) {
-      const int64_t o = (int64_t)v * n + point;
-      primal[o] = s_r[r] + 2.0f * (s_p[r] + s_c[r]) + obias[v] + ref_t[o];
+      const int64_t at = primal_at(var_major, point, v, n, n_vars);
+      primal[at] = o[r] + obias[v] + ref[at];
     }
   }
 
-  // tangents, one direction at a time
+  // tangents, one direction at a time: lanes k*two_f:(k+1)*two_f of the same rows
   for (int k = 0; k < 3; ++k) {
-    // t_k = T(1[z > 0] * (pe[:, block k] . w1t[v, k])) -> shared (over p_s: the
-    // first barrier of this product comes after every thread's last read of p_s)
-    zero_tile<TM>(acc);
-    block_gemm<T, T, TM>(pe_s + k * two_f, in_ch,
-                         w1t + ((size_t)v * 3 + k) * two_f * HID, two_f, Ws, acc);
-    float s_t[TM], s_tr[TM];
-#pragma unroll
-    for (int r = 0; r < TM; ++r) s_t[r] = s_tr[r] = 0.0f;
-#pragma unroll
-    for (int c = 0; c < TN; ++c) {
-      const int col = tx + 32 * c;
-      const float wo = w2wo[v * HID + col];
-#pragma unroll
-      for (int r = 0; r < TM; ++r) {
-        const T t16 = from_f32<T>((mask[r] >> c) & 1u ? acc[r][c] : 0.0f);
-        t_s[(ty * TM + r) * HID + col] = t16;
-        s_t[r] = fmaf(to_f32(t16), wo, s_t[r]);
-      }
-    }
-    // 1[r > 0] * (t_k . w2f1), reduced against fw2
-    zero_tile<TM>(acc);
-    block_gemm<T, T, TM>(t_s, HID, w2f1 + (size_t)v * HID * HID, HID, Ws, acc);
-#pragma unroll
-    for (int c = 0; c < TN; ++c) {
-      const float f = fw2[v * HID + tx + 32 * c];
-#pragma unroll
-      for (int r = 0; r < TM; ++r)
-        if ((maskr[r] >> c) & 1u) s_tr[r] = fmaf(acc[r][c], f, s_tr[r]);
-    }
-#pragma unroll
-    for (int r = 0; r < TM; ++r) {
-      s_t[r] = warp_sum(s_t[r]);
-      s_tr[r] = warp_sum(s_tr[r]);
-    }
+    float to[TM];
+    tangent_stage<T, TM>(pe_s + k * two_f, in_ch, two_f, w1t + ((size_t)v * 3 + k) * two_f * HID,
+                         w2f1_v, fw2 + v * HID, w2wo + v * HID, t_s, Ws, mask, maskr, to);
 #pragma unroll
     for (int r = 0; r < TM; ++r) {
       const int64_t point = n0 + ty * TM + r;
-      if (tx == r && point < n)
-        tang[((int64_t)k * n_vars + v) * n + point] = s_tr[r] + 2.0f * s_t[r];
+      if (tx == r && point < n) tang[tangent_at(var_major, k, point, v, n, n_vars)] = to[r];
     }
   }
 }
@@ -176,19 +113,20 @@ template <typename T> size_t shared_bytes(int in_ch) {
 }
 
 template <typename T>
-int launch(const void* pe, const void* cd, const float* ref_t, const void* w1g, const void* w1t,
+int launch(const void* pe, const void* cd, const float* ref, const void* w1g, const void* w1t,
            const float* b1, const void* w2f1, const void* wdf1, const float* rbias,
            const float* fw2, const float* w2wo, const float* wdwo, const float* obias,
-           float* primal, float* tang, int64_t n, int in_ch, int n_vars, cudaStream_t stream) {
+           float* primal, float* tang, int64_t n, int in_ch, int n_vars, int v6,
+           cudaStream_t stream) {
   const size_t smem = shared_bytes<T>(in_ch);
   cudaError_t err = cudaFuncSetAttribute(decode_jvp_v4s_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((n + NB - 1) / NB), (unsigned)n_vars);
   decode_jvp_v4s_kernel<T><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(pe), static_cast<const T*>(cd), ref_t, static_cast<const T*>(w1g),
+      static_cast<const T*>(pe), static_cast<const T*>(cd), ref, static_cast<const T*>(w1g),
       static_cast<const T*>(w1t), b1, static_cast<const T*>(w2f1), static_cast<const T*>(wdf1),
-      rbias, fw2, w2wo, wdwo, obias, primal, tang, n, in_ch, n_vars);
+      rbias, fw2, w2wo, wdwo, obias, primal, tang, n, in_ch, n_vars, v6);
   return (int)cudaGetLastError();
 }
 
@@ -203,20 +141,21 @@ int dpn_decode_jvp_v4s_shared_bytes(int is_bf16, int in_ch) {
   return (int)(is_bf16 ? shared_bytes<__nv_bfloat16>(in_ch) : shared_bytes<float>(in_ch));
 }
 
-// is_bf16: 1 for __nv_bfloat16 inputs, 0 for float.  primal [n_vars, n] and
-// tang [3, n_vars, n] are written in full.  Returns cudaGetLastError() after
-// the launch (0 on success).
-int dpn_decode_jvp_v4s(int is_bf16, const void* pe, const void* cd, const float* ref_t,
+// is_bf16: 1 for __nv_bfloat16 inputs, 0 for float.  v6: 0 for pe [n, in_ch], ref
+// and primal [n_vars, n] and tang [3, n_vars, n]; 1 for pe = trig [3, n, in_ch / 3],
+// ref and primal [n, n_vars] and tang [3, n, n_vars].  Both outputs are written in
+// full.  Returns cudaGetLastError() after the launch (0 on success).
+int dpn_decode_jvp_v4s(int is_bf16, const void* pe, const void* cd, const float* ref,
                        const void* w1g, const void* w1t, const float* b1, const void* w2f1,
                        const void* wdf1, const float* rbias, const float* fw2,
                        const float* w2wo, const float* wdwo, const float* obias, float* primal,
-                       float* tang, int64_t n, int in_ch, int n_vars, void* stream) {
+                       float* tang, int64_t n, int in_ch, int n_vars, int v6, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch<__nv_bfloat16>(pe, cd, ref_t, w1g, w1t, b1, w2f1, wdf1, rbias, fw2, w2wo,
-                                 wdwo, obias, primal, tang, n, in_ch, n_vars, s);
-  return launch<float>(pe, cd, ref_t, w1g, w1t, b1, w2f1, wdf1, rbias, fw2, w2wo, wdwo, obias,
-                       primal, tang, n, in_ch, n_vars, s);
+    return launch<__nv_bfloat16>(pe, cd, ref, w1g, w1t, b1, w2f1, wdf1, rbias, fw2, w2wo,
+                                 wdwo, obias, primal, tang, n, in_ch, n_vars, v6, s);
+  return launch<float>(pe, cd, ref, w1g, w1t, b1, w2f1, wdf1, rbias, fw2, w2wo, wdwo, obias,
+                       primal, tang, n, in_ch, n_vars, v6, s);
 }
 
 }  // extern "C"

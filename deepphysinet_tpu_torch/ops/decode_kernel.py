@@ -31,7 +31,16 @@ inference path and the flagship training step run:
   ``fused_decode_jvp_v4t_kbwd``.  The TPU's software-pipelined body
   ``_decode_kernel_v4t_pipe`` is the same arithmetic with its instructions in another order, so
   the one CUDA forward kernel stands for it too and the wrappers take no
-  ``pipeline`` option.
+  ``pipeline`` option;
+* the v6 pair of ``kernel_version=6`` (:1901-2321): ``trig3_inputs``,
+  ``fuse_decode_weights_v6``, the forward ``fused_decode_jvp_v6`` (plain version
+  ``decode_jvp_v6_ref``), the backward ``decode_bwd_kernel_v6`` (plain version
+  ``decode_bwd_v6_ref``) and ``FusedDecodeJvpV6`` behind
+  ``fused_decode_jvp_v6_kbwd``.  The v6 pair has the algebra and the fused weights
+  of the v4s pair and differs in where the operand lies (``trig [3, N, 2F]``,
+  direction-major) and where the results go (``[N, 6]``, ``[3, N, 6]``), so each
+  pass shares its CUDA source with v4s (``csrc/decode_jvp_v4s.cu``,
+  ``csrc/decode_bwd_v4s.cu``) under an operand-layout flag.
 
 Every wrapper picks by device: a CUDA tensor launches the kernel or raises, a
 CPU tensor takes the plain version.  Each wrapper counts its launches in its
@@ -368,18 +377,36 @@ def fuse_v6_from_v4(fw: FusedDecodeWeights, coord_spec) -> FusedDecodeWeightsV6:
         rbias=fw.rbias, fw2=fw.fw2, w2wo=fw.w2wo, wdwo=fw.wdwo, obias=fw.obias)
 
 
+def fuse_decode_weights_v6(w: DecodeWeights, coord_spec) -> FusedDecodeWeightsV6:
+    """Per-window float32 weight fusion for the trig-input collapsed decode."""
+    return fuse_v6_from_v4(fuse_decode_weights(w), coord_spec)
+
+
+def trig3_inputs(coords: torch.Tensor, coord_spec, dtype=torch.float32) -> torch.Tensor:
+    """Direction-major trig blocks [3, N, 2F] of physical (x, y, t) [N, 3], in ``dtype``.
+
+    ``trig[k] = [sin(fb * cn_k) | cos(fb * cn_k)]`` with ``cn`` the normalized
+    coordinate: the only per-point prep of the v6 kernels, and the lane blocks of
+    ``trig_cm_inputs`` laid out by direction."""
+    fb = torch.as_tensor(coord_spec.freq_bands(), dtype=torch.float32, device=coords.device)
+    cn = coords.float() * coord_scales(coord_spec, coords.device)  # [N, 3]
+    xf = cn.t()[:, :, None] * fb  # [3, N, F]
+    return torch.cat([torch.sin(xf), torch.cos(xf)], dim=-1).to(dtype)
+
+
 def _dot_t(a: torch.Tensor, b: torch.Tensor, cdt) -> torch.Tensor:
     """``a^T @ b`` over the second-to-last (point) axis, inputs rounded to ``cdt``."""
     return torch.matmul(a.to(cdt).float().transpose(-1, -2), b.to(cdt).float())
 
 
 class _Layer1(NamedTuple):
-    """Layer-1 operands of one jvp decode: what v4 and v4s differ in.
+    """Layer-1 operands of one jvp decode: what v4, v4s and v6 differ in.
 
     v4 reads the interleaved PE through ``w1`` and the compact tangents ``dpe[k]``
     through ``w1c[:, k]``; v4s reads the channel-major trig row through ``w1g``
-    and its lane block k through ``w1t[:, k]``.  Everything after layer 1 is the
-    same arithmetic."""
+    and its lane block k through ``w1t[:, k]``; v6 reads the same row as three
+    direction-major blocks ``trig[k]``.  Everything after layer 1 is the same
+    arithmetic."""
 
     pe: torch.Tensor  # [N, in_ch] primal operand
     w1: torch.Tensor  # [V, in_ch, hid]
@@ -397,8 +424,16 @@ def _layer1_v4s(fw: FusedDecodeWeightsV6, pe_cm) -> _Layer1:
     return _Layer1(pe_cm, fw.w1g.reshape(n_vars, 3 * two_f, hid), blocks, fw.w1t)
 
 
+def _layer1_v6(fw: FusedDecodeWeightsV6, trig) -> _Layer1:
+    """The TPU kernel sums z as three K = 2F products; their concatenation into one
+    K = 3 * 2F product is the same sum of the same terms."""
+    n_vars, _, two_f, hid = fw.w1t.shape
+    return _Layer1(torch.cat([trig[0], trig[1], trig[2]], dim=-1),
+                   fw.w1g.reshape(n_vars, 3 * two_f, hid), (trig[0], trig[1], trig[2]), fw.w1t)
+
+
 def _jvp_ref(l1: _Layer1, fw, cd_pe, ref_t, cdt, round_tangents: bool):
-    """Var-major plain forward shared by v4 and v4s: ([V, N], [3, V, N]) float32."""
+    """Var-major plain forward shared by v4, v4s and v6: ([V, N], [3, V, N]) float32."""
     z = dot_f32(l1.pe, l1.w1, cdt) + fw.b1[:, None, :]  # [V, N, hid]
     mask = z > 0
     p = torch.relu(z)
@@ -422,7 +457,7 @@ def _jvp_ref(l1: _Layer1, fw, cd_pe, ref_t, cdt, round_tangents: bool):
 
 
 def _bwd_ref(l1: _Layer1, fw, cd_pe, g_primal_t, g_tang_t, cdt) -> dict:
-    """Plain backward shared by v4 and v4s: the weights' cotangents by name
+    """Plain backward shared by v4, v4s and v6: the weights' cotangents by name
     (``w1`` and ``w1k`` for the two layer-1 operands).
 
     Line for line ``_decode_bwd_kernel_v4`` (:1408-1514) and
@@ -495,6 +530,43 @@ def decode_bwd_v4s_ref(fw: FusedDecodeWeightsV6, pe_cm: torch.Tensor, cd_pe: tor
     return FusedDecodeWeightsV6(**g)
 
 
+def decode_jvp_v6_ref(fw: FusedDecodeWeightsV6, trig: torch.Tensor, cd_pe: torch.Tensor,
+                      ref: torch.Tensor, compute_dtype=torch.bfloat16,
+                      round_tangents: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the v6 forward kernel: ([N, 6], [3, N, 6]) float32.
+
+    ``trig`` [3, N, 2F] (``trig3_inputs``), ``cd_pe`` [N, in_ch], ``ref`` [N, 6].
+    Differentiable.  With ``round_tangents`` (the default) it has the rounding
+    points of the kernels (``_v6_var_column``, :1967-1969, and ``_v4_stage2``,
+    :578-579): the masked tangents are rounded to the compute dtype once and the
+    ``w2wo`` sum reads the rounded values.  Without it the tangents stay float32
+    for that sum, as in the JAX package's XLA twin ``decode_jvp_xla_v6``
+    (:2092-2093, :2108-2109).  The ``wdwo`` sum reads ``cd_pe`` as it is given:
+    the kernels get it in the compute dtype, the twin in float32 from
+    ``jvp_fields(version=6)``.  The two roundings agree exactly when the compute
+    dtype is float32."""
+    o, to = _jvp_ref(_layer1_v6(fw, trig), fw, cd_pe, ref.t(), compute_dtype, round_tangents)
+    return o.t(), to.transpose(1, 2)
+
+
+@torch.no_grad()
+def decode_bwd_v6_ref(fw: FusedDecodeWeightsV6, trig: torch.Tensor, cd_pe: torch.Tensor,
+                      g_primal: torch.Tensor, g_tang: torch.Tensor,
+                      compute_dtype=torch.bfloat16) -> FusedDecodeWeightsV6:
+    """Plain PyTorch version of the v6 backward kernel: the fused weights' cotangents.
+
+    ``g_primal`` [N, 6] and ``g_tang`` [3, N, 6].  ``_bwd_ref`` follows
+    ``_decode_bwd_kernel_v6`` (:2115-2199), which keeps the recomputed tangents
+    float32 where the forward kernel rounds them (the ``fw2`` and ``w2wo`` sums,
+    :2164, :2181-2182); ``g_w1g[v, k] = trig_k^T g_z`` is rows ``k * 2F : (k + 1) * 2F``
+    of the one product over the concatenated row.  The ``obias`` slot carries
+    ``sum_N g_primal``."""
+    g = _bwd_ref(_layer1_v6(fw, trig), fw, cd_pe, g_primal.t(), g_tang.transpose(1, 2),
+                 compute_dtype)
+    g["w1g"], g["w1t"] = g.pop("w1").reshape(fw.w1g.shape), g.pop("w1k")
+    return FusedDecodeWeightsV6(**g)
+
+
 def decode_jvp_v4_ref(fw: FusedDecodeWeights, pe: torch.Tensor, dpe: torch.Tensor,
                       cd_pe: torch.Tensor, ref: torch.Tensor, compute_dtype=torch.bfloat16,
                       round_tangents: bool = True,
@@ -536,13 +608,14 @@ def decode_bwd_v4_ref(fw: FusedDecodeWeights, pe: torch.Tensor, dpe: torch.Tenso
     return FusedDecodeWeights(**g)
 
 
-# Per source: the launch function's name, its number of pointer arguments, and
-# whether a layout flag follows (n, in_ch, n_vars).
+# Per source: the launch function's name and its number of pointer arguments.  A
+# layout flag follows (n, in_ch, n_vars): the output layout of the v4 pair, v4s
+# against v6 for the v4s sources.
 _LAUNCHERS = {
-    SOURCE_JVP_V4S: ("dpn_decode_jvp_v4s", 15, False),
-    SOURCE_BWD_V4S: ("dpn_decode_bwd_v4s", 22, False),
-    SOURCE_JVP_V4: ("dpn_decode_jvp_v4", 16, True),
-    SOURCE_BWD_V4: ("dpn_decode_bwd_v4", 23, True),
+    SOURCE_JVP_V4S: ("dpn_decode_jvp_v4s", 15),
+    SOURCE_BWD_V4S: ("dpn_decode_bwd_v4s", 22),
+    SOURCE_JVP_V4: ("dpn_decode_jvp_v4", 16),
+    SOURCE_BWD_V4: ("dpn_decode_bwd_v4", 23),
 }
 
 
@@ -553,11 +626,10 @@ def _jvp_library(source: str) -> ctypes.CDLL:
 
     lib = load_library(source)
     vp = ctypes.c_void_p
-    name, n_pointers, has_layout = _LAUNCHERS[source]
+    name, n_pointers = _LAUNCHERS[source]
     launch = getattr(lib, name)
     launch.argtypes = ([ctypes.c_int] + [vp] * n_pointers
-                       + [ctypes.c_int64, ctypes.c_int, ctypes.c_int]
-                       + [ctypes.c_int] * has_layout + [vp])
+                       + [ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, vp])
     launch.restype = ctypes.c_int
     for suffix, argtypes in (("_hid", []), ("_shared_bytes", [ctypes.c_int, ctypes.c_int])):
         fn = getattr(lib, name + suffix)
@@ -566,25 +638,30 @@ def _jvp_library(source: str) -> ctypes.CDLL:
     return lib
 
 
+# order of the forward kernels' weight inputs after the layer-1 pair
+_FWD_WEIGHTS = ("b1", "w2f1", "wdf1", "rbias", "fw2", "w2wo", "wdwo", "obias")
+
 # rows of one pass of the backward kernels' point contraction; the tangent
 # operands (in_ch / 3 lanes each) must be a whole number of passes
 _CONTRACTION_ROWS = 64
 
 
 def _jvp_kernel_inputs(name: str, source: str, fw, matrices: dict, pe: torch.Tensor,
-                       cd_pe: torch.Tensor, compute_dtype, point_rows) -> Tuple[ctypes.CDLL, dict]:
+                       cd_pe: torch.Tensor, compute_dtype, point_rows,
+                       pe_shape=None) -> Tuple[ctypes.CDLL, dict]:
     """Checks shared by the jvp-pair wrappers; returns the library and the contiguous weights.
 
     ``matrices`` are the layer-1 weights by name, already in the kernel's shape
     (the other weights are taken from ``fw`` by name); ``point_rows`` are
     (name, tensor, shape, dtype or None for the compute dtype) of the per-point
-    inputs besides ``pe`` and ``cd_pe``."""
+    inputs besides ``pe`` and ``cd_pe``; ``pe_shape`` is the shape of the primal
+    operand where it is not ``cd_pe``'s [N, in_ch] (the v6 trig blocks)."""
     if compute_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"{name}: compute dtype {compute_dtype} not supported")
     lib = _jvp_library(source)
     lib_name = _LAUNCHERS[source][0]
     n_vars, hid = fw.b1.shape
-    n, in_ch = pe.shape
+    n, in_ch = cd_pe.shape
     built_hid = getattr(lib, lib_name + "_hid")()
     if hid != built_hid or in_ch % (3 * _CONTRACTION_ROWS):
         raise ValueError(f"{name}: kernel built for hidden {built_hid} and three tangent operands "
@@ -592,7 +669,7 @@ def _jvp_kernel_inputs(name: str, source: str, fw, matrices: dict, pe: torch.Ten
     smem = getattr(lib, lib_name + "_shared_bytes")(int(compute_dtype == torch.bfloat16), in_ch)
     if smem > _MAX_SHARED_BYTES:
         raise ValueError(f"{name}: in_ch {in_ch} needs {smem} bytes of shared memory")
-    rows = [("pe", pe, (n, in_ch), None), ("cd_pe", cd_pe, (n, in_ch), None)] + list(point_rows)
+    rows = [("pe", pe, pe_shape or (n, in_ch), None), ("cd_pe", cd_pe, (n, in_ch), None)] + list(point_rows)
     for nm, t, shape, dtype in rows:
         dtype = dtype or compute_dtype
         if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
@@ -654,9 +731,8 @@ def fused_decode_jvp_v4s(fw: FusedDecodeWeightsV6, pe_cm: torch.Tensor, cd_pe: t
     if n == 0:
         return primal, tang
     _launch(name, fused_decode_jvp_v4s, lib.dpn_decode_jvp_v4s, compute_dtype,
-            [pe_cm, cd_pe, ref_t] + [w[k] for k in (
-                "w1g", "w1t", "b1", "w2f1", "wdf1", "rbias", "fw2", "w2wo", "wdwo", "obias")]
-            + [primal, tang], (n, in_ch, n_vars), pe_cm.device)
+            [pe_cm, cd_pe, ref_t, w["w1g"], w["w1t"]] + [w[k] for k in _FWD_WEIGHTS] + [primal, tang],
+            (n, in_ch, n_vars, 0), pe_cm.device)
     return primal, tang
 
 
@@ -697,7 +773,7 @@ def decode_bwd_kernel_v4s(fw: FusedDecodeWeightsV6, pe_cm: torch.Tensor, cd_pe: 
     _launch(name, decode_bwd_kernel_v4s, lib.dpn_decode_bwd_v4s, compute_dtype,
             [pe_cm, cd_pe, g_primal_t, g_tang_t, w["w1g"], w["w1t"]] + [w[k] for k in _BWD_WEIGHTS]
             + [out.w1g, out.w1t] + [getattr(out, k) for k in _BWD_OUTPUTS],
-            (n, in_ch, n_vars), pe_cm.device)
+            (n, in_ch, n_vars, 0), pe_cm.device)
     return out
 
 
@@ -770,9 +846,8 @@ def _jvp_v4(wrapper, fw: FusedDecodeWeights, pe, dpe, cd_pe, ref, compute_dtype,
     if n == 0:
         return primal, tang
     _launch(name, wrapper, lib.dpn_decode_jvp_v4, compute_dtype,
-            [pe, dpe, cd_pe, ref] + [w[k] for k in (
-                "w1", "w1c", "b1", "w2f1", "wdf1", "rbias", "fw2", "w2wo", "wdwo", "obias")]
-            + [primal, tang], (n, in_ch, n_vars, int(t_layout)), pe.device)
+            [pe, dpe, cd_pe, ref, w["w1"], w["w1c"]] + [w[k] for k in _FWD_WEIGHTS] + [primal, tang],
+            (n, in_ch, n_vars, int(t_layout)), pe.device)
     return primal, tang
 
 
@@ -901,3 +976,125 @@ def fused_decode_jvp_v4t_kbwd(fw: FusedDecodeWeights, pe: torch.Tensor, dpe: tor
                               compute_dtype=torch.bfloat16) -> Tuple[torch.Tensor, torch.Tensor]:
     """Trainable ``fused_decode_jvp_v4t`` ([6, N] layout) with the JAX argument order."""
     return FusedDecodeJvpV4.apply(pe, dpe, cd_pe, ref_t, compute_dtype, True, *fw)
+
+
+# ---------------------------------------------------------------------------
+# v6: the decode pair of kernel_version=6.  The algebra and the fused weights of
+# v4s; the operand is the direction-major trig [3, N, 2F] and the results are
+# point-major ([N, 6], [3, N, 6]).  Each pass shares its CUDA source with v4s.
+# ---------------------------------------------------------------------------
+
+
+def _v6_point_inputs(name: str, trig: torch.Tensor, cd_pe: torch.Tensor, compute_dtype):
+    """The two point operands in the compute dtype, as the JAX wrappers cast them (:2060)."""
+    if trig.ndim != 3 or trig.shape[0] != 3:
+        raise ValueError(f"{name}: trig is {tuple(trig.shape)}, expected [3, N, 2F]")
+    return trig.to(compute_dtype).contiguous(), cd_pe.to(compute_dtype).contiguous()
+
+
+def fused_decode_jvp_v6(fw: FusedDecodeWeightsV6, trig: torch.Tensor, cd_pe: torch.Tensor,
+                        ref: torch.Tensor,
+                        compute_dtype=torch.bfloat16) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Primal [N, 6] and tangents [3, N, 6] (float32): the CUDA kernel on GPU tensors.
+
+    ``trig`` [3, N, 2F] (``trig3_inputs``) and ``cd_pe`` [N, in_ch] are cast to
+    ``compute_dtype``; ``ref`` [N, 6] float32.  CPU tensors take
+    ``decode_jvp_v6_ref``; a CUDA tensor launches the kernel or raises.  The
+    kernel's result carries no autograd graph: training goes through
+    ``FusedDecodeJvpV6``.  ``fused_decode_jvp_v6.launches`` counts kernel launches."""
+    name = "fused_decode_jvp_v6"
+    trig, cd_pe = _v6_point_inputs(name, trig, cd_pe, compute_dtype)
+    if trig.device.type == "cpu":
+        return decode_jvp_v6_ref(fw, trig, cd_pe, ref, compute_dtype)
+    if trig.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {trig.device}")
+    n_vars, (n, in_ch) = fw.w1t.shape[0], cd_pe.shape
+    lib, w = _jvp_kernel_inputs(name, SOURCE_JVP_V4S, fw, _v4s_matrices(fw), trig, cd_pe, compute_dtype,
+                                [("ref", ref, (n, n_vars), torch.float32)],
+                                pe_shape=(3, n, in_ch // 3))
+    primal = torch.empty((n, n_vars), dtype=torch.float32, device=trig.device)
+    tang = torch.empty((3, n, n_vars), dtype=torch.float32, device=trig.device)
+    if n == 0:
+        return primal, tang
+    _launch(name, fused_decode_jvp_v6, lib.dpn_decode_jvp_v4s, compute_dtype,
+            [trig, cd_pe, ref, w["w1g"], w["w1t"]] + [w[k] for k in _FWD_WEIGHTS] + [primal, tang],
+            (n, in_ch, n_vars, 1), trig.device)
+    return primal, tang
+
+
+def decode_bwd_kernel_v6(fw: FusedDecodeWeightsV6, trig: torch.Tensor, cd_pe: torch.Tensor,
+                         g_primal: torch.Tensor, g_tang: torch.Tensor,
+                         compute_dtype=torch.bfloat16) -> FusedDecodeWeightsV6:
+    """Weight cotangents of ``fused_decode_jvp_v6``: the CUDA kernel on GPU tensors.
+
+    ``g_primal`` [N, 6] and ``g_tang`` [3, N, 6] float32.  The ``obias`` slot
+    carries ``sum_N g_primal``, a ``torch.sum`` outside the kernel, as the caller
+    of the TPU kernel forms it (:2277).  CPU tensors take ``decode_bwd_v6_ref``; a
+    CUDA tensor launches the kernel or raises.  The kernel sums across blocks
+    with atomic adds, so its result is not bit-reproducible from run to run.
+    ``decode_bwd_kernel_v6.launches`` counts kernel launches."""
+    name = "decode_bwd_kernel_v6"
+    trig, cd_pe = _v6_point_inputs(name, trig, cd_pe, compute_dtype)
+    if trig.device.type == "cpu":
+        return decode_bwd_v6_ref(fw, trig, cd_pe, g_primal, g_tang, compute_dtype)
+    if trig.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {trig.device}")
+    n_vars, (n, in_ch) = fw.w1t.shape[0], cd_pe.shape
+    lib, w = _jvp_kernel_inputs(name, SOURCE_BWD_V4S, fw, _v4s_matrices(fw), trig, cd_pe, compute_dtype,
+                                [("g_primal", g_primal, (n, n_vars), torch.float32),
+                                 ("g_tang", g_tang, (3, n, n_vars), torch.float32)],
+                                pe_shape=(3, n, in_ch // 3))
+    w["w2f1_t"] = w["w2f1"].transpose(1, 2).contiguous()
+    out = FusedDecodeWeightsV6(*(
+        g_primal.sum(0) if k == "obias" else _zeros_f32(t) for k, t in zip(fw._fields, fw)))
+    if n == 0:
+        return out
+    _launch(name, decode_bwd_kernel_v6, lib.dpn_decode_bwd_v4s, compute_dtype,
+            [trig, cd_pe, g_primal, g_tang, w["w1g"], w["w1t"]] + [w[k] for k in _BWD_WEIGHTS]
+            + [out.w1g, out.w1t] + [getattr(out, k) for k in _BWD_OUTPUTS],
+            (n, in_ch, n_vars, 1), trig.device)
+    return out
+
+
+fused_decode_jvp_v6.launches = 0
+decode_bwd_kernel_v6.launches = 0
+
+
+class FusedDecodeJvpV6(torch.autograd.Function):
+    """The v6 decode with a kernel on both passes.
+
+    ``FusedDecodeJvpV6.apply(trig, cd_pe, ref, compute_dtype, *fw)`` with ``fw`` a
+    ``FusedDecodeWeightsV6`` returns ``(primal [N, 6], tang [3, N, 6])``.  The
+    contract of ``fused_decode_jvp_v6_kbwd`` (:2280-2321): exact cotangents for
+    the ten fused weights, ``g_ref = g_primal``, ``g_obias = sum_N g_primal``, and
+    zeros for ``trig`` and ``cd_pe``, which are functions of data only in the
+    training engine.  Saved for backward: the fused weights, ``trig`` and
+    ``cd_pe``; no activations (the backward kernel recomputes them).  In bf16 the
+    backward kernel differentiates a forward whose tangents are not rounded
+    before the ``fw2`` and ``w2wo`` sums, as the TPU pair does.  First
+    derivatives only."""
+
+    @staticmethod
+    def forward(ctx, trig, cd_pe, ref, compute_dtype, *fw):
+        ctx.compute_dtype = compute_dtype
+        ctx.save_for_backward(trig, cd_pe, *fw)
+        return fused_decode_jvp_v6(FusedDecodeWeightsV6(*fw), trig, cd_pe, ref, compute_dtype)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_primal, g_tang):
+        trig, cd_pe, *fw = ctx.saved_tensors
+        g_primal = g_primal.float().contiguous()
+        gfw = decode_bwd_kernel_v6(FusedDecodeWeightsV6(*fw), trig, cd_pe, g_primal,
+                                   g_tang.float().contiguous(), ctx.compute_dtype)
+        needs = ctx.needs_input_grad
+        return (torch.zeros_like(trig) if needs[0] else None,
+                torch.zeros_like(cd_pe) if needs[1] else None,
+                g_primal if needs[2] else None, None, *gfw)
+
+
+def fused_decode_jvp_v6_kbwd(fw: FusedDecodeWeightsV6, trig: torch.Tensor, cd_pe: torch.Tensor,
+                             ref: torch.Tensor,
+                             compute_dtype=torch.bfloat16) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``FusedDecodeJvpV6`` with the argument order of the JAX function."""
+    return FusedDecodeJvpV6.apply(trig, cd_pe, ref, compute_dtype, *fw)

@@ -19,11 +19,13 @@ Counterpart of ``deepphysinet_tpu/physics/engine.py``:
   hand-written kernel on both passes (engine ``'kernel'``) or as its plain
   version under autograd (engine ``'jvp'``);
 * ``fused_kernel_fields`` (:380-487) and ``jvp_fields`` (:490-548) for versions
-  4 and 7: the ``[N, 6]`` forms.  Versions 2 and 6 and ``in_kernel_pe`` wait for
-  their kernels (ROADMAP B8);
-* ``fused_residual_losses`` (:626-691) for versions 4 and 7: the forward-only
-  residual losses of the evaluation sweeps.  Other versions reach the
-  in-kernel residual assembly, which is not ported (ROADMAP B5, B8);
+  4, 6 and 7: the ``[N, 6]`` forms; version 6 runs the v6 pair on the
+  direction-major trig blocks.  Version 2 and ``in_kernel_pe`` wait for their
+  kernels (ROADMAP B8);
+* ``fused_residual_losses`` (:626-696) for versions 4, 6 and 7: the forward-only
+  residual losses of the evaluation sweeps.  Version 6 takes the in-kernel
+  residual assembly (``ops/residual_kernel.py``) from ``FUSED_ASSEMBLY_MIN_N``
+  points on and the split path (v6 forward kernel, dict-form assembly) below;
 * the packed residual assembly: ``packed_physical_from_primal_tangents`` (:147)
   and its var-major form (:167), ``saturation_specific_humidity_packed``
   (:270), ``residual_losses_packed`` (:211, with ``detach()`` exactly where
@@ -44,12 +46,14 @@ import numpy as np
 import torch
 
 from deepphysinet_tpu_torch.ops.decode_kernel import (
-    decode_jvp_v4_ref, decode_jvp_v4s_ref, decode_primal_v4t, extract_decode_weights,
-    fuse_decode_weights, fuse_v6_from_v4, fused_decode_jvp_v4, fused_decode_jvp_v4_kbwd,
-    fused_decode_jvp_v4s, fused_decode_jvp_v4s_kbwd, fused_decode_jvp_v4t,
-    fused_decode_jvp_v4t_kbwd, pe_and_tangents, pe_primal, trig_cm_inputs)
+    decode_jvp_v4_ref, decode_jvp_v4s_ref, decode_jvp_v6_ref, decode_primal_v4t,
+    extract_decode_weights, fuse_decode_weights, fuse_v6_from_v4, fused_decode_jvp_v4,
+    fused_decode_jvp_v4_kbwd, fused_decode_jvp_v4s, fused_decode_jvp_v4s_kbwd, fused_decode_jvp_v4t,
+    fused_decode_jvp_v4t_kbwd, fused_decode_jvp_v6, fused_decode_jvp_v6_kbwd, pe_and_tangents,
+    pe_primal, trig3_inputs, trig_cm_inputs)
 from deepphysinet_tpu_torch.ops.normalization import inverse_normalize
-from deepphysinet_tpu_torch.ops.position_encoding import make_freq_bands, sinecos_pe_flat
+from deepphysinet_tpu_torch.ops.position_encoding import make_freq_bands, sinecos_pe, sinecos_pe_flat
+from deepphysinet_tpu_torch.ops.residual_kernel import kernel_residual_losses
 from deepphysinet_tpu_torch.physics import equations as eqs
 from deepphysinet_tpu_torch.physics.constants import DEFAULT_CONSTANTS, PhysicalConstants
 
@@ -167,6 +171,18 @@ def _kernel_inputs(model, tokens, coords, coord_data, fore_h, coord_spec, tangen
     return weights, pe, dpe, _cd_pe(model, coord_data)
 
 
+def _kernel_inputs_6(model, tokens, coords, coord_data, fore_h, coord_spec):
+    """v6 inputs (:430-436): the fused weights, the direction-major trig blocks in the
+    compute dtype (every consumer rounds them to it) and the cd PE in float32, as the
+    JAX engine hands it on: the kernel wrappers cast it, the plain twin of ``jvp_fields``
+    reads it unrounded in its ``wdwo`` sum."""
+    weights = extract_decode_weights(model, tokens, fore_h)
+    trig = trig3_inputs(coords, coord_spec, dtype=model.compute_dtype)
+    cd_freqs = make_freq_bands(model.net_cfg["in_channels"] // 2 // 6, max_freq=4.0)
+    cd_pe = sinecos_pe(coord_data, cd_freqs, include_input=False)
+    return fuse_v6_from_v4(fuse_decode_weights(weights), coord_spec), trig, cd_pe
+
+
 def _kernel_inputs_s(model, tokens, coords, coord_data, fore_h, coord_spec):
     """v4s kernel inputs: decode weights, channel-major trig operand and cd PE."""
     weights = extract_decode_weights(model, tokens, fore_h)
@@ -196,11 +212,11 @@ def _check_engine(engine: str) -> None:
         raise ValueError(f"unknown engine {engine!r}; expected 'kernel' or 'jvp'")
 
 
-def _check_version(version: int, what: str) -> None:
-    if version not in (4, 7):
+def _check_version(version: int, what: str, supported=(4, 6, 7)) -> None:
+    if version not in supported:
         raise NotImplementedError(
             f"{what}: decode-kernel version {version} is not ported yet (ROADMAP B8: the v2, v3, "
-            "v5, v4pe and v6 kernels); use 4 or 7")
+            f"v5 and v4pe kernels); use one of {supported}")
 
 
 def fused_kernel_fields_t(
@@ -225,7 +241,7 @@ def fused_kernel_fields_t(
     kernel on both passes on a GPU); ``engine='jvp'`` its plain version under
     autograd."""
     _check_engine(engine)
-    _check_version(version, "fused_kernel_fields_t")
+    _check_version(version, "fused_kernel_fields_t", supported=(4, 7))  # v6 has no var-major form
     coord_data = coord_data.detach()
     ref_t = coord_data.float().t().contiguous()
     cdt = model.compute_dtype
@@ -287,7 +303,7 @@ def fused_kernel_fields(
     in_kernel_pe: bool = False,
     raw_tangents: bool = False,
 ):
-    """``(primal_norm [N, 6], FieldDerivatives)`` via the v4 decode kernel.
+    """``(primal_norm [N, 6], FieldDerivatives)`` via the v4 or the v6 decode kernel.
 
     With ``raw_tangents`` the normalized ``tang [3, N, 6]`` is returned instead
     of the assembled ``FieldDerivatives`` (for the packed assembly).  The
@@ -295,8 +311,10 @@ def fused_kernel_fields(
     can use it as the data-loss prediction.  ``trainable`` goes through
     ``FusedDecodeJvpV4`` (a kernel on both passes on a GPU), so the result can
     sit inside a differentiated loss; otherwise the forward kernel alone runs
-    and the result carries no graph on a GPU.  ``version=7`` means the v4
-    algebra here, as in ``jvp_fields``: v4s is a var-major variant
+    and the result carries no graph on a GPU.  ``version=6`` runs the v6 pair
+    (``FusedDecodeJvpV6`` when ``trainable``): the PE derivative folded into the
+    per-window weights, the trig blocks the only per-point prep.  ``version=7``
+    means the v4 algebra here, as in ``jvp_fields``: v4s is a var-major variant
     (``fused_kernel_fields_t``)."""
     _check_version(version, "fused_kernel_fields")
     if in_kernel_pe:
@@ -304,11 +322,16 @@ def fused_kernel_fields(
             "fused_kernel_fields: in_kernel_pe needs the v4pe kernel, which is not ported yet "
             "(ROADMAP B8)")
     coord_data = coord_data.detach()
-    weights, pe, dpe, cd_pe = _kernel_inputs(model, tokens, coords.detach(), coord_data, fore_h,
-                                             coord_spec)
-    fw = fuse_decode_weights(weights)
-    decode = fused_decode_jvp_v4_kbwd if trainable else fused_decode_jvp_v4
-    primal, tang = decode(fw, pe, dpe, cd_pe, coord_data.float().contiguous(), model.compute_dtype)
+    if version == 6:
+        fw6, trig, cd_pe = _kernel_inputs_6(model, tokens, coords.detach(), coord_data, fore_h, coord_spec)
+        decode = fused_decode_jvp_v6_kbwd if trainable else fused_decode_jvp_v6
+        primal, tang = decode(fw6, trig, cd_pe, coord_data.float().contiguous(), model.compute_dtype)
+    else:
+        weights, pe, dpe, cd_pe = _kernel_inputs(model, tokens, coords.detach(), coord_data, fore_h,
+                                                 coord_spec)
+        fw = fuse_decode_weights(weights)
+        decode = fused_decode_jvp_v4_kbwd if trainable else fused_decode_jvp_v4
+        primal, tang = decode(fw, pe, dpe, cd_pe, coord_data.float().contiguous(), model.compute_dtype)
     if raw_tangents:
         return primal, tang
     return primal, fields_from_primal_tangents(primal, tang, obs_specs, with_clip)
@@ -331,17 +354,33 @@ def jvp_fields(
     ``(primal_norm [N, 6], FieldDerivatives)``, fully differentiable by
     autograd.  Mirrors the JAX ``jvp_fields`` over its XLA twin
     ``decode_jvp_xla_v4``, which keeps the masked tangents float32 for the
-    ``w2wo`` sum (``round_tangents=False``).  ``version=7`` is a kernel layout
-    choice with no meaning here and is treated as 4."""
+    ``w2wo`` sum (``round_tangents=False``).  ``version=6`` is the trig-input
+    formulation over ``decode_jvp_xla_v6``, which besides reads the cd PE in
+    float32 in its ``wdwo`` sum.  ``version=7`` is a kernel layout choice with no
+    meaning here and is treated as 4."""
     _check_version(version, "jvp_fields")
     coord_data = coord_data.detach()
-    weights, pe, dpe, cd_pe = _kernel_inputs(model, tokens, coords.detach(), coord_data, fore_h,
-                                             coord_spec)
-    primal, tang = decode_jvp_v4_ref(fuse_decode_weights(weights), pe, dpe, cd_pe,
-                                     coord_data.float(), model.compute_dtype, round_tangents=False)
+    if version == 6:
+        fw6, trig, cd_pe = _kernel_inputs_6(model, tokens, coords.detach(), coord_data, fore_h, coord_spec)
+        primal, tang = decode_jvp_v6_ref(fw6, trig, cd_pe, coord_data.float(), model.compute_dtype,
+                                         round_tangents=False)
+    else:
+        weights, pe, dpe, cd_pe = _kernel_inputs(model, tokens, coords.detach(), coord_data, fore_h,
+                                                 coord_spec)
+        primal, tang = decode_jvp_v4_ref(fuse_decode_weights(weights), pe, dpe, cd_pe,
+                                         coord_data.float(), model.compute_dtype, round_tangents=False)
     if raw_tangents:
         return primal, tang
     return primal, fields_from_primal_tangents(primal, tang, obs_specs, with_clip)
+
+
+# The JAX package's crossover for every version whose split path is point-major
+# ([N, 6] outputs): from this many points on, its in-kernel residual assembly
+# overtook the split path on the TPU.  The port keeps the value; what the H100 says
+# about it is in PERF.md.  Versions 4 and 7 have var-major split paths and never
+# dispatch to the in-kernel assembly: the v4 residual kernel is reached only by a
+# direct call of ``kernel_residual_losses(version=4)``.
+FUSED_ASSEMBLY_MIN_N = 49152
 
 
 @torch.no_grad()
@@ -362,14 +401,20 @@ def fused_residual_losses(
     """Forward-only residual losses (MSE criterion): the evaluation sweeps' path.
 
     ``version=4``: the var-major v4t forward kernel, then the packed ``[6, N]``
-    assembly; ``version=7``: the same with the v4s forward kernel.  Not
-    differentiable; training goes through ``fused_kernel_fields_t``.  In the JAX
-    package every other version reaches the in-kernel residual assembly
-    (``ops/residual_kernel.py``) above 49,152 points."""
-    if version not in (4, 7):
-        raise NotImplementedError(
-            f"fused_residual_losses: version {version} needs the in-kernel residual assembly "
-            "(ROADMAP B5) and its decode kernel (ROADMAP B8), which are not ported yet; use 4 or 7")
+    assembly; ``version=7``: the same with the v4s forward kernel; ``version=6``:
+    the in-kernel residual assembly (``kernel_residual_losses``, one launch) from
+    ``FUSED_ASSEMBLY_MIN_N`` points on, and below it the split path of the v6
+    forward kernel and the dict-form assembly.  Not differentiable; training goes
+    through ``fused_kernel_fields_t`` or ``fused_kernel_fields``."""
+    _check_version(version, "fused_residual_losses")
+    if version == 6:
+        if coords.shape[0] >= FUSED_ASSEMBLY_MIN_N:
+            return kernel_residual_losses(
+                model, tokens, coords, coord_data, fore_h, coriolis_f, coord_spec, obs_specs,
+                loss_factor, with_clip=with_clip, constants=constants, version=version)
+        _, fd = fused_kernel_fields(model, tokens, coords, coord_data, fore_h, coord_spec, obs_specs,
+                                    with_clip=with_clip, version=version)
+        return residual_losses_from_fields(fd, coriolis_f, loss_factor, constants)
     ref_t = coord_data.float().t().contiguous()
     if version == 7:
         weights, pe_cm, cd_pe = _kernel_inputs_s(model, tokens, coords, coord_data, fore_h, coord_spec)

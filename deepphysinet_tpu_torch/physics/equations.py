@@ -15,7 +15,11 @@ governing equation, matching the reference formulas line by line:
 * gas/state:   P = rho (1 + 0.608 q) R_d T               (:177-179)
 
 The packed ``[6, N]`` form of the same equations is
-``physics/engine.py::residual_losses_packed``.
+``physics/engine.py::residual_losses_packed``.  The residual-sum kernels evaluate
+them in device code, ``csrc/residual_equations.cuh``: the same formulas term by
+term in the same order of operations, so a change here is made there too (the
+on-card check holds the two together: the kernels against their plain versions,
+which call this module).
 """
 
 from __future__ import annotations

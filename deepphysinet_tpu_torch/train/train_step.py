@@ -19,10 +19,14 @@ Differences from the JAX step, which is one jitted program:
   both passes on a GPU), ``'jvp'`` (the pair's plain version under autograd)
   or ``'linearize'`` (``torch.func.jvp`` over ``PhysicsNet.decode``).
   ``kernel_version`` 7 picks the v4s pair, 4 the v4t pair (or, with
-  ``var_major`` off, the ``[N, 6]`` v4 pair); 6 is not ported (ROADMAP B8) and
-  raises ``NotImplementedError``.  The var-major layout serves ``'jvp'`` as it
-  serves ``'kernel'`` (the JAX step runs ``'jvp'`` in ``[N, 6]`` only), so that
-  the two engines differ in nothing but kernel against plain version;
+  ``var_major`` off, the ``[N, 6]`` v4 pair), 6 the v6 pair.  The var-major
+  layout serves ``'jvp'`` as it serves ``'kernel'`` (the JAX step runs ``'jvp'``
+  in ``[N, 6]`` only), so that the two engines differ in nothing but kernel
+  against plain version.  Under 6 there is no var-major form, as in JAX
+  (``var_major`` holds for 4 and 7 only): both engines run ``[N, 6]``,
+  ``'kernel'`` through ``FusedDecodeJvpV6`` and ``'jvp'`` through the plain
+  version with the XLA twin's rounding (``jvp_fields(version=6)``), packed or
+  dict assembly by ``packed_assembly`` and the criterion;
 * the non-finite guard decides on the host whether to step the optimizer,
   which costs one device-to-host read of the gradient norm per step.
 """
@@ -115,14 +119,16 @@ class StepConfig:
     pde_engine: str = "kernel"
     # decode-kernel generation of the 'kernel' and 'jvp' engines: 7 = the v4s
     # pair (channel-major trig operand, PE derivative folded into the weights),
-    # 4 = the v4 / v4t pair (interleaved PE plus the compact tangent input dpe).
-    # The same function either way; train_cfg.tpu.kernel_version
+    # 4 = the v4 / v4t pair (interleaved PE plus the compact tangent input dpe),
+    # 6 = the v6 pair (direction-major trig blocks, [N, 6] outputs only).
+    # The same function every way; train_cfg.tpu.kernel_version
     kernel_version: int = 7
     # packed [6, N] residual assembly for the 'kernel' and 'jvp' engines under
     # the MSE criterion; any other criterion and 'linearize' take the dict form
     # of physics/equations.py.  train_cfg.tpu.packed_assembly
     packed_assembly: bool = True
-    # var-major [6, N] kernel outputs for the packed path; off = the [N, 6] pair
+    # var-major [6, N] kernel outputs for the packed path under kernel_version 4
+    # and 7; off = the [N, 6] pair
     var_major: bool = True
 
     def factors(self) -> Dict[str, float]:
@@ -158,10 +164,10 @@ def step_config_from_cfg(config: Mapping[str, Any], pred_t_span: float = 86400.0
 
 
 def _check_kernel_version(kernel_version: int) -> None:
-    if kernel_version not in (4, 7):
+    if kernel_version not in (4, 6, 7):
         raise NotImplementedError(
-            f"kernel_version={kernel_version} needs the v6 decode kernels, which are not "
-            "ported yet (ROADMAP B8); use 4 or 7")
+            f"kernel_version={kernel_version} needs decode kernels that are not ported yet "
+            "(ROADMAP B8: v2, v3, v5, v4pe); use 4, 6 or 7")
 
 
 def _check_supported(cfg: StepConfig) -> None:
@@ -203,7 +209,8 @@ def _window_losses(
     linearize = cfg.pde_engine == "linearize"
     packed = cfg.packed_assembly and pde_criterion is None
     # the packed path in [6, N] throughout: kernel outputs, assembly, data loss
-    var_major = cfg.var_major and packed and with_pde and not linearize
+    var_major = (cfg.var_major and packed and with_pde and not linearize
+                 and cfg.kernel_version in (4, 7))
 
     def engine_fields(pts: PointBatch):
         """(normalized primal, raw tangents or FieldDerivatives) through cfg.pde_engine."""

@@ -253,7 +253,7 @@ def _assert_fields_close(got, want):
                                        atol=MODEL_RTOL * np.abs(w).max(), err_msg=f"{k} {ax}")
 
 
-@pytest.mark.parametrize("version", [4, 7])
+@pytest.mark.parametrize("version", [4, 6, 7])
 def test_jvp_fields_matches_jax(world, version):
     p_j, fd_j = jengine.jvp_fields(*_j_args(world), world["jspec"], world["jspecs"], version=version)
     p_t, fd_t = tengine.jvp_fields(*_t_args(world), world["tspec"], world["tspecs"], version=version)
@@ -279,6 +279,40 @@ def test_fused_kernel_fields_v4_matches_jax(world, trainable):
     assert tuple(tang.shape) == (3, 96, 6)
     np.testing.assert_allclose(tang.detach().numpy(), np.asarray(tang_j), rtol=MODEL_RTOL,
                                atol=MODEL_RTOL * float(jnp.max(jnp.abs(tang_j))))
+
+
+@pytest.mark.parametrize("raw_tangents", [False, True])
+@pytest.mark.parametrize("trainable", [False, True])
+def test_fused_kernel_fields_v6_matches_jax(world, trainable, raw_tangents):
+    """``version=6``: the v6 Pallas pair in interpret mode against the port's plain versions."""
+    p_j, out_j = jengine.fused_kernel_fields(*_j_args(world), world["jspec"], world["jspecs"], interpret=True,
+                                             trainable=trainable, version=6, raw_tangents=raw_tangents)
+    p_t, out_t = tengine.fused_kernel_fields(*_t_args(world), world["tspec"], world["tspecs"],
+                                             trainable=trainable, version=6, raw_tangents=raw_tangents)
+    assert tuple(p_t.shape) == (96, 6) and (p_t.requires_grad or not trainable)
+    np.testing.assert_allclose(p_t.detach().numpy(), np.asarray(p_j), rtol=MODEL_RTOL, atol=2e-5)
+    if raw_tangents:
+        assert tuple(out_t.shape) == (3, 96, 6)
+        np.testing.assert_allclose(out_t.detach().numpy(), np.asarray(out_j), rtol=MODEL_RTOL,
+                                   atol=MODEL_RTOL * float(jnp.max(jnp.abs(out_j))))
+    else:
+        _assert_fields_close(out_t, out_j)
+
+
+def test_version_6_is_the_version_4_function(world):
+    """float32: the v6 fold moves the PE derivative into the weights and changes no value
+    beyond rounding, under both engines; and the two forms of the cd PE that the JAX
+    engine uses (``sinecos_pe`` for 6, ``sinecos_pe_flat`` for 4 and 7) are one array."""
+    for fn in (tengine.fused_kernel_fields, tengine.jvp_fields):
+        p4, t4 = fn(*_t_args(world), world["tspec"], world["tspecs"], version=4, raw_tangents=True)
+        p6, t6 = fn(*_t_args(world), world["tspec"], world["tspecs"], version=6, raw_tangents=True)
+        np.testing.assert_allclose(p6.detach().numpy(), p4.detach().numpy(), rtol=MODEL_RTOL, atol=2e-5)
+        np.testing.assert_allclose(t6.detach().numpy(), t4.detach().numpy(), rtol=MODEL_RTOL,
+                                   atol=MODEL_RTOL * float(t4.detach().abs().max()))
+    nwp = _t(world["nwp"])
+    _, _, cd_pe6 = tengine._kernel_inputs_6(*_t_args(world), world["tspec"])
+    assert cd_pe6.dtype == torch.float32
+    np.testing.assert_array_equal(cd_pe6.numpy(), tengine._cd_pe(world["tmodel"], nwp).numpy())
 
 
 @pytest.mark.parametrize("version", [4, 7])
@@ -334,14 +368,15 @@ def test_linearize_engine_matches_jax(world):
 def test_unported_versions_name_their_roadmap_item(world):
     for fn, extra in ((tengine.fused_kernel_fields, (world["tspecs"],)), (tengine.jvp_fields, (world["tspecs"],)),
                       (tengine.fused_kernel_fields_t, ())):
-        for version in (2, 6):
+        # version 6 has no var-major form: in JAX fused_kernel_fields_t knows 4 and 7 only
+        for version in (2, 6) if fn is tengine.fused_kernel_fields_t else (2, 3, 5):
             with pytest.raises(NotImplementedError, match=f"version {version}.*ROADMAP B8"):
                 fn(*_t_args(world), world["tspec"], *extra, version=version)
     with pytest.raises(NotImplementedError, match="in_kernel_pe.*ROADMAP B8"):
         tengine.fused_kernel_fields(*_t_args(world), world["tspec"], world["tspecs"], in_kernel_pe=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP B5"):
+    with pytest.raises(NotImplementedError, match="version 2.*ROADMAP B8"):
         tengine.fused_residual_losses(*_t_args(world), _t(world["f"]), world["tspec"], world["tspecs"],
-                                      FACTORS, version=6)
+                                      FACTORS, version=2)
     with pytest.raises(ValueError, match="unknown engine"):
         tengine.fused_kernel_fields_t(*_t_args(world), world["tspec"], engine="linearize")
 

@@ -297,6 +297,21 @@ scfg4 = step_config_from_cfg(cfg)
 state, metrics4 = make_train_step(scfg4)(state, batch, True)
 sweeps = dict(evaluate_residuals(model, scfg4, [w], device="cpu"))
 sweeps.update(evaluate_rmse_fullgrid(model, scfg4, [w], per_lead=True, device="cpu"))
+# one PDE step with kernel_version=6 (the v6 pair) and the in-kernel residual assembly of
+# both versions, through the plain versions
+cfg["train_cfg"]["tpu"]["kernel_version"] = 6
+scfg6 = step_config_from_cfg(cfg)
+state, metrics6 = make_train_step(scfg6)(state, batch, True)
+from deepphysinet_tpu_torch.ops.residual_kernel import kernel_residual_losses
+from deepphysinet_tpu_torch.physics.engine import fused_residual_losses
+with torch.no_grad():
+    fh = (batch.forecast_h / scfg6.forecast_time_period)[:, None]
+    tokens = model.encode(batch.field, fh)[0]
+m = batch.margin
+args = (model, tokens, torch.stack([m.x[0], m.y[0], m.t[0]], -1), m.nwp[0], fh[0], m.f[0],
+        scfg6.coord_spec, scfg6.obs_specs, scfg6.factors())
+fused = [kernel_residual_losses(*args, version=v) for v in (4, 6)]
+fused.append(fused_residual_losses(*args, version=6))
 loaded = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "flax", "jaxlib", "optax",
                 "deepphysinet_tpu") and sys.modules[k] is not None)
 print(json.dumps({"loaded": loaded, "T": list(grid["T"].shape), "pts": list(pts.shape),
@@ -306,6 +321,9 @@ print(json.dumps({"loaded": loaded, "T": list(grid["T"].shape), "pts": list(pts.
                   "skipped": metrics["skipped_nonfinite"], "step": state.step,
                   "all_moved": moved == len(before), "kernel_version": scfg4.kernel_version,
                   "v4_finite": all(np.isfinite(float(v)) for v in metrics4.values()),
+                  "v6": [scfg6.kernel_version, all(np.isfinite(float(v)) for v in metrics6.values()), state.step],
+                  "fused_keys": sorted(len(d) for d in fused),
+                  "fused_finite": all(np.isfinite(float(v)) for d in fused for v in d.values()),
                   "sweeps_finite": all(np.isfinite(v) for v in sweeps.values()),
                   "sweep_hours": sweeps["n_hours"], "sweep_points": sweeps["n_points"],
                   "has_lead": "rmse_t2_f048" in sweeps and "weighted_total" in sweeps}))
@@ -320,6 +338,7 @@ def test_port_runs_with_jax_blocked():
     assert res.returncode == 0, res.stderr[-3000:]
     out = json.loads(res.stdout.strip().splitlines()[-1])
     assert out == {"loaded": [], "T": [37, 65], "pts": [2, 6], "finite": True,
-                   "metrics_finite": True, "has_pde": True, "skipped": 0.0, "step": 2,
+                   "metrics_finite": True, "has_pde": True, "skipped": 0.0, "step": 3,
                    "all_moved": True, "kernel_version": 4, "v4_finite": True, "sweeps_finite": True,
+                   "v6": [6, True, 3], "fused_keys": [7, 7, 7], "fused_finite": True,
                    "sweep_hours": 5.0, "sweep_points": 5.0 * 37 * 65, "has_lead": True}

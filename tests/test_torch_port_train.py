@@ -9,7 +9,9 @@ real Pallas kernels in interpret mode -- and through the port's step with its
 Three steps each, data-only and with the PDE terms.  The same again, with the PDE
 terms, for the step's other routes: ``kernel_version=4`` in both layouts (the
 v4t and the ``[N, 6]`` v4 Pallas pairs in interpret mode against the port's
-plain versions), the ``'linearize'`` engine (``jax.linearize`` against
+plain versions), ``kernel_version=6`` under ``'kernel'`` (the v6 Pallas pair in
+interpret mode) and ``'jvp'`` (the XLA twin), packed and dict assembly, the
+``'linearize'`` engine (``jax.linearize`` against
 ``torch.func.jvp``) and a PDE criterion other than MSE (the dict-form assembly).
 
 Tolerances.  Every metric of every step: rtol 1e-4 (float32 matmul chains in
@@ -271,11 +273,13 @@ def test_unported_options_raise(world):
     tcfg = world["tcfg"]
     with pytest.raises(ValueError, match="unknown pde_engine"):
         tts.make_train_step(dataclasses.replace(tcfg, pde_engine="pallas"))
-    # the v6 kernels are the one decode generation of the step still to port
-    with pytest.raises(NotImplementedError, match="kernel_version=6.*ROADMAP B8"):
-        tts.step_config_from_cfg(dict(train_cfg=dict(tpu=dict(kernel_version=6))))
-    with pytest.raises(NotImplementedError, match="kernel_version=6.*ROADMAP B8"):
-        tts.make_eval_step(dataclasses.replace(tcfg, kernel_version=6))
+    # kernel_version 2 (the uncollapsed decode) is the one generation of the step still to port
+    with pytest.raises(NotImplementedError, match="kernel_version=2.*ROADMAP B8"):
+        tts.step_config_from_cfg(dict(train_cfg=dict(tpu=dict(kernel_version=2))))
+    with pytest.raises(NotImplementedError, match="kernel_version=2.*ROADMAP B8"):
+        tts.make_eval_step(dataclasses.replace(tcfg, kernel_version=2))
+    with pytest.raises(NotImplementedError, match="kernel_version=2.*ROADMAP B8"):
+        tts.make_train_step(dataclasses.replace(tcfg, kernel_version=2))
     with pytest.raises(KeyError, match="NoSuchLoss"):
         tts.make_eval_step(dataclasses.replace(tcfg, pde_loss="NoSuchLoss"))(
             None, tts.batch_to_device(world["nb"], device="cpu"), True)
@@ -291,6 +295,14 @@ VARIANTS = {
     "kernel_v4_dict_assembly": (dict(pde_engine="kernel", kernel_interpret=True, kernel_version=4,
                                      packed_assembly=False),
                                 dict(kernel_version=4, packed_assembly=False)),
+    "kernel_v6": (dict(pde_engine="kernel", kernel_interpret=True, kernel_version=6),
+                  dict(kernel_version=6)),
+    "kernel_v6_dict_assembly": (dict(pde_engine="kernel", kernel_interpret=True, kernel_version=6,
+                                     packed_assembly=False),
+                                dict(kernel_version=6, packed_assembly=False)),
+    "jvp_v6": (dict(pde_engine="jvp", kernel_version=6), dict(pde_engine="jvp", kernel_version=6)),
+    "jvp_v6_dict_assembly": (dict(pde_engine="jvp", kernel_version=6, packed_assembly=False),
+                             dict(pde_engine="jvp", kernel_version=6, packed_assembly=False)),
     "linearize": (dict(pde_engine="linearize"), dict(pde_engine="linearize")),
     "l1_pde_criterion": (dict(pde_engine="kernel", kernel_interpret=True, pde_loss="L1Loss"),
                          dict(pde_loss="L1Loss")),
@@ -330,12 +342,13 @@ def test_kernel_versions_and_layouts_agree(world):
     batch = tts.batch_to_device(world["nb"], device="cpu")
     got = {}
     for name, fields in dict(v7=dict(), v4t=dict(kernel_version=4),
-                             v4=dict(kernel_version=4, var_major=False),
+                             v4=dict(kernel_version=4, var_major=False), v6=dict(kernel_version=6),
+                             v6_jvp=dict(kernel_version=6, pde_engine="jvp"),
                              v4_jvp=dict(kernel_version=4, pde_engine="jvp", var_major=False)).items():
         state = _port_state(snaps[0])
         cfg = dataclasses.replace(world["tcfg"], **fields)
         got[name] = tts.make_eval_step(cfg)(state.model, batch, True)
-    for name in ("v4t", "v4", "v4_jvp"):
+    for name in ("v4t", "v4", "v4_jvp", "v6", "v6_jvp"):
         for k, v in got["v7"].items():
             np.testing.assert_allclose(float(got[name][k]), float(v), rtol=METRIC_RTOL, err_msg=f"{name} {k}")
     for k, v in got["v4t"].items():  # the two layouts of one pair: the same arithmetic
