@@ -7,7 +7,7 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 Phases, each of which raises (exit code 1) on failure:
 
-1. build    -- compile the six sources under ``deepphysinet_tpu_torch/csrc/`` with
+1. build    -- compile the eight sources under ``deepphysinet_tpu_torch/csrc/`` with
                nvcc, all at once, and log registers, spills and shared memory;
 2. primal   -- the primal decode kernel against its plain PyTorch version on the
                card, at 37,265 (one 145 x 257 frame), 1,000 and 3 points, bf16 and f32;
@@ -61,12 +61,25 @@ Phases, each of which raises (exit code 1) on failure:
 12. train v6 -- from the seeded state: one PDE step under ``kernel_version=6``
                ('kernel' against 'jvp', and against ``kernel_version=7``); then 3 PDE
                steps with ``kernel_version=6``, with the launch counts;
-13. timing  -- by CUDA events, medians, alternating order: each kernel and its
-               plain version at the main paths' sizes, and the in-kernel residual
+13. attention -- the single-tile and flash attention kernels against their plain
+               versions, bf16 and f32, at B = 1, 8 heads of 32 and 3 to 4,096 tokens;
+               ``FusedAttention`` with either kernel's forward against autograd of the
+               plain forward, with the launch counts;
+14. encoder -- the fused encoder kernel against its plain version at flagship width,
+               bf16 and f32; ``encode_fused`` (two batch items, two launches) against
+               ``PhysicsNet.encode``;
+15. paths   -- ``predict_grid`` with ``attn_impl='pallas'`` and ``'flash'`` against the
+               default model on the same weights; one PDE step's loss and gradients
+               under ``'pallas'`` against the default; 3 PDE steps under ``'pallas'``,
+               with the launch counts;
+16. timing  -- by CUDA events, medians, alternating order: each kernel and its
+               plain version at the main paths' sizes (the attention kernels beside one
+               ``scaled_dot_product_attention`` call), and the in-kernel residual
                assembly against the split path at 40,960 to 131,072 points; by host
                clock around a synchronize: one frame, one training step of each
-               kind and one residual sweep, split into their parts;
-14. profile -- only with ``--profile``: ``torch.profiler`` over three steps of each
+               kind, one residual sweep, split into their parts, and one encode
+               through ``PhysicsNet.encode`` and ``encode_fused``;
+17. profile -- only with ``--profile``: ``torch.profiler`` over three steps of each
                kind, three frames and three residual sweeps, for the device's busy share.
 
 The last three lines of standard output are a JSON object with each kernel's
@@ -254,6 +267,45 @@ NOISE_SHARE = 0.1
 ZERO_GRAD_NOISE = 1e-5
 
 
+# The attention kernels (ops/attention.py) at B = 1, H = 8, E = 32 (the flagship's heads): the
+# single-tile kernel up to its routing limit, the flash kernel across key blocks of 256.
+ATTN_TILE_SIZES = (3, 287, 1024)
+ATTN_FLASH_SIZES = (3, 287, 1025, 2048, 4096)
+ATTN_HEADS, ATTN_HEAD_DIM = 8, 32
+# Each kernel against its plain version, max |kernel - plain| over the output.  float32:
+# TOL_ATTN_F32 * (1 + max|plain|): the same arithmetic, float32 sums in another order (and
+# the single-tile kernel's sum of exp rescaled as its running max grows).  bf16: one bf16 step
+# of max|plain|, since both sides round p and the output at the same places and a summation
+# difference can flip one rounding.
+TOL_ATTN_F32 = 1e-5
+# FusedAttention (kernel forward, plain backward) against autograd of the plain forward, per
+# gradient relative to its largest entry, float32: the same gradient in another summation
+# order.  In bf16 the two round at other places (C14), so that reading is printed, not held.
+RTOL_ATTN_GRAD = 1e-5
+# The fused encoder kernel against its plain version (and encode_fused against
+# PhysicsNet.encode), relative to the largest token.  float32: TOL_ENC_F32, float32 sums in
+# another order through four layers.  bf16: a summation difference flips a bf16 rounding
+# somewhere, and four layers of products, attention and LayerNorms carry it into every token
+# (20% of them end more than a step of their own size apart), so the tokens are held by the
+# largest: max error within TOL_ENC_BF16_STEPS bf16 steps of the largest token, mean error
+# within TOL_ENC_BF16_MEAN of such a step (measured on an H100: one step, mean 0.05-0.07).
+TOL_ENC_F32 = 1e-4
+TOL_ENC_BF16_STEPS = 4
+TOL_ENC_BF16_MEAN = 0.25
+# predict_grid with attn_impl='pallas' or 'flash' against the default model (plain attention at
+# 287 tokens) on the same weights: the single-tile kernel is the plain path's function and the
+# flash kernel rounds its probabilities elsewhere in bf16 (C15), and the encoder carries either
+# difference through four layers: tokens held as the encoder kernel's (TOL_ENC_*).  The
+# hypernet makes the decode's weights from the tokens, so the fields move more: in normalized
+# units within TOL_PATH_FIELDS * (1 + the largest field) (measured: 0.46% and 0.67%).
+TOL_PATH_FIELDS = 2e-2
+
+
+def bf16_step(x: torch.Tensor) -> float:
+    """The spacing of bfloat16 numbers at the largest |x|."""
+    return float(2.0 ** (np.floor(np.log2(float(x.abs().max()))) - 7))
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -304,6 +356,286 @@ def tensor_bytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def encoder_close(got: torch.Tensor, want: torch.Tensor, dtype):
+    """(max |got - want|, mean |got - want| in bf16 steps of the largest |want|, within the
+    TOL_ENC bounds?)."""
+    d = (got.float() - want.float()).abs()
+    err, scale, step = float(d.max()), float(want.abs().max()), bf16_step(want.float())
+    mean_steps = float(d.mean()) / step
+    if dtype == torch.float32:
+        return err, mean_steps, err <= TOL_ENC_F32 * (1.0 + scale)
+    return err, mean_steps, err <= TOL_ENC_BF16_STEPS * step and mean_steps <= TOL_ENC_BF16_MEAN
+
+
+def attention_phase(dev) -> dict:
+    """Both attention kernels against their plain versions, bf16 and float32, at the sizes of
+    ATTN_*_SIZES; FusedAttention with either kernel's forward against autograd of the plain
+    forward.  Returns the max errors by (kernel, dtype, tokens)."""
+    from deepphysinet_tpu_torch.ops import attention as at
+
+    g = torch.Generator().manual_seed(13)
+    scale = 1.0 / ATTN_HEAD_DIM ** 0.5
+
+    def qkv(n, dtype, count=3):
+        return [torch.randn(1, n, ATTN_HEADS, ATTN_HEAD_DIM, generator=g).to(dev, dtype) for _ in range(count)]
+
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for wrapper, plain, sizes in ((at.attention_tile, at.attention_tile_ref, ATTN_TILE_SIZES),
+                                      (at.attention_flash, at.attention_flash_ref, ATTN_FLASH_SIZES)):
+            for n in sizes:
+                q, k, v = qkv(n, dtype)
+                before = wrapper.launches
+                got = wrapper(q, k, v, scale)
+                torch.cuda.synchronize()
+                want = plain(q, k, v, scale)
+                err = float((got.float() - want.float()).abs().max())
+                limit = (TOL_ATTN_F32 * (1.0 + float(want.float().abs().max())) if dtype == torch.float32
+                         else bf16_step(want.float()))
+                errs[(wrapper.__name__, dtype, n)] = err
+                log(f"[attention] {wrapper.__name__:15s} {str(dtype):15s} L={n:5d}: max|kernel-plain| {err:.3e} "
+                    f"(max|plain| {float(want.float().abs().max()):.3f}, bound {limit:.3e})")
+                if not (wrapper.launches == before + 1 and got.shape == want.shape and got.dtype == dtype
+                        and bool(torch.isfinite(got).all()) and err <= limit):
+                    raise AssertionError(f"{wrapper.__name__} disagrees with its plain version ({dtype}, L={n})")
+    for impl, wrapper in (("pallas", at.attention_tile), ("flash", at.attention_flash)):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, g_out = qkv(287, dtype, count=4)
+
+            def grads(fn):
+                leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+                fn(*leaves).backward(g_out)
+                return [t.grad.float() for t in leaves]
+
+            before = wrapper.launches
+            got = grads(lambda *a: at.fused_attention(*a, scale, impl))
+            launched = wrapper.launches - before
+            want = grads(lambda *a: at.attention_xla(*a, scale))
+            rel = max(float((a_ - b_).abs().max()) / float(b_.abs().max()) for a_, b_ in zip(got, want))
+            held = dtype == torch.float32
+            log(f"[attention] FusedAttention(impl={impl!r}) {str(dtype):15s} L=287: {launched} kernel launch for "
+                f"forward and backward; q, k, v gradients against autograd of the plain forward at most {rel:.2e} "
+                f"of their largest entry" + (f" (bound {RTOL_ATTN_GRAD:.0e})" if held else
+                                            " (bf16: JAX's rounding against autograd's, C14; not held)"))
+            if launched != 1 or (held and rel > RTOL_ATTN_GRAD):
+                raise AssertionError(f"FusedAttention(impl={impl!r}) disagrees with autograd of the plain forward")
+    return errs
+
+
+def encoder_phase(dev, model, field, fh_norm: float, reset_launch_counts) -> dict:
+    """The fused encoder kernel against its plain version at flagship width, bf16 and float32,
+    on the model's weights and embedded tokens; then encode_fused (two batch items, two
+    launches) against PhysicsNet.encode.  Returns the errors and the launch count."""
+    from deepphysinet_tpu_torch.ops import encoder_kernel as ek
+
+    net = model.meta_net.model
+    act = net.encoder.attn_layers[0].activation
+    w = ek.extract_encoder_weights(model)
+    fields = torch.cat([field.float(), field.float().roll(1, dims=1)])
+    fh = torch.tensor([[fh_norm], [0.5 * fh_norm]], device=dev)
+    with torch.no_grad():
+        x = net.enc_embedding(fields, fh, net.learnable_token)[0]
+    out = {"errs": {}}
+    for dtype in (torch.bfloat16, torch.float32):
+        before = ek.fused_encoder_forward.launches
+        got = ek.fused_encoder_forward(w, x, act, dtype)
+        torch.cuda.synchronize()
+        want = ek.fused_encoder_forward_ref(w, x, act, dtype)
+        err, mean_steps, ok = encoder_close(got, want, dtype)
+        out["errs"][dtype] = err
+        log(f"[encoder] fused encoder kernel {str(dtype):15s} L={x.shape[0]}: max|kernel-plain| {err:.3e} (max|plain| "
+            f"{float(want.abs().max()):.3f}), mean {mean_steps:.3f} bf16 steps of the largest (bounds: f32 "
+            f"{TOL_ENC_F32:.0e} x (1 + max); bf16 {TOL_ENC_BF16_STEPS} steps, mean {TOL_ENC_BF16_MEAN} step)")
+        if not (ok and got.shape == want.shape and ek.fused_encoder_forward.launches == before + 1):
+            raise AssertionError(f"the fused encoder kernel disagrees with its plain version ({dtype})")
+    reset_launch_counts()
+    tokens = ek.encode_fused(model, fields, fh)
+    torch.cuda.synchronize()
+    out["launches"] = ek.fused_encoder_forward.launches
+    with torch.no_grad():
+        want = model.encode(fields, fh)
+    err, mean_steps, ok = encoder_close(tokens, want, model.compute_dtype)
+    log(f"[encoder] encode_fused against PhysicsNet.encode, {tuple(tokens.shape)}: max error {err:.3e}, mean "
+        f"{mean_steps:.3f} bf16 steps of the largest token; {out['launches']} kernel launches (expected 2)")
+    if not (ok and tokens.shape == want.shape and out["launches"] == 2):
+        raise AssertionError("encode_fused disagrees with PhysicsNet.encode or did not launch once per batch item")
+    return out
+
+
+def paths_phase(dev, cfg, cd, window, dcfg, scfg, field, batch, launch_counts, reset_launch_counts,
+                noise) -> dict:
+    """The entry points with attn_impl='pallas' and 'flash' at flagship width, from the seeded
+    weights: predict_grid against the default configuration's model, 3 PDE training steps under
+    'pallas', and one PDE step's loss and gradients under 'pallas' against the default, with the
+    configuration's compute type and with float32.  The single-tile kernel computes the plain
+    path's function in another summation order, and the step's gradients amplify such last-bit
+    changes of the encoder (C5, C6; in bf16 up to a parameter's own largest entry, C17).  So
+    'pallas' is held to NOISE_TIMES times the larger of two samples of that noise: 'pallas' on
+    the kernel's plain version (another summation order of the same function) against the
+    default, and two runs of the default (the backward kernel's atomic adds); the parameters
+    that hold noise (``noise``, from phase 6: the key-projection biases, C4) to ZERO_GRAD_NOISE
+    of the gradient norm.  Returns the attention kernels' launch counts of these runs."""
+    from deepphysinet_tpu_torch.inference import runner
+    from deepphysinet_tpu_torch.ops import attention as at
+    from deepphysinet_tpu_torch.train import train_step as ts
+
+    n_layers = int(cfg["meta_cfg"]["e_layers"])
+    default_impl = cfg["train_cfg"]["tpu"].get("attn_impl")
+
+    def fresh(impl, dtype=cd):
+        return ts.create_train_state(cfg["meta_cfg"], cfg["net_cfg"], cfg["train_cfg"]["optimizer"],
+                                     torch.Generator().manual_seed(0), compute_dtype=dtype, device=dev,
+                                     attn_impl=impl)
+
+    fh_norm = window.forecast_h / dcfg.forecast_time_period
+    stds = np.array([s_.norm_factor[1] for s_ in dcfg.obs_specs])
+    base = fresh(default_impl).model.eval()
+    want_tokens = runner._encode(base, field, fh_norm)
+    want_grid = runner.predict_grid(base, dcfg, window, field, window.forecast_h, 6.5)
+    del base
+    launches = {}
+    for impl, name in (("pallas", "attention_tile"), ("flash", "attention_flash")):
+        model = fresh(impl).model.eval()
+        reset_launch_counts()
+        grid = runner.predict_grid(model, dcfg, window, field, window.forecast_h, 6.5)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in launch_counts().items() if v}
+        launches[name] = counts.get(name, 0)
+        tokens = runner._encode(model, field, fh_norm)
+        t_err, t_mean, t_ok = encoder_close(tokens, want_tokens, cd)
+        f_err = max(float(np.abs(grid[k] - want_grid[k]).max()) / stds[i] for i, k in enumerate(grid))
+        f_limit = TOL_PATH_FIELDS * (1.0 + max(float(np.abs(want_grid[k]).max()) / stds[i]
+                                              for i, k in enumerate(grid)))
+        log(f"[paths] predict_grid with attn_impl={impl!r}: kernel launches {counts} (expected {n_layers} "
+            f"{name}, 1 decode_primal_v4t); tokens against the default model's at most {t_err:.3e} (mean {t_mean:.3f} "
+            f"bf16 steps of the largest; bounds as the encoder kernel's); fields at most {f_err:.3e} normalized units "
+            f"(bound {f_limit:.3e})")
+        bad = [k for k, a in grid.items() if a.shape != (145, 257) or not np.isfinite(a).all()]
+        if bad or counts != {name: n_layers, "decode_primal_v4t": 1} or not t_ok or f_err > f_limit:
+            raise AssertionError(f"predict_grid with attn_impl={impl!r}: launches {counts}, bad {bad}")
+        del model
+
+    # one PDE step's loss and gradients from the seeded state, 'pallas' against the default, with
+    # the configuration's compute type and with float32
+    def one_step(impl, dtype, tile=None):
+        """``tile`` stands in for the single-tile kernel's wrapper when given."""
+        wrapper = at.attention_tile
+        at.attention_tile = tile or wrapper
+        try:
+            model = fresh(impl, dtype).model
+            total, _ = ts.make_loss_fn(model, scfg)(batch, True)
+            total.backward()
+        finally:
+            at.attention_tile = wrapper
+        return float(total.detach()), {k: p_.grad.float() for k, p_ in model.named_parameters()}
+
+    for dtype in dict.fromkeys((cd, torch.float32)):
+        (l_p, g_p), (_, g_q) = one_step("pallas", dtype), one_step("pallas", dtype, at.attention_tile_ref)
+        (l_x, g_x), (_, g_x2) = one_step(default_impl, dtype), one_step(default_impl, dtype)
+        norm = float(torch.linalg.vector_norm(torch.stack([g.norm() for g in g_x.values()])))
+        noise_share = max(float(g[k].abs().max()) for g in (g_p, g_x) for k in noise) / norm
+
+        def worst(a, b):
+            rel = {k: float((a[k] - b[k]).abs().max()) / float(g_x[k].abs().max()) for k in a if k not in noise}
+            top = max(rel, key=rel.get)
+            return rel[top], top
+
+        pallas_rel, plain_rel, rerun = worst(g_p, g_x), worst(g_q, g_x), worst(g_x2, g_x)
+        rtol_grad = NOISE_TIMES * max(plain_rel[0], rerun[0])
+        loss_rel = abs(l_p - l_x) / abs(l_x)
+        log(f"[paths] one PDE step, {dtype} compute, attn_impl='pallas' against {default_impl!r}: total loss "
+            f"{l_p:.8g} / {l_x:.8g} (relative {loss_rel:.1e}, bound {RTOL_VERSIONS_LOSS[dtype]:.0e}); per parameter "
+            f"at most {pallas_rel[0]:.2e} of its largest gradient ({pallas_rel[1]}; bound {rtol_grad:.2e}, "
+            f"{NOISE_TIMES:.0f} x the larger of 'pallas' on the kernel's plain version {plain_rel[0]:.2e} "
+            f"({plain_rel[1]}) and run to run {rerun[0]:.2e} ({rerun[1]})); the {len(noise)} parameters that "
+            f"hold noise at most {noise_share:.1e} of the gradient norm (bound {ZERO_GRAD_NOISE:.0e})")
+        if not (loss_rel <= RTOL_VERSIONS_LOSS[dtype] and pallas_rel[0] <= rtol_grad
+                and noise_share <= ZERO_GRAD_NOISE):
+            raise AssertionError(f"one PDE step under attn_impl='pallas' disagrees with the default ({dtype})")
+        del g_p, g_q, g_x, g_x2
+
+    # three PDE training steps under 'pallas'
+    state = fresh("pallas")
+    step = ts.make_train_step(scfg)
+    reset_launch_counts()
+    for i in range(3):
+        state, metrics = step(state, batch, True)
+        torch.cuda.synchronize()
+        metrics = {k: float(v) for k, v in metrics.items()}
+        bad = [k for k, v in metrics.items() if not np.isfinite(v)]
+        log(f"[paths] step {i} (pde, attn_impl='pallas'): total {metrics['total_loss']:.6g}, grad_norm "
+            f"{metrics['grad_norm']:.6g}")
+        if bad or metrics["skipped_nonfinite"] != 0.0:
+            raise AssertionError(f"train step under attn_impl='pallas': non-finite metrics {bad}")
+    counts = {k: v for k, v in launch_counts().items() if v}
+    want = {"attention_tile": 3 * n_layers, "fused_decode_jvp_v4s": 6, "decode_bwd_kernel_v4s": 6}
+    log(f"[paths] kernel launches in 3 PDE steps under attn_impl='pallas': {counts} (expected {want})")
+    if counts != want or state.step != 3:
+        raise AssertionError(f"3 PDE steps under attn_impl='pallas' launched {counts}, not {want}")
+    launches["attention_tile"] += counts["attention_tile"]
+    return launches
+
+
+def attention_and_encoder_timing(dev, cd, model, field, fh_norm: float) -> dict:
+    """CUDA-event times of the attention kernels (and one scaled_dot_product_attention call, the
+    library yardstick the port never calls) and of the fused encoder kernel, each beside its plain
+    version; PhysicsNet.encode against encode_fused by host clock and CUDA events."""
+    import torch.nn.functional as F
+
+    from deepphysinet_tpu_torch.ops import attention as at
+    from deepphysinet_tpu_torch.ops import encoder_kernel as ek
+
+    out = {}
+    g = torch.Generator().manual_seed(17)
+    scale = 1.0 / ATTN_HEAD_DIM ** 0.5
+    for name, wrapper, plain, n in (("attention_tile", at.attention_tile, at.attention_tile_ref, 287),
+                                    ("attention_flash", at.attention_flash, at.attention_flash_ref, 287),
+                                    ("attention_flash", at.attention_flash, at.attention_flash_ref, 4096)):
+        q, k, v = (torch.randn(1, n, ATTN_HEADS, ATTN_HEAD_DIM, generator=g).to(dev, cd) for _ in range(3))
+        iters = 20 if n < 1024 else 5
+        k_ms, p_ms, _ = alternating_ms(lambda: wrapper(q, k, v, scale), lambda: plain(q, k, v, scale), iters)
+        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+        sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale)  # noqa: E731
+        sdpa()
+        lib_ms = statistics.median(cuda_ms(sdpa, iters) for _ in range(4))
+        flops = 4.0 * n * n * ATTN_HEAD_DIM * ATTN_HEADS
+        b_ = bound(flops, 4 * tensor_bytes(q))
+        out[(name, n)] = dict(ms=k_ms, plain=p_ms, library=lib_ms, bound=b_)
+        log(f"[timing] {name} at L={n} {cd}: kernel {k_ms:.4f} ms ({flops / k_ms / 1e9:.3f} TFLOP/s), plain "
+            f"{p_ms:.4f} ms, scaled_dot_product_attention {lib_ms:.4f} ms, bound {b_[0]:.5f} ms ({b_[1]})")
+    net = model.meta_net.model
+    act = net.encoder.attn_layers[0].activation
+    w = ek.cast_encoder_weights(ek.extract_encoder_weights(model), cd)
+    fh = torch.tensor([[fh_norm]], device=dev)
+    with torch.no_grad():
+        x = net.enc_embedding(field.float(), fh, net.learnable_token)[0]
+    k_ms, p_ms, times = alternating_ms(lambda: ek.fused_encoder_forward(w, x, act, cd),
+                                       lambda: ek.fused_encoder_forward_ref(w, x, act, cd), 10)
+    n_l, n_h, d, e = w.wq.shape
+    length, f, c = x.shape[0], w.w1.shape[-1], w.wproj.shape[-1]
+    flops = 2.0 * length * (n_l * (3 * d * n_h * e + 2 * length * n_h * e + n_h * e * d + 2 * d * f) + d * c)
+    b_ = bound(flops, tensor_bytes(x, *w) + 4 * length * c)
+    out["encoder"] = dict(ms=k_ms, plain=p_ms, bound=b_)
+    log(f"[timing] fused encoder kernel at L={length} {cd}: kernel {k_ms:.4f} ms ({flops / k_ms / 1e9:.3f} "
+        f"TFLOP/s), plain {p_ms:.4f} ms, bound {b_[0]:.5f} ms ({b_[1]}, {flops / 1e9:.3f} GFLOP, "
+        f"{tensor_bytes(x, *w) / 1e6:.2f} MB in); runs kernel {[round(t, 4) for t in times['kernel']]}")
+
+    def encode():
+        with torch.no_grad():
+            model.encode(field, fh)
+
+    def fused():
+        ek.encode_fused(model, field, fh)
+
+    enc_ms, fused_ms, _ = alternating_ms(encode, fused, 10)
+    encode_host = statistics.median([host_ms(encode) for _ in range(5)][1:])
+    fused_host = statistics.median([host_ms(fused) for _ in range(5)][1:])
+    out["encode"] = dict(encode_ms=enc_ms, fused_ms=fused_ms, encode_host=encode_host, fused_host=fused_host)
+    log(f"[timing] one flagship encode (B = 1, {cd}): PhysicsNet.encode {enc_ms:.4f} ms, encode_fused {fused_ms:.4f} ms "
+        f"by CUDA events; {encode_host:.3f} and {fused_host:.3f} ms by host clock (median of 4)")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check needs an NVIDIA GPU", file=sys.stderr)
@@ -316,7 +648,9 @@ def main() -> int:
     from deepphysinet_tpu_torch.inference import runner
     from deepphysinet_tpu_torch.ops import cuda_build
     from deepphysinet_tpu_torch.ops.coords import coriolis
+    from deepphysinet_tpu_torch.ops import attention as at
     from deepphysinet_tpu_torch.ops import decode_kernel as dk
+    from deepphysinet_tpu_torch.ops import encoder_kernel as ek
     from deepphysinet_tpu_torch.ops import residual_kernel as rk
     from deepphysinet_tpu_torch.physics import engine
     from deepphysinet_tpu_torch.train import train_step as ts
@@ -330,13 +664,15 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     # ---- 1. build ------------------------------------------------------------
-    sources = dk.SOURCES + (rk.SOURCE,)
+    sources = dk.SOURCES + (rk.SOURCE, at.SOURCE, ek.SOURCE)
     t0 = time.perf_counter()
     cuda_build.build_libraries(sources)
     dk._library()
     for source in dk.SOURCES[1:]:
         dk._jvp_library(source)
     rk._library()
+    at._library()
+    ek._library()
     log(f"[build] {', '.join(sources)} built together and loaded in {time.perf_counter() - t0:.1f} s")
     for source in sources:
         for line in cuda_build.BUILD_LOGS.get(source, "").splitlines():
@@ -347,7 +683,8 @@ def main() -> int:
     cfg = Config.fromfile(FLAGSHIP_CFG)["config"]
     cd = torch.bfloat16 if cfg["train_cfg"]["tpu"]["compute_dtype"] == "bfloat16" else torch.float32
     state = ts.create_train_state(cfg["meta_cfg"], cfg["net_cfg"], cfg["train_cfg"]["optimizer"],
-                                  torch.Generator().manual_seed(0), compute_dtype=cd, device=dev)
+                                  torch.Generator().manual_seed(0), compute_dtype=cd, device=dev,
+                                  attn_impl=cfg["train_cfg"]["tpu"].get("attn_impl"))
     model = state.model
     window = synthetic_window(cfg, seed=0)
     dcfg = runner.decode_config_from_cfg(cfg)
@@ -696,7 +1033,7 @@ def main() -> int:
     wrappers = (dk.decode_primal_v4t, dk.fused_decode_jvp_v4s, dk.decode_bwd_kernel_v4s, dk.fused_decode_jvp_v4,
                 dk.fused_decode_jvp_v4t, dk.decode_bwd_kernel_v4, dk.decode_bwd_kernel_v4t,
                 dk.fused_decode_jvp_v6, dk.decode_bwd_kernel_v6, rk.fused_residual_sums_v4,
-                rk.fused_residual_sums_v6)
+                rk.fused_residual_sums_v6, at.attention_tile, at.attention_flash, ek.fused_encoder_forward)
 
     def launch_counts():
         return {f.__name__: f.launches for f in wrappers}
@@ -731,6 +1068,7 @@ def main() -> int:
             "fused_decode_jvp_v4s", "decode_bwd_kernel_v4s", "fused_decode_jvp_v4t", "decode_bwd_kernel_v4t",
             "fused_decode_jvp_v6", "decode_bwd_kernel_v6")):
         raise AssertionError("the 'kernel' engine launched no kernel")
+    noise_v7 = start[(cd, 7)]["noise"]  # phase 15 reads it
     del start
     state4 = copy.deepcopy(state)  # the seeded state, before any update: phase 9 steps from it
     state6 = copy.deepcopy(state)  # and phase 12
@@ -823,6 +1161,10 @@ def main() -> int:
 
     ins, ref_t, ref_n = v4_case(frame_inputs(6.5, f32, with_tangents=True), 1000)
     g_p, g_t = cotangents(1000, seed=8)
+    # the weights have taken training steps whose atomic adds differ from run to run: the points
+    # near a relu's kink, where the kernel's mask may differ from autograd's, carry no cotangent
+    near = near_kink(ins[0], ins[1], ins[0].w1, ins[3], f32)
+    g_p[:, near], g_t[:, :, near] = 0.0, 0.0
     function_check("v4 backward [6, N]", ins[0], [*ins[1:], ref_t], g_p, g_t,
                    lambda w, *pts: dk.fused_decode_jvp_v4t_kbwd(w, *pts, f32),
                    lambda w, *pts: dk.decode_jvp_v4_ref(w, *pts, f32, t_layout=True),
@@ -947,8 +1289,11 @@ def main() -> int:
             want = dk.decode_bwd_v6_ref(fw6, trig, cd_pe, g_p, g_t, dtype)
             v6_bwd_err[(dtype, n)], v6_bwd_rel[(dtype, n)] = backward_check("v6 backward", dtype, n, got, want, again)
             del p0, t0_, got, again, want
-    fw6, trig, cd_pe, ref, _, _ = v6_inputs(1000, f32)
-    function_check("v6 backward", fw6, [trig, cd_pe, ref], *point_major(*cotangents(1000, seed=9)),
+    fw6, trig, cd_pe, ref, pe_cm, _ = v6_inputs(1000, f32)
+    g_p, g_t = cotangents(1000, seed=9)
+    near = near_kink(fw6, pe_cm, fw6.w1g.reshape(n_vars, -1, fw6.w1g.shape[-1]), cd_pe, f32)  # as for v4
+    g_p[:, near], g_t[:, :, near] = 0.0, 0.0
+    function_check("v6 backward", fw6, [trig, cd_pe, ref], *point_major(g_p, g_t),
                    lambda w, *pts: dk.fused_decode_jvp_v6_kbwd(w, *pts, f32),
                    lambda w, *pts: dk.decode_jvp_v6_ref(w, *pts, f32),
                    dk.fused_decode_jvp_v6, dk.decode_bwd_kernel_v6)
@@ -1126,7 +1471,19 @@ def main() -> int:
     del state6, before
     torch.cuda.empty_cache()
 
-    # ---- 13. timing --------------------------------------------------------------------------------
+    # ---- 13. the attention kernels ------------------------------------------------------------------
+    attn_errs = attention_phase(dev)
+    torch.cuda.empty_cache()
+
+    # ---- 14. the fused encoder kernel and encode_fused ----------------------------------------------
+    enc = encoder_phase(dev, model, field, window.forecast_h / dcfg.forecast_time_period, reset_launch_counts)
+
+    # ---- 15. the entry points with attn_impl='pallas' and 'flash' ------------------------------------
+    attn_launches = paths_phase(dev, cfg, cd, window, dcfg, scfg, field, batch, launch_counts,
+                                reset_launch_counts, noise_v7)
+    torch.cuda.empty_cache()
+
+    # ---- 16. timing --------------------------------------------------------------------------------
     hid, in_ch = cfg["net_cfg"]["hidden_channels"], cfg["net_cfg"]["in_channels"]
     two_f = in_ch // 3
 
@@ -1414,7 +1771,9 @@ def main() -> int:
             ", ".join(f"{k} {v:.3f} ms" for k, v in parts.items()) + f"; sum {sum(parts.values()):.3f} ms")
     log(f"[timing] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
-    # ---- 14. profile (only with --profile): the device's busy share and its largest kernels ----
+    enc_timing = attention_and_encoder_timing(dev, cd, model, field, window.forecast_h / dcfg.forecast_time_period)
+
+    # ---- 17. profile (only with --profile): the device's busy share and its largest kernels ----
     if "--profile" in sys.argv[1:]:
         from torch.profiler import ProfilerActivity, profile
 
@@ -1495,6 +1854,13 @@ def main() -> int:
                 "ms": tm["ms"], "plain_ms": tm["plain"], "bound_ms": tm["bound"][0], "bound_by": tm["bound"][1],
                 "library_ms": None}
 
+    def attention_entry(name, replaces, launches):
+        tm = enc_timing[(name, 287)]
+        return {"name": name, "route": "cuda", "source": csrc + "attention.cu",
+                "replaces": f"deepphysinet_tpu/ops/attention.py:{replaces}", "launches": launches,
+                "max_abs_err": attn_errs[(name, cd, 287)], "tokens": 287, "ms": tm["ms"], "plain_ms": tm["plain"],
+                "bound_ms": tm["bound"][0], "bound_by": tm["bound"][1], "library_ms": tm["library"]}
+
     print(json.dumps({"kernels": [
         {"name": "decode_primal_v4t", "route": "cuda", "source": csrc + "decode_primal.cu",
          "replaces": f"{jax_file}:956",
@@ -1525,6 +1891,14 @@ def main() -> int:
         v6_entry("decode_bwd_kernel_v6", "decode_bwd_v4s.cu", 2115, "bwd", v6_bwd_err, v6_bwd_rel),
         residual_entry("fused_residual_sums_v6", 6, 127),
         residual_entry("fused_residual_sums_v4", 4, 48),
+        # the attention kernels at the encoder's 287 tokens: the paths' shape
+        attention_entry("attention_tile", 48, attn_launches["attention_tile"]),
+        attention_entry("attention_flash", 95, attn_launches["attention_flash"]),
+        {"name": "fused_encoder_forward", "route": "cuda", "source": csrc + "encoder.cu",
+         "replaces": "deepphysinet_tpu/ops/encoder_kernel.py:132", "launches": enc["launches"],
+         "max_abs_err": enc["errs"][cd], "tokens": 287, "ms": enc_timing["encoder"]["ms"],
+         "plain_ms": enc_timing["encoder"]["plain"], "bound_ms": enc_timing["encoder"]["bound"][0],
+         "bound_by": enc_timing["encoder"]["bound"][1], "library_ms": None},
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,6 +4,7 @@
 // product on the CUDA cores, the block's input rows, the forward chain of one
 // variable (primal_stages, tangent_stage), and the backward kernels'
 // contraction of the point axis with its atomic add into global memory.
+// attention.cu and encoder.cu take the conversions and copy_vectors.
 //
 // Rounding rule (deepphysinet_tpu/ops/decode_kernel.py, every `dot`): both
 // operands of a product are rounded to the compute type T (bf16 for the
@@ -46,6 +47,34 @@ __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
   return x;
+}
+
+// A block copies n 16-byte vectors: load(i) -> uint4, then store(i, v), CHUNK vectors a
+// thread at a time with all CHUNK loads issued before the first store, so that their
+// latencies overlap instead of adding up.
+template <int CHUNK, typename Load, typename Store>
+__device__ __forceinline__ void copy_vectors(int n, Load load, Store store) {
+  for (int base = threadIdx.x; base < n; base += CHUNK * blockDim.x) {
+    uint4 buf[CHUNK];
+#pragma unroll
+    for (int u = 0; u < CHUNK; ++u) {
+      const int i = base + u * blockDim.x;
+      if (i < n) buf[u] = load(i);
+    }
+#pragma unroll
+    for (int u = 0; u < CHUNK; ++u) {
+      const int i = base + u * blockDim.x;
+      if (i < n) store(i, buf[u]);
+    }
+  }
+}
+
+// The VEC = 16 / sizeof(T) values of T in a 16-byte vector, as float.
+template <typename T, int VEC = 16 / sizeof(T)>
+__device__ __forceinline__ void unpack(const uint4& v, float (&out)[VEC]) {
+  const T* p = reinterpret_cast<const T*>(&v);
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) out[j] = to_f32(p[j]);
 }
 
 // Register tile of the row-times-weight products ("gemm layout"): thread

@@ -9,7 +9,7 @@ them (``ops/decode_kernel.py::extract_decode_weights``).
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -35,10 +35,11 @@ class MetaNet(nn.Module):
 
 class PhysicsNet(nn.Module):
     """``device=None`` places the parameters on the first CUDA device and raises
-    when there is none; pass ``device="cpu"`` to build the model on the CPU."""
+    when there is none; pass ``device="cpu"`` to build the model on the CPU.
+    ``attn_impl`` picks the encoder's attention (``ops/attention.py::fused_attention``)."""
 
     def __init__(self, meta_cfg: Dict[str, Any], net_cfg: Dict[str, Any],
-                 compute_dtype=torch.float32, device=None):
+                 compute_dtype=torch.float32, device=None, attn_impl: Optional[str] = None):
         super().__init__()
         device = resolve_device(device)
         self.net_cfg = dict(net_cfg)
@@ -46,7 +47,8 @@ class PhysicsNet(nn.Module):
         meta = {k: v for k, v in dict(meta_cfg).items()
                 if k not in ("name", "dropout", "output_attention")}
         self.net_cfg.pop("name", None)
-        self.meta_net = MetaNet(TransformerNet(compute_dtype=compute_dtype, device=device, **meta))
+        self.meta_net = MetaNet(TransformerNet(compute_dtype=compute_dtype, device=device,
+                                               attn_impl=attn_impl, **meta))
         for name in VARIABLE_NETS:
             setattr(self, name, VariableNet(
                 net_cfg["learnable_token_num"], net_cfg["in_channels"],

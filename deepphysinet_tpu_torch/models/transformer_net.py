@@ -17,6 +17,7 @@ Numerics pinned to the JAX package rather than to torch's defaults:
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -24,7 +25,7 @@ from torch import nn
 
 from deepphysinet_tpu_torch.models.embed import DataEmbedding
 from deepphysinet_tpu_torch.models.init import uniform_
-from deepphysinet_tpu_torch.ops.attention import attention_xla
+from deepphysinet_tpu_torch.ops.attention import fused_attention
 from deepphysinet_tpu_torch.ops.precision import dot_f32
 
 LAYER_NORM_EPS = 1e-6
@@ -74,11 +75,16 @@ class PointwiseConv(TorchDense):
 
 
 class AttentionLayer(nn.Module):
-    """QKV projections + full attention + output projection (reference attn.py:161-196)."""
+    """QKV projections + full attention + output projection (reference attn.py:161-196).
 
-    def __init__(self, d_model: int, n_heads: int, compute_dtype=torch.float32, device=None):
+    ``attn_impl`` picks the attention's forward (``ops/attention.py::fused_attention``:
+    ``None`` automatic, ``'xla'``, ``'pallas'``, ``'flash'``)."""
+
+    def __init__(self, d_model: int, n_heads: int, compute_dtype=torch.float32, device=None,
+                 attn_impl: Optional[str] = None):
         super().__init__()
         self.n_heads = n_heads
+        self.attn_impl = attn_impl
         self.compute_dtype = compute_dtype
         self.query_projection = TorchDense(d_model, d_model, compute_dtype, device)
         self.key_projection = TorchDense(d_model, d_model, compute_dtype, device)
@@ -92,7 +98,7 @@ class AttentionLayer(nn.Module):
         q = self.query_projection(x).reshape(b, l, h, e)
         k = self.key_projection(x).reshape(b, l, h, e)
         v = self.value_projection(x).reshape(b, l, h, e)
-        out = attention_xla(q, k, v, 1.0 / (e**0.5))
+        out = fused_attention(q, k, v, 1.0 / (e**0.5), self.attn_impl)
         return self.out_projection(out.reshape(b, l, h * e))
 
 
@@ -100,10 +106,10 @@ class EncoderLayer(nn.Module):
     """Post-norm block: attention residual -> LN -> pointwise FFN -> LN."""
 
     def __init__(self, d_model: int, n_heads: int, d_ff: int, activation: str = "gelu",
-                 compute_dtype=torch.float32, device=None):
+                 compute_dtype=torch.float32, device=None, attn_impl: Optional[str] = None):
         super().__init__()
         self.activation = activation
-        self.attention = AttentionLayer(d_model, n_heads, compute_dtype, device)
+        self.attention = AttentionLayer(d_model, n_heads, compute_dtype, device, attn_impl)
         self.conv1 = PointwiseConv(d_model, d_ff, compute_dtype, device)
         self.conv2 = PointwiseConv(d_ff, d_model, compute_dtype, device)
         self.norm1 = nn.LayerNorm(d_model, eps=LAYER_NORM_EPS, device=device)
@@ -120,10 +126,11 @@ class EncoderLayer(nn.Module):
 
 class Encoder(nn.Module):
     def __init__(self, d_model: int, n_heads: int, d_ff: int, e_layers: int,
-                 activation: str = "gelu", compute_dtype=torch.float32, device=None):
+                 activation: str = "gelu", compute_dtype=torch.float32, device=None,
+                 attn_impl: Optional[str] = None):
         super().__init__()
         self.attn_layers = nn.ModuleList([
-            EncoderLayer(d_model, n_heads, d_ff, activation, compute_dtype, device)
+            EncoderLayer(d_model, n_heads, d_ff, activation, compute_dtype, device, attn_impl)
             for _ in range(e_layers)])
         self.norm = nn.LayerNorm(d_model, eps=LAYER_NORM_EPS, device=device)
 
@@ -139,14 +146,15 @@ class TransformerNet(nn.Module):
 
     def __init__(self, enc_in: int, c_out: int, d_model: int = 512, n_heads: int = 8,
                  e_layers: int = 6, d_ff: int = 512, activation: str = "gelu",
-                 learnable_token_num: int = 128, compute_dtype=torch.float32, device=None):
+                 learnable_token_num: int = 128, compute_dtype=torch.float32, device=None,
+                 attn_impl: Optional[str] = None):
         super().__init__()
         self.enc_embedding = DataEmbedding(enc_in, d_model, compute_dtype=compute_dtype,
                                            device=device)
         self.learnable_token = nn.Parameter(
             torch.empty(1, learnable_token_num, d_model, device=device))
         self.encoder = Encoder(d_model, n_heads, d_ff, e_layers, activation,
-                               compute_dtype, device)
+                               compute_dtype, device, attn_impl)
         self.projection = TorchDense(d_model, c_out, compute_dtype, device)
 
     def reset_parameters_from(self, generator: torch.Generator) -> None:

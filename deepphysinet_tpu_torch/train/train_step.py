@@ -388,13 +388,17 @@ def make_eval_step(cfg: StepConfig):
 
 def create_train_state(meta_cfg: Mapping[str, Any], net_cfg: Mapping[str, Any],
                        optimizer_cfg: Mapping[str, Any], generator: torch.Generator,
-                       compute_dtype=torch.float32, device=None) -> TrainState:
+                       compute_dtype=torch.float32, device=None,
+                       attn_impl: Optional[str] = None) -> TrainState:
     """A freshly initialized model (weights drawn from ``generator``) and its optimizer.
 
     ``optimizer_cfg`` is the configuration's ``train_cfg.optimizer`` dict
     (``name``, ``lr``, ``weight_decay``, ...).  ``device=None`` is the first
-    CUDA device, an error without one."""
-    model = PhysicsNet(meta_cfg, net_cfg, compute_dtype=compute_dtype, device=device)
+    CUDA device, an error without one.  ``attn_impl`` is the configuration's
+    ``train_cfg.tpu.attn_impl`` (``None``: automatic), as the JAX interface reads it
+    (interface_physics.py:132)."""
+    model = PhysicsNet(meta_cfg, net_cfg, compute_dtype=compute_dtype, device=device,
+                       attn_impl=attn_impl)
     init_parameters(model, generator)
     optimizer = build_optimizer(params=model.parameters(), **dict(optimizer_cfg))
     return TrainState(step=0, model=model, optimizer=optimizer)

@@ -43,6 +43,10 @@ from deepphysinet_tpu_torch.train import losses as tlosses
 from deepphysinet_tpu_torch.train.point_fn import make_phys_fn
 from deepphysinet_tpu_torch.train.torch_import import state_dict_from_jax
 
+# One PyTorch thread per test process: the suite runs in several worker processes at once,
+# and a thread pool in each would oversubscribe the cores (it about doubled these files' time).
+torch.set_num_threads(1)
+
 OBS_CFG = {
     "u10": dict(name="u10", norm_factor=[0.1, 3.0], bound=[-500, 500]),
     "v10": dict(name="v10", norm_factor=[-0.1, 3.0], bound=[-500, 500]),

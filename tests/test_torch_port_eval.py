@@ -35,6 +35,10 @@ from deepphysinet_tpu_torch.ops.normalization import OBS_NAME_ORDER, norm_specs_
 from deepphysinet_tpu_torch.train.torch_import import state_dict_from_jax
 from deepphysinet_tpu_torch.train.train_step import StepConfig
 
+# One PyTorch thread per test process: the suite runs in several worker processes at once,
+# and a thread pool in each would oversubscribe the cores (it about doubled these files' time).
+torch.set_num_threads(1)
+
 RMSE_RTOL = 2e-4
 RESIDUAL_RTOL = 2e-3
 N_WINDOWS = 2

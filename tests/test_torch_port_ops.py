@@ -31,6 +31,10 @@ from deepphysinet_tpu_torch.ops import position_encoding as tpe
 from deepphysinet_tpu_torch.train import point_fn as tpoint
 from deepphysinet_tpu_torch.train.torch_import import load_pth, state_dict_from_jax
 
+# One PyTorch thread per test process: the suite runs in several worker processes at once,
+# and a thread pool in each would oversubscribe the cores (it about doubled these files' time).
+torch.set_num_threads(1)
+
 META = dict(enc_in=50, c_out=24, d_model=24, n_heads=4, e_layers=2, d_ff=24,
             activation="gelu", learnable_token_num=6)
 NET = dict(in_channels=192, hidden_channels=24, learnable_token_num=10, token_num=9)

@@ -26,6 +26,10 @@ from deepphysinet_tpu_torch.physics.constants import DEFAULT_CONSTANTS, Physical
 from deepphysinet_tpu_torch.train import losses as tlosses
 from deepphysinet_tpu_torch.train import optim as toptim
 
+# One PyTorch thread per test process: the suite runs in several worker processes at once,
+# and a thread pool in each would oversubscribe the cores (it about doubled these files' time).
+torch.set_num_threads(1)
+
 OBS_CFG = {
     "u10": dict(name="u10", norm_factor=[0.1, 3.0], bound=[-500, 500]),
     "v10": dict(name="v10", norm_factor=[-0.1, 3.0], bound=[-500, 500]),

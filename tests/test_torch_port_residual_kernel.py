@@ -37,6 +37,10 @@ from deepphysinet_tpu_torch.physics import engine as tengine
 
 from tests.test_torch_port_engine import FACTORS, _j_args, _t, _t_args, world  # noqa: F401
 
+# One PyTorch thread per test process: the suite runs in several worker processes at once,
+# and a thread pool in each would oversubscribe the cores (it about doubled these files' time).
+torch.set_num_threads(1)
+
 BLOCK = 32
 RTOL = {"float32": 1e-4, "bfloat16": 2e-2}
 

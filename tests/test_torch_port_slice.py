@@ -34,6 +34,10 @@ from deepphysinet_tpu_torch.ops.coords import CoordSpec
 from deepphysinet_tpu_torch.physics.engine import collapsed_decode_t
 from deepphysinet_tpu_torch.train.torch_import import state_dict_from_jax
 
+# One PyTorch thread per test process: the suite runs in several worker processes at once,
+# and a thread pool in each would oversubscribe the cores (it about doubled these files' time).
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 COORD = dict(lon_size=257, lat_size=145, dx=27000.0, dy=27000.0, pred_t_span=86400.0)
 
@@ -258,6 +262,7 @@ sys.modules["flax"] = None
 sys.modules["optax"] = None
 sys.modules["deepphysinet_tpu"] = None
 import numpy as np, torch
+torch.set_num_threads(1)
 import deepphysinet_tpu_torch
 for m in pkgutil.walk_packages(deepphysinet_tpu_torch.__path__, "deepphysinet_tpu_torch."):
     importlib.import_module(m.name)
@@ -312,6 +317,17 @@ args = (model, tokens, torch.stack([m.x[0], m.y[0], m.t[0]], -1), m.nwp[0], fh[0
         scfg6.coord_spec, scfg6.obs_specs, scfg6.factors())
 fused = [kernel_residual_losses(*args, version=v) for v in (4, 6)]
 fused.append(fused_residual_losses(*args, version=6))
+# the encoder's attention kernels (attn_impl) and the fused encoder, through their plain versions
+from deepphysinet_tpu_torch.ops.encoder_kernel import encode_fused
+encoded = {}
+for impl in ("pallas", "flash"):
+    twin = create_train_state(cfg["meta_cfg"], cfg["net_cfg"], cfg["train_cfg"]["optimizer"],
+                              torch.Generator().manual_seed(0), torch.float32, device="cpu",
+                              attn_impl=impl).model
+    with torch.no_grad():
+        tokens_impl = twin.encode(batch.field, fh)
+    encoded[impl] = bool(torch.isfinite(tokens_impl).all())
+encoded["fused"] = bool(torch.allclose(encode_fused(twin, batch.field, fh), tokens_impl, atol=1e-4))
 loaded = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "flax", "jaxlib", "optax",
                 "deepphysinet_tpu") and sys.modules[k] is not None)
 print(json.dumps({"loaded": loaded, "T": list(grid["T"].shape), "pts": list(pts.shape),
@@ -326,7 +342,8 @@ print(json.dumps({"loaded": loaded, "T": list(grid["T"].shape), "pts": list(pts.
                   "fused_finite": all(np.isfinite(float(v)) for d in fused for v in d.values()),
                   "sweeps_finite": all(np.isfinite(v) for v in sweeps.values()),
                   "sweep_hours": sweeps["n_hours"], "sweep_points": sweeps["n_points"],
-                  "has_lead": "rmse_t2_f048" in sweeps and "weighted_total" in sweeps}))
+                  "has_lead": "rmse_t2_f048" in sweeps and "weighted_total" in sweeps,
+                  "encoded": encoded}))
 """
 
 
@@ -341,4 +358,5 @@ def test_port_runs_with_jax_blocked():
                    "metrics_finite": True, "has_pde": True, "skipped": 0.0, "step": 3,
                    "all_moved": True, "kernel_version": 4, "v4_finite": True, "sweeps_finite": True,
                    "v6": [6, True, 3], "fused_keys": [7, 7, 7], "fused_finite": True,
-                   "sweep_hours": 5.0, "sweep_points": 5.0 * 37 * 65, "has_lead": True}
+                   "sweep_hours": 5.0, "sweep_points": 5.0 * 37 * 65, "has_lead": True,
+                   "encoded": {"pallas": True, "flash": True, "fused": True}}

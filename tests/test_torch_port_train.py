@@ -49,6 +49,10 @@ from deepphysinet_tpu_torch.ops.normalization import OBS_NAME_ORDER, norm_specs_
 from deepphysinet_tpu_torch.train import train_step as tts
 from deepphysinet_tpu_torch.train.torch_import import load_train_state, state_dict_from_jax
 
+# One PyTorch thread per test process: the suite runs in several worker processes at once,
+# and a thread pool in each would oversubscribe the cores (it about doubled these files' time).
+torch.set_num_threads(1)
+
 META = dict(enc_in=65, c_out=32, d_model=32, n_heads=4, e_layers=1, d_ff=32,
             activation="gelu", learnable_token_num=8)
 NET = dict(in_channels=192, hidden_channels=32, learnable_token_num=16)

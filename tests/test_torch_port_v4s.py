@@ -34,6 +34,10 @@ from deepphysinet_tpu.ops.coords import CoordSpec as JaxCoordSpec
 from deepphysinet_tpu_torch.ops import decode_kernel as tdk
 from deepphysinet_tpu_torch.ops.coords import CoordSpec
 
+# One PyTorch thread per test process: the suite runs in several worker processes at once,
+# and a thread pool in each would oversubscribe the cores (it about doubled these files' time).
+torch.set_num_threads(1)
+
 F, HID, NV = 8, 32, 6
 IN_CH, TWO_F = 6 * F, 2 * F
 BLOCK = 128
