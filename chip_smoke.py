@@ -7,7 +7,7 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 Phases, each of which raises (exit code 1) on failure:
 
-1. build    -- compile the eight sources under ``deepphysinet_tpu_torch/csrc/`` with
+1. build    -- compile the nine sources under ``deepphysinet_tpu_torch/csrc/`` with
                nvcc, all at once, and log registers, spills and shared memory;
 2. primal   -- the primal decode kernel against its plain PyTorch version on the
                card, at 37,265 (one 145 x 257 frame), 1,000 and 3 points, bf16 and f32;
@@ -28,7 +28,7 @@ Phases, each of which raises (exit code 1) on failure:
                data-only steps, then 3 steps with the PDE terms, with the launch
                counts of both kernels; then, from one starting state, the
                gradients of one PDE step under ``'kernel'`` against ``'jvp'`` (the
-               plain version under autograd);
+               plain version under autograd), for ``kernel_version`` 7, 4, 6 and 2;
 7. v4       -- the v4 forward and backward kernels against their plain versions in
                both layouts ([N, 6] and [6, N]), bf16 and f32, at 37,265, 20,480, 4,096,
                1,000 and 3 points of one flagship frame; the two layouts against each
@@ -55,31 +55,41 @@ Phases, each of which raises (exit code 1) on failure:
                at 49,152, 65,536 and 50,001 points of the window, each beside a
                float64 sum of the plain version's per-point terms; two runs (the
                same bits); against the split path on the same points; then the
-               entry points: ``fused_residual_losses(version=6)`` at 40,960 (split
-               branch) and 65,536 points (in-kernel) and
+               entry points: ``fused_residual_losses`` with versions 6 and 2 at 40,960
+               (split branch) and 65,536 points (in-kernel) and
                ``kernel_residual_losses(version=4)`` at 65,536, with the launch counts;
 12. train v6 -- from the seeded state: one PDE step under ``kernel_version=6``
                ('kernel' against 'jvp', and against ``kernel_version=7``); then 3 PDE
                steps with ``kernel_version=6``, with the launch counts;
-13. attention -- the single-tile and flash attention kernels against their plain
+13. v2      -- the v2 and v3 forward kernels (the uncollapsed decode; v3 with the PE
+               computed in the kernel) against their plain versions, bf16 and f32, at
+               20,480 (v2) or 37,265 (v3), 1,000 and 3 points; ``FusedDecodeJvpV2``
+               (kernel forward, plain backward) against autograd of the plain forward;
+14. train v2 -- 3 PDE steps with ``kernel_version=2`` (the seeded-state comparisons ran
+               in phase 6), with the launch counts;
+15. v4pe, v5 -- the v4pe and v5 forward kernels against their plain versions, bf16 and
+               f32, at 37,265, 1,000 and 3 points; ``fused_kernel_fields(in_kernel_pe=True)``
+               on one frame (the v4pe kernel) against the same call without it (the v4
+               kernel on the prepared PE); direct calls of v3 and v5 on one frame;
+16. attention -- the single-tile and flash attention kernels against their plain
                versions, bf16 and f32, at B = 1, 8 heads of 32 and 3 to 4,096 tokens;
                ``FusedAttention`` with either kernel's forward against autograd of the
                plain forward, with the launch counts;
-14. encoder -- the fused encoder kernel against its plain version at flagship width,
+17. encoder -- the fused encoder kernel against its plain version at flagship width,
                bf16 and f32; ``encode_fused`` (two batch items, two launches) against
                ``PhysicsNet.encode``;
-15. paths   -- ``predict_grid`` with ``attn_impl='pallas'`` and ``'flash'`` against the
+18. paths   -- ``predict_grid`` with ``attn_impl='pallas'`` and ``'flash'`` against the
                default model on the same weights; one PDE step's loss and gradients
                under ``'pallas'`` against the default; 3 PDE steps under ``'pallas'``,
                with the launch counts;
-16. timing  -- by CUDA events, medians, alternating order: each kernel and its
+19. timing  -- by CUDA events, medians, alternating order: each kernel and its
                plain version at the main paths' sizes (the attention kernels beside one
                ``scaled_dot_product_attention`` call), and the in-kernel residual
                assembly against the split path at 40,960 to 131,072 points; by host
                clock around a synchronize: one frame, one training step of each
                kind, one residual sweep, split into their parts, and one encode
                through ``PhysicsNet.encode`` and ``encode_fused``;
-17. profile -- only with ``--profile``: ``torch.profiler`` over three steps of each
+20. profile -- only with ``--profile``: ``torch.profiler`` over three steps of each
                kind, three frames and three residual sweeps, for the device's busy share.
 
 The last three lines of standard output are a JSON object with each kernel's
@@ -110,6 +120,8 @@ TIMING_POINTS = 20480 + 4096  # the points one PDE step decodes
 # branch's size; the sizes of the in-kernel against split timing
 RESIDUAL_SIZES = (49152, 65536, 50001)
 RESIDUAL_MAIN_N, RESIDUAL_SPLIT_N = 65536, 40960
+V2_SIZES = (20480, 1000, 3)  # the step's larger launch, ragged edges
+PE_SIZES = (GRID_POINTS, 1000, 3)  # one frame, ragged edges
 CROSSOVER_SIZES = (40960, 49152, 65536, 131072)
 
 # The card's published peaks (NVIDIA H100 SXM data sheet): dense bf16 tensor-core
@@ -211,6 +223,15 @@ RTOL_VERSIONS_LOSS = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 # adds) held to two other samples: readings of one state spread by a factor of 2.3 (1.6e-6
 # to 3.7e-6 in float32), so the multiple is NOISE_TIMES, not STEP_TIMES_EXPLAINED.
 NOISE_TIMES = 4.0
+# kernel_version=2 has no backward kernel (as on the TPU): 'kernel' is FusedDecodeJvpV2, the v2
+# forward kernel and the gradient of the v2 XLA twin, which reads wo in float32 where the kernel
+# rounds it (C19).  The step's own 'jvp' under version 2 is the collapsed v4 plain version,
+# another function in bf16, so the engine comparison of kernel_version=2 runs 'jvp' as the kernel
+# engine's route with the v2 plain version in place of the kernel, differentiated as
+# FusedDecodeJvpV2 is: the kernel's rounding in the values, the twin's in the gradient.  The
+# version comparison holds it to kernel_version=7 by the same rule as 4 against 7.  What C19
+# alone moves (the gradient of the kernel's rounding against the twin's) is printed, not held:
+# it is JAX's design.
 # 'linearize' (forward mode through the per-variable decode) against 'jvp' (the
 # collapsed algebra) on the total loss of one PDE step.  In float32 the two are the
 # same function up to the association of the products; with bf16 compute the
@@ -920,11 +941,24 @@ def main() -> int:
     # with the same positional arguments (the var-major layout, which the step runs)
     plain_forwards = {7: ("decode_jvp_v4s_ref", dk.fused_decode_jvp_v4s),
                       4: ("decode_jvp_v4_ref", dk.fused_decode_jvp_v4t),
-                      6: ("decode_jvp_v6_ref", dk.fused_decode_jvp_v6)}  # [N, 6]: the only layout of 6
+                      6: ("decode_jvp_v6_ref", dk.fused_decode_jvp_v6),  # [N, 6]: the only layout of 6
+                      2: ("fused_decode_jvp_trainable", dk.fused_decode_jvp)}  # the 'kernel' route of 2
 
     def kernel_rounding_v6(fw, trig, cd_pe, ref, cdt, round_tangents=True):
         """The v6 plain forward as the kernel rounds: whatever the engine asks for."""
         return dk.decode_jvp_v6_ref(fw, trig.to(cdt), cd_pe.to(cdt), ref, cdt, round_tangents=True)
+
+    def plain_v2(weights, pe, dpe, cd_pe, ref, cdt):
+        """The v2 plain version as FusedDecodeJvpV2 is differentiated (see NOISE_TIMES): the
+        values with the kernel's rounding, the gradient of the XLA twin's (C19)."""
+        p, t = dk.decode_jvp_v2_ref(weights, pe, dpe, cd_pe, ref, cdt, round_wo=False)
+        with torch.no_grad():
+            p_k, t_k = dk.decode_jvp_v2_ref(weights, pe, dpe, cd_pe, ref, cdt)
+        return p_k + (p - p.detach()), t_k + (t - t.detach())
+
+    def plain_v2_kernel_rounding(weights, pe, dpe, cd_pe, ref, cdt):
+        """The v2 plain version with the kernel's rounding in the values and the gradient."""
+        return dk.decode_jvp_v2_ref(weights, pe, dpe, cd_pe, ref, cdt)
 
     def engine_gradients(model_, name, version=7):
         twin = copy.deepcopy(model_)
@@ -934,9 +968,16 @@ def main() -> int:
             name = "jvp"
         elif version == 6 and name != "kernel":
             setattr(engine, attr, kernel_rounding_v6)
+        elif version == 2 and name in ("jvp", "jvp on kernel forward"):
+            setattr(engine, attr, plain_v2)
+        elif version == 2 and name == "jvp kernel rounding":
+            setattr(engine, attr, plain_v2_kernel_rounding)
+            name = "jvp"
         if name == "jvp on kernel forward":
             setattr(engine, attr, on_kernel_forward(getattr(engine, attr), kernel_fn))
             name = "jvp"
+        if version == 2 and name == "jvp":  # the kernel engine's route, with the plain version
+            name = "kernel"
         try:
             scfg_ = ts.step_config_from_cfg(cfg, pde_engine=name, kernel_version=version)
             total, _ = ts.make_loss_fn(twin, scfg_)(batch, True)
@@ -1020,6 +1061,17 @@ def main() -> int:
         if not (np.isfinite(l_twin) and np.isfinite(n_twin) and rel <= RTOL_VERSIONS_LOSS[dtype]):
             raise AssertionError(f"kernel_version=6: 'jvp' disagrees with 'kernel' ({label})")
 
+    def report_c19(model_, label, start_v2):
+        """The gradient of one kernel_version=2 PDE step through the v2 plain version with the
+        kernel's rounding of wo, against the twin's gradient that the step takes (C19): printed."""
+        g_r = engine_gradients(model_, "jvp kernel rounding", 2)[2]
+        g_x, noise = start_v2["jvp"], start_v2["noise"]
+        rel = {k: float((g_r[k] - g_x[k]).abs().max()) / float(g_x[k].abs().max()) for k in g_x if k not in noise}
+        top = sorted(rel, key=rel.get, reverse=True)[:3]
+        log(f"[train v2] one PDE step, {label}, kernel_version=2: the gradient of the kernel's rounding of wo "
+            f"against the twin's (C19) differs per parameter by at most {rel[top[0]]:.2e} of its largest entry ("
+            + ", ".join(f"{k} {rel[k]:.1e}" for k in top) + "); not held")
+
     def compare_linearize(model_, label, dtype, loss_jvp):
         """The total loss of one PDE step under 'linearize' against 'jvp'."""
         l_lin, n_lin, _ = engine_gradients(model_, "linearize")
@@ -1033,7 +1085,8 @@ def main() -> int:
     wrappers = (dk.decode_primal_v4t, dk.fused_decode_jvp_v4s, dk.decode_bwd_kernel_v4s, dk.fused_decode_jvp_v4,
                 dk.fused_decode_jvp_v4t, dk.decode_bwd_kernel_v4, dk.decode_bwd_kernel_v4t,
                 dk.fused_decode_jvp_v6, dk.decode_bwd_kernel_v6, rk.fused_residual_sums_v4,
-                rk.fused_residual_sums_v6, at.attention_tile, at.attention_flash, ek.fused_encoder_forward)
+                rk.fused_residual_sums_v6, at.attention_tile, at.attention_flash, ek.fused_encoder_forward,
+                dk.fused_decode_jvp, dk.fused_decode_jvp_v3, dk.fused_decode_jvp_v4pe, dk.fused_decode_jvp_v5)
 
     def launch_counts():
         return {f.__name__: f.launches for f in wrappers}
@@ -1050,6 +1103,9 @@ def main() -> int:
     start[(cd, 6)] = compare_engines(model, f"{cd} compute", *RTOL_STEP[cd], version=6)
     compare_versions(start[(cd, 6)], start[(cd, 7)], f"{cd} compute", cd, other=6, times=NOISE_TIMES)
     compare_twin(model, f"{cd} compute", cd, start[(cd, 6)]["loss_kernel"])
+    start[(cd, 2)] = compare_engines(model, f"{cd} compute", *RTOL_STEP[cd], version=2)
+    compare_versions(start[(cd, 2)], start[(cd, 7)], f"{cd} compute", cd, other=2)
+    report_c19(model, f"{cd} compute", start[(cd, 2)])
     compare_linearize(model, f"{cd} compute", cd, start[(cd, 7)]["loss_jvp"])
     if cd != torch.float32:  # the same weights with float32 compute: no rounding to amplify
         f32 = torch.float32
@@ -1062,16 +1118,20 @@ def main() -> int:
         start[(f32, 6)] = compare_engines(model32, "float32 compute", *RTOL_STEP[f32], version=6)
         compare_versions(start[(f32, 6)], start[(f32, 7)], "float32 compute", f32, other=6, times=NOISE_TIMES)
         compare_twin(model32, "float32 compute", f32, start[(f32, 6)]["loss_kernel"])
+        start[(f32, 2)] = compare_engines(model32, "float32 compute", *RTOL_STEP[f32], version=2)
+        compare_versions(start[(f32, 2)], start[(f32, 7)], "float32 compute", f32, other=2)
+        report_c19(model32, "float32 compute", start[(f32, 2)])
         compare_linearize(model32, "float32 compute", f32, start[(f32, 7)]["loss_jvp"])
         del model32
     if any(launch_counts()[k] == counts[k] for k in (
             "fused_decode_jvp_v4s", "decode_bwd_kernel_v4s", "fused_decode_jvp_v4t", "decode_bwd_kernel_v4t",
-            "fused_decode_jvp_v6", "decode_bwd_kernel_v6")):
+            "fused_decode_jvp_v6", "decode_bwd_kernel_v6", "fused_decode_jvp")):
         raise AssertionError("the 'kernel' engine launched no kernel")
     noise_v7 = start[(cd, 7)]["noise"]  # phase 15 reads it
     del start
     state4 = copy.deepcopy(state)  # the seeded state, before any update: phase 9 steps from it
     state6 = copy.deepcopy(state)  # and phase 12
+    state2 = copy.deepcopy(state)  # and phase 14
     torch.cuda.empty_cache()
 
     step = ts.make_train_step(scfg)
@@ -1428,7 +1488,9 @@ def main() -> int:
     for label, fn, version, n in (
             ("fused_residual_losses(version=6), split branch", engine.fused_residual_losses, 6, RESIDUAL_SPLIT_N),
             ("fused_residual_losses(version=6), in-kernel", engine.fused_residual_losses, 6, RESIDUAL_MAIN_N),
-            ("kernel_residual_losses(version=4)", rk.kernel_residual_losses, 4, RESIDUAL_MAIN_N)):
+            ("kernel_residual_losses(version=4)", rk.kernel_residual_losses, 4, RESIDUAL_MAIN_N),
+            ("fused_residual_losses(version=2), split branch", engine.fused_residual_losses, 2, RESIDUAL_SPLIT_N),
+            ("fused_residual_losses(version=2), in-kernel", engine.fused_residual_losses, 2, RESIDUAL_MAIN_N)):
         coords, nwp, cor = window_points(n, seed=n + 1)
         entry[label] = fn(model, tokens_w, coords, nwp, fh_w, cor, scfg.coord_spec, scfg.obs_specs,
                           scfg.factors(), version=version)
@@ -1440,9 +1502,10 @@ def main() -> int:
             raise AssertionError(f"{label}: non-finite or missing losses {bad}")
     resid_launches = launch_counts()
     expected = dict.fromkeys(resid_launches, 0)
-    expected.update(fused_decode_jvp_v6=1, fused_residual_sums_v6=1, fused_residual_sums_v4=1)
-    log(f"[residual] kernel launches of the residual entry points: {resid_launches} (expected one v6 forward "
-        f"below {engine.FUSED_ASSEMBLY_MIN_N} points, one in-kernel launch of each version above)")
+    expected.update(fused_decode_jvp_v6=1, fused_residual_sums_v6=1, fused_residual_sums_v4=2, fused_decode_jvp=1)
+    log(f"[residual] kernel launches of the residual entry points: {resid_launches} (expected one v6 and one v2 "
+        f"forward below {engine.FUSED_ASSEMBLY_MIN_N} points, one in-kernel launch of each call above: version 2 "
+        "takes the v4 residual kernel)")
     if resid_launches != expected or not RESIDUAL_SPLIT_N < engine.FUSED_ASSEMBLY_MIN_N <= RESIDUAL_MAIN_N:
         raise AssertionError(f"the residual entry points launched {resid_launches}, not {expected}")
     model.train()
@@ -1471,19 +1534,222 @@ def main() -> int:
     del state6, before
     torch.cuda.empty_cache()
 
-    # ---- 13. the attention kernels ------------------------------------------------------------------
+    # ---- 13. the v2 and v3 kernels against their plain versions --------------------------------
+    def v2_inputs(n: int, dtype):
+        """Decode weights and the v2 inputs of the first n margin points (the step's launch)."""
+        with torch.no_grad():
+            fh_norm = (batch.forecast_h / scfg.forecast_time_period)[:, None]
+            tokens = model.encode(batch.field, fh_norm)[0]
+            m = batch.margin
+            coords = torch.stack([m.x[0, :n], m.y[0, :n], m.t[0, :n]], dim=-1)
+            weights, pe, dpe, cd_pe = engine._kernel_inputs(model, tokens, coords, m.nwp[0, :n], fh_norm[0],
+                                                            scfg.coord_spec)
+        return weights, pe.to(dtype), dpe.to(dtype).contiguous(), cd_pe.to(dtype), m.nwp[0, :n].contiguous()
+
+    def frame_points(time_h: float):
+        """Decode weights, coordinates [N, 3] and conditioning values [N, 6] of one full-grid frame."""
+        xs, ys = np.meshgrid(np.arange(257.0), np.arange(145.0))
+        px, py, pt, nwp, _ = window.get_margin_grid(xs.ravel(), ys.ravel(), np.full(xs.size, time_h))
+        fh_norm = window.forecast_h / dcfg.forecast_time_period
+        with torch.no_grad():
+            tokens = runner._encode(model, field, fh_norm)
+            weights = dk.extract_decode_weights(model, tokens, torch.tensor([fh_norm], device=dev))
+        return (weights, torch.from_numpy(np.stack([px, py, pt], -1)).to(dev).contiguous(),
+                torch.from_numpy(nwp).to(dev).contiguous(), tokens, fh_norm)
+
+    def near_kink_v2(w, pe, cd_pe, dtype):
+        """[N] bool: the points with a relu argument (z or r) of the v2 plain version near zero
+        (KINK_EPS), from the interleaved PE ``pe`` and the cd PE."""
+        z = dk.dot_f32(pe, w.w1, dtype) + w.b1[:, None, :]
+        c = (dk.dot_f32(torch.relu(z), w.w2, dtype) + w.b2[:, None, :]
+             + (dk.dot_f32(cd_pe, w.wd, dtype) + w.bd[:, None, :]) + w.fh_add[:, None, :])
+        r = dk.dot_f32(c, w.f1, dtype) + w.g1[:, None, :]
+        return ((z.abs() < KINK_EPS * (1.0 + float(z.abs().max()))).any(-1).any(0)
+                | (r.abs() < KINK_EPS * (1.0 + float(r.abs().max()))).any(-1).any(0))
+
+    def kink_note(near, n, what, dtype):
+        if int(near.sum()) > max(1, KINK_SHARE * n):
+            raise AssertionError(f"{what} checks: {int(near.sum())} of {n} points near a relu's kink ({dtype})")
+        return f"; {int(near.sum())} of {n} points near a relu's kink left out"
+
+    def point_major_check(what, dtype, n, p, t, p0, t0_, near, extra=""):
+        """``forward_check`` on [N, 6] / [3, N, 6] outputs, the points near a kink left out."""
+        return forward_check(what, dtype, n, p.t(), t.transpose(1, 2), p0.t(), t0_.transpose(1, 2),
+                             kink_note(near, n, what, dtype) + extra, keep=~near)
+
+    model.eval()
+    variant_err, variant_rel = {}, {}  # (name, dtype, n) -> as forward_check returns
+    for dtype in (torch.bfloat16, torch.float32):
+        w2_, pe, dpe, cd_pe, ref = v2_inputs(V2_SIZES[0], dtype)
+        for n in V2_SIZES:
+            ins = (pe[:n].contiguous(), dpe[:, :n].contiguous(), cd_pe[:n].contiguous(), ref[:n].contiguous())
+            near = near_kink_v2(w2_, ins[0], ins[2], dtype)
+            p, t = dk.fused_decode_jvp(w2_, *ins, dtype)
+            torch.cuda.synchronize()
+            p0, t0_ = dk.decode_jvp_v2_ref(w2_, *ins, dtype)
+            variant_err[("fused_decode_jvp", dtype, n)], variant_rel[("fused_decode_jvp", dtype, n)] = \
+                point_major_check("v2 forward", dtype, n, p, t, p0, t0_, near)
+            del p0, t0_
+        w3, coords, nwp, _, _ = frame_points(6.5)
+        pe3, _ = dk.pe_and_tangents(coords, scfg.coord_spec, dtype)
+        cd3 = engine._cd_pe(model, nwp).to(dtype)
+        for n in PE_SIZES:
+            near = near_kink_v2(w3, pe3[:n], cd3[:n], dtype)
+            c_, x_ = coords[:n].contiguous(), nwp[:n].contiguous()
+            p, t = dk.fused_decode_jvp_v3(w3, c_, x_, scfg.coord_spec, dtype)
+            torch.cuda.synchronize()
+            p0, t0_ = dk.decode_jvp_v3_ref(w3, c_, x_, scfg.coord_spec, dtype)
+            variant_err[("fused_decode_jvp_v3", dtype, n)], variant_rel[("fused_decode_jvp_v3", dtype, n)] = \
+                point_major_check("v3 forward", dtype, n, p, t, p0, t0_, near)
+            del p0, t0_
+        del pe, dpe, cd_pe, pe3, cd3
+    torch.cuda.empty_cache()
+
+    # FusedDecodeJvpV2 (kernel forward, plain backward) against autograd of the plain forward, f32:
+    # the cotangents of every input, as JAX's custom VJP of the v2 kernel returns them
+    w2_, pe, dpe, cd_pe, ref = v2_inputs(1000, f32)
+    g_p, g_t = point_major(*cotangents(1000, seed=10))
+
+    def v2_grads(fn):
+        leaves = dk.DecodeWeights(*(x.detach().clone().requires_grad_(True) for x in w2_))
+        pts = [x.detach().clone().requires_grad_(True) for x in (pe, dpe, cd_pe, ref)]
+        p, t = fn(leaves, *pts)
+        ((p * g_p).sum() + (t * g_t).sum()).backward()
+        return [x.grad for x in (*leaves, *pts)]
+
+    count = dk.fused_decode_jvp.launches
+    g_k = v2_grads(lambda w, *a: dk.fused_decode_jvp_trainable(w, *a, f32))
+    if dk.fused_decode_jvp.launches != count + 1:
+        raise AssertionError("FusedDecodeJvpV2 did not launch the v2 forward kernel once")
+    g_x = v2_grads(lambda w, *a: dk.decode_jvp_v2_ref(w, *a, f32, round_wo=False))
+    rel = {name: float((a_ - b_).abs().max()) / max(float(b_.abs().max()), 1e-30)
+           for name, a_, b_ in zip(dk.DecodeWeights._fields + ("pe", "dpe", "cd_pe", "ref"), g_k, g_x)}
+    worst = max(rel, key=rel.get)
+    log(f"[v2] FusedDecodeJvpV2 against autograd of the plain forward (f32, N=1000): every cotangent within "
+        f"{rel[worst]:.2e} of its largest ({worst}; bound {RTOL_BWD[f32]:.0e})")
+    if rel[worst] > RTOL_BWD[f32] or not torch.equal(g_k[-1], g_p):
+        raise AssertionError(f"FusedDecodeJvpV2 disagrees with autograd of the plain forward: {rel}")
+    del w2_, pe, dpe, cd_pe, ref, g_k, g_x
+
+    # ---- 14. the training step under kernel_version=2 ------------------------------------------
+    # (the engine and version comparisons of one PDE step ran in phase 6, at the seeded state)
+    model.train()
+    reset_launch_counts()
+    step2 = ts.make_train_step(ts.step_config_from_cfg(cfg, kernel_version=2))
+    before = [p.detach().clone() for p in state2.model.parameters()]
+    for i in range(3):
+        counts = launch_counts()
+        state2, metrics = step2(state2, batch, True)
+        torch.cuda.synchronize()
+        metrics = {k: float(v) for k, v in metrics.items()}
+        launched = {k: v - counts[k] for k, v in launch_counts().items() if v != counts[k]}
+        log(f"[train v2] step {i} (pde, kernel_version=2): total {metrics['total_loss']:.6g}, margin "
+            f"{metrics['margin_loss']:.6g}, grad_norm {metrics['grad_norm']:.6g}, kernel launches {launched}")
+        bad = [k for k, v in metrics.items() if not np.isfinite(v)]
+        if bad or metrics["skipped_nonfinite"] != 0.0:
+            raise AssertionError(f"train step (kernel_version=2): non-finite metrics {bad}")
+        if launched != {"fused_decode_jvp": 2}:
+            raise AssertionError(f"train step (kernel_version=2) launched {launched}")
+    train2_launches = launch_counts()
+    if state2.step != 3 or not all(bool((a_ != b_).any()) for a_, b_ in zip(before, state2.model.parameters())):
+        raise AssertionError("a parameter did not change in the kernel_version=2 steps")
+    del state2, before
+    torch.cuda.empty_cache()
+
+    # ---- 15. the v4pe and v5 kernels; the in_kernel_pe route; direct calls of v3 and v5 ---------
+    model.eval()
+    for dtype in (torch.bfloat16, torch.float32):
+        fw, pe, dpe, cd_pe, ref_t = frame_inputs(6.5, dtype, with_tangents=True)
+        _, coords, nwp, _, _ = frame_points(6.5)
+        for n in PE_SIZES:
+            ins = (pe[:n].contiguous(), dpe[:, :n].contiguous(), cd_pe[:n].contiguous())
+            ref = ref_t[:, :n].t().contiguous()
+            near = near_kink(fw, ins[0], fw.w1, ins[2], dtype)
+            c_, x_ = coords[:n].contiguous(), nwp[:n].contiguous()
+            p, t = dk.fused_decode_jvp_v4pe(fw, c_, x_, dcfg.coord_spec, dtype)
+            torch.cuda.synchronize()
+            p0, t0_ = dk.decode_jvp_v4pe_ref(fw, c_, x_, dcfg.coord_spec, dtype)
+            variant_err[("fused_decode_jvp_v4pe", dtype, n)], variant_rel[("fused_decode_jvp_v4pe", dtype, n)] = \
+                point_major_check("v4pe forward", dtype, n, p, t, p0, t0_, near)
+            p, t = dk.fused_decode_jvp_v5(fw, *ins, ref, dtype)
+            torch.cuda.synchronize()
+            p0, t0_ = dk.decode_jvp_v5_ref(fw, *ins, ref, dtype)
+            variant_err[("fused_decode_jvp_v5", dtype, n)], variant_rel[("fused_decode_jvp_v5", dtype, n)] = \
+                point_major_check("v5 forward", dtype, n, p, t, p0, t0_, near)
+            del p0, t0_
+        del fw, pe, dpe, cd_pe, ref_t
+    torch.cuda.empty_cache()
+
+    # one frame through fused_kernel_fields(in_kernel_pe=True), from counts of 0, against the same
+    # call without it: the v4 kernel on the prepared PE, the same function with layer 1 summed over
+    # the PE features in another order (channel-major against interleaved).  In bf16 a last-bit
+    # change of z flips a few roundings of p and of the masked tangents, and where r lies that close
+    # to a relu's kink a tangent term switches: the routes are held to STEP_TIMES_EXPLAINED times
+    # what their plain versions differ by on the same points, or to TOL / TOL_TANGENT if larger
+    w3, coords, nwp, tokens_f, fh_norm_f = frame_points(6.5)
+    fh_f = torch.tensor([fh_norm_f], device=dev)
+    reset_launch_counts()
+    with torch.no_grad():
+        p_pe, t_pe = engine.fused_kernel_fields(model, tokens_f, coords, nwp, fh_f, dcfg.coord_spec, dcfg.obs_specs,
+                                                version=4, in_kernel_pe=True, raw_tangents=True)
+    torch.cuda.synchronize()
+    pe_launches = launch_counts()
+    with torch.no_grad():
+        p_v4, t_v4 = engine.fused_kernel_fields(model, tokens_f, coords, nwp, fh_f, dcfg.coord_spec, dcfg.obs_specs,
+                                                version=4, raw_tangents=True)
+        fw = dk.fuse_decode_weights(w3)
+        pe, dpe, cd_pe = (*dk.pe_and_tangents(coords, dcfg.coord_spec, cd), engine._cd_pe(model, nwp))
+        near = near_kink(fw, pe, fw.w1, cd_pe, cd)
+        plain_routes = (*dk.decode_jvp_v4pe_ref(fw, coords, nwp, dcfg.coord_spec, cd),
+                        *dk.decode_jvp_v4_ref(fw, pe, dpe, cd_pe, nwp, cd))
+
+    def route_gap(p, t, p0, t0_):
+        """Primal gap relative to 1 + its largest value, each tangent's relative to its largest,
+        at the points away from a kink."""
+        p, t, p0, t0_ = p[~near], t[:, ~near], p0[~near], t0_[:, ~near]
+        return [float((p - p0).abs().max()) / (1.0 + float(p0.abs().max()))] + [
+            float((t[k] - t0_[k]).abs().max()) / float(t0_[k].abs().max()) for k in range(3)]
+
+    got, explained = route_gap(p_pe, t_pe, p_v4, t_v4), route_gap(*plain_routes)
+    limits = [max(STEP_TIMES_EXPLAINED * e, (TOL if i == 0 else TOL_TANGENT)[cd]) for i, e in enumerate(explained)]
+    log(f"[v4pe] fused_kernel_fields(in_kernel_pe=True) {cd} N={GRID_POINTS} against in_kernel_pe=False (the v4 "
+        f"kernel): primal, tangents x, y, t {', '.join(f'{g:.2e}' for g in got)} (bounds "
+        f"{', '.join(f'{l_:.2e}' for l_ in limits)}; the plain versions differ by "
+        f"{', '.join(f'{e:.2e}' for e in explained)}){kink_note(near, GRID_POINTS, 'in_kernel_pe', cd)}; "
+        f"launches {({k: v for k, v in pe_launches.items() if v})}")
+    if not (all(g <= l_ for g, l_ in zip(got, limits)) and p_pe.shape == (GRID_POINTS, n_vars)
+            and bool(torch.isfinite(p_pe).all() and torch.isfinite(t_pe).all())):
+        raise AssertionError(f"fused_kernel_fields(in_kernel_pe=True) disagrees with the v4 route: {got} > {limits}")
+    if {k: v for k, v in pe_launches.items() if v} != {"fused_decode_jvp_v4pe": 1}:
+        raise AssertionError(f"fused_kernel_fields(in_kernel_pe=True) launched {pe_launches}")
+    # v3 and v5 have their own entry points only, as in JAX: one direct call of each, from counts of 0
+    reset_launch_counts()
+    direct = {"fused_decode_jvp_v3": dk.fused_decode_jvp_v3(w3, coords, nwp, dcfg.coord_spec, cd),
+              "fused_decode_jvp_v5": dk.fused_decode_jvp_v5(fw, pe, dpe, cd_pe, nwp, cd)}
+    torch.cuda.synchronize()
+    direct_launches = launch_counts()
+    log(f"[v4pe] direct calls at N={GRID_POINTS}: launches {({k: v for k, v in direct_launches.items() if v})}; "
+        + ", ".join(f"{k} primal mean {float(p.mean()):.4g}" for k, (p, _) in direct.items()))
+    if {k: v for k, v in direct_launches.items() if v} != {"fused_decode_jvp_v3": 1, "fused_decode_jvp_v5": 1} \
+            or not all(bool(torch.isfinite(p).all() and torch.isfinite(t).all()) for p, t in direct.values()):
+        raise AssertionError(f"the direct calls of v3 and v5 launched {direct_launches}")
+    del p_pe, t_pe, p_v4, t_v4, pe, dpe, cd_pe, direct, w3, coords, nwp, tokens_f, plain_routes
+    model.train()
+    torch.cuda.empty_cache()
+
+    # ---- 16. the attention kernels ------------------------------------------------------------------
     attn_errs = attention_phase(dev)
     torch.cuda.empty_cache()
 
-    # ---- 14. the fused encoder kernel and encode_fused ----------------------------------------------
+    # ---- 17. the fused encoder kernel and encode_fused ----------------------------------------------
     enc = encoder_phase(dev, model, field, window.forecast_h / dcfg.forecast_time_period, reset_launch_counts)
 
-    # ---- 15. the entry points with attn_impl='pallas' and 'flash' ------------------------------------
+    # ---- 18. the entry points with attn_impl='pallas' and 'flash' ------------------------------------
     attn_launches = paths_phase(dev, cfg, cd, window, dcfg, scfg, field, batch, launch_counts,
                                 reset_launch_counts, noise_v7)
     torch.cuda.empty_cache()
 
-    # ---- 16. timing --------------------------------------------------------------------------------
+    # ---- 19. timing --------------------------------------------------------------------------------
     hid, in_ch = cfg["net_cfg"]["hidden_channels"], cfg["net_cfg"]["in_channels"]
     two_f = in_ch // 3
 
@@ -1579,6 +1845,42 @@ def main() -> int:
             f"{b_bound[0]:.4f} ms ({b_bound[1]}); runs fwd {[round(t, 3) for t in f_times['kernel']]} "
             f"bwd {[round(t, 3) for t in b_times['kernel']]}")
     del fw6, trig, cd_pe6, ref6, g_p, g_t
+
+    # the four decode variants at their paths' sizes: v2 at the step's larger launch, v3, v4pe
+    # and v5 at one frame.  v2 and v3 compute the uncollapsed decode (933,888 multiply-adds per
+    # point and variable), v4pe and v5 the collapsed one (fwd_macs); v3 and v4pe read raw
+    # coordinates and conditioning values, the others the prepared PE inputs
+    model.eval()
+    v2_macs = in_ch * hid + 3 * two_f * hid + 4 * hid * hid + in_ch * hid + 4 * hid * hid + 4 * hid * hid
+    variant_ms = {}
+
+    def time_variant(name, n, kernel_fn, plain_fn, macs, inputs, weights):
+        k_ms_, p_ms_, times_ = alternating_ms(kernel_fn, plain_fn, 3)
+        v_bound = bound(2.0 * n_vars * macs * n, tensor_bytes(*inputs, *weights) + 4 * (n_vars * n + 3 * n_vars * n))
+        variant_ms[name] = dict(ms=k_ms_, plain=p_ms_, bound=v_bound, points=n)
+        log(f"[timing] {name} at N={n} {cd}: kernel {k_ms_:.4f} ms ({2e-9 * n_vars * macs * n / k_ms_:.2f} TFLOP/s), "
+            f"plain {p_ms_:.4f} ms, bound {v_bound[0]:.4f} ms ({v_bound[1]}); runs kernel "
+            f"{[round(t, 3) for t in times_['kernel']]} plain {[round(t, 3) for t in times_['plain']]}")
+
+    w2_, pe, dpe, cd_pe, ref = v2_inputs(V2_SIZES[0], cd)
+    time_variant("fused_decode_jvp", V2_SIZES[0], lambda: dk.fused_decode_jvp(w2_, pe, dpe, cd_pe, ref, cd),
+                 lambda: dk.decode_jvp_v2_ref(w2_, pe, dpe, cd_pe, ref, cd), v2_macs, (pe, dpe, cd_pe, ref),
+                 dk._v2_weights(w2_, cd).values())
+    w3, coords, nwp, _, _ = frame_points(6.5)
+    spec = dcfg.coord_spec
+    time_variant("fused_decode_jvp_v3", GRID_POINTS, lambda: dk.fused_decode_jvp_v3(w3, coords, nwp, spec, cd),
+                 lambda: dk.decode_jvp_v3_ref(w3, coords, nwp, spec, cd), v2_macs, (coords, nwp),
+                 dk._v2_weights(w3, cd).values())
+    fw, pe, dpe, cd_pe, _ = frame_inputs(6.5, cd, with_tangents=True)
+    fused_weights = dk._fused_weights(fw, dict(w1=fw.w1), cd).values()
+    time_variant("fused_decode_jvp_v4pe", GRID_POINTS, lambda: dk.fused_decode_jvp_v4pe(fw, coords, nwp, spec, cd),
+                 lambda: dk.decode_jvp_v4pe_ref(fw, coords, nwp, spec, cd), fwd_macs, (coords, nwp), fused_weights)
+    time_variant("fused_decode_jvp_v5", GRID_POINTS, lambda: dk.fused_decode_jvp_v5(fw, pe, dpe, cd_pe, nwp, cd),
+                 lambda: dk.decode_jvp_v5_ref(fw, pe, dpe, cd_pe, nwp, cd), fwd_macs, (pe, dpe, cd_pe, nwp),
+                 dk._fused_weights(fw, dict(w1=fw.w1, w1c=fw.w1c), cd).values())
+    del w2_, pe, dpe, cd_pe, ref, w3, coords, nwp, fw, fused_weights
+    model.train()
+    torch.cuda.empty_cache()
 
     # the residual-sum kernels at the entry points' size: the forward's operations plus the
     # assembly (about 150 float operations per point), the point inputs once and 24 bytes out
@@ -1704,9 +2006,10 @@ def main() -> int:
     step_fns["kernel v4"] = ts.make_train_step(ts.step_config_from_cfg(cfg, kernel_version=4))
     step_fns["kernel v4 [N, 6]"] = ts.make_train_step(ts.step_config_from_cfg(cfg, kernel_version=4, var_major=False))
     step_fns["kernel v6"] = ts.make_train_step(ts.step_config_from_cfg(cfg, kernel_version=6))
+    step_fns["kernel v2"] = ts.make_train_step(ts.step_config_from_cfg(cfg, kernel_version=2))
     whole = {"pde kernel": whole_step("kernel", True), "pde kernel v4": whole_step("kernel v4", True),
              "pde kernel v4 [N, 6]": whole_step("kernel v4 [N, 6]", True),
-             "pde kernel v6": whole_step("kernel v6", True),
+             "pde kernel v6": whole_step("kernel v6", True), "pde kernel v2": whole_step("kernel v2", True),
              "pde jvp": whole_step("jvp", True), "pde linearize": whole_step("linearize", True),
              "data-only": whole_step("kernel", False)}
     log("[timing] one training step (median of 4, host clock): " +
@@ -1728,10 +2031,10 @@ def main() -> int:
             if with_pde:
                 for key, pts in (("margin", batch.margin), ("inter", batch.inter)):
                     coords = torch.stack([pts.x[0], pts.y[0], pts.t[0]], dim=-1)
-                    if version == 6:  # [N, 6] only
+                    if version in (2, 6):  # [N, 6] only
                         box[key] = engine.fused_kernel_fields(
                             model, box["tokens"], coords, pts.nwp[0], box["fh"], scfg_.coord_spec,
-                            scfg_.obs_specs, trainable=True, version=6, raw_tangents=True)
+                            scfg_.obs_specs, trainable=True, version=version, raw_tangents=True)
                     else:
                         box[key] = engine.fused_kernel_fields_t(
                             model, box["tokens"], coords, pts.nwp[0], box["fh"], scfg_.coord_spec,
@@ -1745,7 +2048,7 @@ def main() -> int:
             if with_pde:
                 labels = batch.margin.labels[0]
                 assemble = engine.packed_residual_losses_from_primal_tangents
-                if version != 6:
+                if version not in (2, 6):
                     labels, assemble = labels.t(), engine.packed_residual_losses_from_primal_tangents_t
                 total = pred_loss(box["margin"][0], labels) * factors["margin_factor"]
                 for key, pts in (("margin", batch.margin), ("inter", batch.inter)):
@@ -1764,7 +2067,8 @@ def main() -> int:
 
     for label, engine_name, with_pde, version in (
             ("pde kernel", "kernel", True, 7), ("pde kernel v4", "kernel", True, 4),
-            ("pde kernel v6", "kernel", True, 6), ("pde jvp", "jvp", True, 7), ("data-only", "kernel", False, 7)):
+            ("pde kernel v6", "kernel", True, 6), ("pde kernel v2", "kernel", True, 2), ("pde jvp", "jvp", True, 7),
+            ("data-only", "kernel", False, 7)):
         runs = [split_step(engine_name, with_pde, version) for _ in range(4)][1:]
         parts = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
         log(f"[timing] {label} step split (median of 3, host clock, a synchronize after each part): " +
@@ -1773,7 +2077,7 @@ def main() -> int:
 
     enc_timing = attention_and_encoder_timing(dev, cd, model, field, window.forecast_h / dcfg.forecast_time_period)
 
-    # ---- 17. profile (only with --profile): the device's busy share and its largest kernels ----
+    # ---- 20. profile (only with --profile): the device's busy share and its largest kernels ----
     if "--profile" in sys.argv[1:]:
         from torch.profiler import ProfilerActivity, profile
 
@@ -1793,6 +2097,7 @@ def main() -> int:
                 ("pde kernel step", lambda: step_fns["kernel"](state, batch, True), whole["pde kernel"]),
                 ("pde kernel v4 step", lambda: step_fns["kernel v4"](state, batch, True), whole["pde kernel v4"]),
                 ("pde kernel v6 step", lambda: step_fns["kernel v6"](state, batch, True), whole["pde kernel v6"]),
+                ("pde kernel v2 step", lambda: step_fns["kernel v2"](state, batch, True), whole["pde kernel v2"]),
                 ("pde jvp step", lambda: step_fns["jvp"](state, batch, True), whole["pde jvp"]),
                 ("data-only step", lambda: step_fns["kernel"](state, batch, False), whole["data-only"]),
                 ("frame", one_frame, split["frame"]),
@@ -1820,8 +2125,9 @@ def main() -> int:
     # tolerance: of 1 + max|plain| (primal), of each tangent's or weight's own largest value.
     # launches: the counts of the main paths, each read just after its path ran from counts
     # of 0 (inference, the kernel_version=7 steps, the evaluation sweeps, the kernel_version=4
-    # steps, the residual entry points, the kernel_version=6 steps); errors and times at the
-    # size of the path's larger launch.
+    # steps, the residual entry points, the kernel_version=6 steps, the kernel_version=2 steps,
+    # the in_kernel_pe frame, the direct calls of v3 and v5); errors and times at the size of
+    # the path's larger launch.
     main_n = 20480  # the larger of the two launches of a PDE step
     t = v4s_ms[main_n]
     csrc = "deepphysinet_tpu_torch/csrc/"
@@ -1853,6 +2159,13 @@ def main() -> int:
                 "max_rel_err": resid_rel[(version, cd, RESIDUAL_MAIN_N)], "points": RESIDUAL_MAIN_N,
                 "ms": tm["ms"], "plain_ms": tm["plain"], "bound_ms": tm["bound"][0], "bound_by": tm["bound"][1],
                 "library_ms": None}
+
+    def variant_entry(name, source, replaces, launches, **split):
+        tm = variant_ms[name]
+        return {"name": name, "route": "cuda", "source": csrc + source, "replaces": f"{jax_file}:{replaces}",
+                "launches": launches, **split, "max_abs_err": variant_err[(name, cd, tm["points"])],
+                "max_rel_err": variant_rel[(name, cd, tm["points"])], "points": tm["points"], "ms": tm["ms"],
+                "plain_ms": tm["plain"], "bound_ms": tm["bound"][0], "bound_by": tm["bound"][1], "library_ms": None}
 
     def attention_entry(name, replaces, launches):
         tm = enc_timing[(name, 287)]
@@ -1899,6 +2212,15 @@ def main() -> int:
          "max_abs_err": enc["errs"][cd], "tokens": 287, "ms": enc_timing["encoder"]["ms"],
          "plain_ms": enc_timing["encoder"]["plain"], "bound_ms": enc_timing["encoder"]["bound"][0],
          "bound_by": enc_timing["encoder"]["bound"][1], "library_ms": None},
+        # the four decode variants: v2 on its training and residual paths, v4pe on the in_kernel_pe
+        # route, v3 and v5 on their own entry points (one direct call each)
+        variant_entry("fused_decode_jvp", "decode_jvp_v2.cu", 270,
+                      train2_launches["fused_decode_jvp"] + resid_launches["fused_decode_jvp"],
+                      launches_train=train2_launches["fused_decode_jvp"],
+                      launches_eval=resid_launches["fused_decode_jvp"]),
+        variant_entry("fused_decode_jvp_v4pe", "decode_jvp_v4.cu", 1386, pe_launches["fused_decode_jvp_v4pe"]),
+        variant_entry("fused_decode_jvp_v3", "decode_jvp_v2.cu", 459, direct_launches["fused_decode_jvp_v3"]),
+        variant_entry("fused_decode_jvp_v5", "decode_jvp_v4.cu", 1226, direct_launches["fused_decode_jvp_v5"]),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
 // Shared device code of the jvp decode kernels (decode_jvp_v4s.cu,
-// decode_bwd_v4s.cu, decode_jvp_v4.cu, decode_bwd_v4.cu and residual_sums.cu):
+// decode_bwd_v4s.cu, decode_jvp_v4.cu, decode_bwd_v4.cu, decode_jvp_v2.cu and
+// residual_sums.cu):
 // type conversion with the TPU kernels' rounding rule, a block-level matrix
 // product on the CUDA cores, the block's input rows, the forward chain of one
 // variable (primal_stages, tangent_stage), and the backward kernels'
@@ -175,8 +176,10 @@ __device__ __forceinline__ int64_t tangent_at(bool t_layout, int k, int64_t poin
 // Stages 1 and 2:  z = pe . w1 + b1,  p = relu(z) (f32),
 // r = T(p) . w2f1 + cd . wdf1 + rbias, and per point
 // o = sum(relu(r) * fw2) + 2 (sum(p * w2wo) + sum(cd * wdwo)), in every lane of
-// the point's warp.  The caller adds obias and the reference value.
-template <typename T, int TM>
+// the point's warp.  The caller adds obias and the reference value.  r is summed as
+// (T(p) . w2f1 + cd . wdf1) + rbias in one accumulator, or with SPLIT as v5 sums it,
+// T(p) . w2f1 + (cd . wdf1 + rbias), cd . wdf1 in an accumulator of its own.
+template <typename T, int TM, bool SPLIT = false>
 __device__ __forceinline__ void primal_stages(
     const T* pe_s, int lda, int k1, const T* __restrict__ w1, const T* cd_s, int in_ch,
     const float* __restrict__ b1, const T* __restrict__ w2f1, const T* __restrict__ wdf1,
@@ -207,9 +210,15 @@ __device__ __forceinline__ void primal_stages(
   }
 
   // stage 2: r = T(p) . w2f1 + cd . wdf1 + rbias
+  float acc_cd[TM][TN];  // SPLIT only
   zero_tile<TM>(acc);
   block_gemm<T, float, TM>(p_s, HID, w2f1, HID, Ws, acc);
-  block_gemm<T, T, TM>(cd_s, in_ch, wdf1, in_ch, Ws, acc);
+  if constexpr (SPLIT) {
+    zero_tile<TM>(acc_cd);
+    block_gemm<T, T, TM>(cd_s, in_ch, wdf1, in_ch, Ws, acc_cd);
+  } else {
+    block_gemm<T, T, TM>(cd_s, in_ch, wdf1, in_ch, Ws, acc);
+  }
   float s_r[TM], s_c[TM];
 #pragma unroll
   for (int r = 0; r < TM; ++r) { maskr[r] = 0u; s_r[r] = s_c[r] = 0.0f; }
@@ -219,7 +228,7 @@ __device__ __forceinline__ void primal_stages(
     const float rb = rbias[col], f = fw2[col];
 #pragma unroll
     for (int r = 0; r < TM; ++r) {
-      const float rv = acc[r][c] + rb;
+      const float rv = SPLIT ? acc[r][c] + (acc_cd[r][c] + rb) : acc[r][c] + rb;
       if (rv > 0.0f) maskr[r] |= 1u << c;
       s_r[r] = fmaf(fmaxf(rv, 0.0f), f, s_r[r]);
     }

@@ -36,8 +36,22 @@
 // block is masked here (zero rows in, no stores out).  The layout flag changes
 // only the addresses of the ref load and the output stores, so the two layouts
 // give the same bits.
+//
+// Two more TPU kernels are compile-time variants of this one ([N, 6] outputs):
+// * v5, _decode_kernel_v5 (fused_decode_jvp_v5, decode_kernel.py:1117-1247): the same
+//   function with r summed as T(p) . w2f1 + (cd . wdf1 + rbias) (:1149, :1156), so
+//   cd . wdf1 gets an accumulator of its own (primal_stages<SPLIT>).  The TPU kernel
+//   stacks the six variables' layer-1 products by column into one wide product to cut
+//   op dispatch; that changes no sum and is not carried over.
+// * v4pe, _decode_kernel_v4pe (fused_decode_jvp_v4pe, :1249-1407): raw coordinates
+//   [N, 3] and conditioning values [N, 6] in; decode_pe.cuh computes the block's
+//   channel-major pe, cd and tangent rows in the kernel (the wrapper permutes w1, wdf1
+//   and wdwo to that order), so direction k's tangent rows are rows k*ch:(k+1)*ch of
+//   w1 and no w1c is read.  That adds some 37,000 sinf / cosf per block of a variable
+//   to 26 M multiply-adds, and saves the 1,150 bytes a point of prepared inputs.
 
 #include "decode_common.cuh"
+#include "decode_pe.cuh"
 
 namespace {
 
@@ -46,17 +60,18 @@ using namespace dpn;
 constexpr int TM = 8;            // accumulator rows per thread
 constexpr int NB = WARPS * TM;   // points per block
 
-template <typename T>
+enum Variant { kV4 = 0, kV5 = 1, kV4pe = 2 };
+
+template <typename T, int VARIANT>
 __global__ void __launch_bounds__(THREADS, 1)
-decode_jvp_v4_kernel(const T* __restrict__ pe, const T* __restrict__ dpe,
-                     const T* __restrict__ cd, const float* __restrict__ ref,
-                     const T* __restrict__ w1, const T* __restrict__ w1c,
+decode_jvp_v4_kernel(PointInputs in, const T* __restrict__ w1, const T* __restrict__ w1c,
                      const float* __restrict__ b1, const T* __restrict__ w2f1,
                      const T* __restrict__ wdf1, const float* __restrict__ rbias,
                      const float* __restrict__ fw2, const float* __restrict__ w2wo,
                      const float* __restrict__ wdwo, const float* __restrict__ obias,
                      float* __restrict__ primal, float* __restrict__ tang, int64_t n, int in_ch,
                      int n_vars, int t_layout) {
+  constexpr bool PE = VARIANT == kV4pe;
   extern __shared__ __align__(16) unsigned char smem[];
   float* p_s = reinterpret_cast<float*>(smem);   // [NB, HID] f32, stage 1 and 2
   T* t_s = reinterpret_cast<T*>(smem);           // [NB, HID] T, reuses p_s afterwards
@@ -71,20 +86,21 @@ decode_jvp_v4_kernel(const T* __restrict__ pe, const T* __restrict__ dpe,
   const int ch = in_ch / 3;
   const bool tl = t_layout != 0;
 
-  load_rows<T>(pe, cd, pe_s, cd_s, n0, n, NB, in_ch);
+  front_rows<T, PE>(in, pe_s, cd_s, n0, n, NB, in_ch);
 
   uint32_t mask[TM], maskr[TM];  // bit c of row r: z > 0, r > 0
   float o[TM];
   const T* w2f1_v = w2f1 + (size_t)v * HID * HID;
-  primal_stages<T, TM>(pe_s, in_ch, in_ch, w1 + (size_t)v * in_ch * HID, cd_s, in_ch, b1 + v * HID,
-                       w2f1_v, wdf1 + (size_t)v * in_ch * HID, rbias + v * HID, fw2 + v * HID,
-                       w2wo + v * HID, wdwo + v * in_ch, p_s, Ws, mask, maskr, o);
+  primal_stages<T, TM, VARIANT == kV5>(
+      pe_s, in_ch, in_ch, w1 + (size_t)v * in_ch * HID, cd_s, in_ch, b1 + v * HID, w2f1_v,
+      wdf1 + (size_t)v * in_ch * HID, rbias + v * HID, fw2 + v * HID, w2wo + v * HID,
+      wdwo + v * in_ch, p_s, Ws, mask, maskr, o);
 #pragma unroll
   for (int r = 0; r < TM; ++r) {
     const int64_t point = n0 + ty * TM + r;
     if (tx == r && point < n) {
       const int64_t at = primal_at(tl, point, v, n, n_vars);
-      primal[at] = o[r] + obias[v] + ref[at];
+      primal[at] = o[r] + obias[v] + in.ref[at];
     }
   }
 
@@ -92,20 +108,14 @@ decode_jvp_v4_kernel(const T* __restrict__ pe, const T* __restrict__ dpe,
   // read of pe_s (stage 1) lies before the barriers of stage 2's products, and
   // the first barrier of the next product publishes these writes.
   T* d_s = pe_s;
-  {
-    const T zero = from_f32<T>(0.0f);
-    const int per_dir = NB * ch;
-    for (int i = tid; i < 3 * per_dir; i += THREADS) {
-      const int k = i / per_dir, j = i - k * per_dir;
-      const bool live = n0 + j / ch < n;
-      d_s[i] = live ? dpe[((size_t)k * n + n0) * ch + j] : zero;
-    }
-  }
+  front_tangent_rows<T, PE>(in, d_s, n0, n, NB, in_ch);
 
   // tangents, one direction at a time
   for (int k = 0; k < 3; ++k) {
     float to[TM];
-    tangent_stage<T, TM>(d_s + k * NB * ch, ch, ch, w1c + ((size_t)v * 3 + k) * ch * HID, w2f1_v,
+    const T* w1k = PE ? w1 + ((size_t)v * in_ch + k * ch) * HID     // rows k*ch:(k+1)*ch
+                      : w1c + ((size_t)v * 3 + k) * ch * HID;
+    tangent_stage<T, TM>(d_s + k * NB * ch, ch, ch, w1k, w2f1_v,
                          fw2 + v * HID, w2wo + v * HID, t_s, Ws, mask, maskr, to);
 #pragma unroll
     for (int r = 0; r < TM; ++r) {
@@ -120,23 +130,38 @@ template <typename T> size_t shared_bytes(int in_ch) {
          2 * (size_t)NB * in_ch * sizeof(T);
 }
 
-template <typename T>
-int launch(const void* pe, const void* dpe, const void* cd, const float* ref, const void* w1,
-           const void* w1c, const float* b1, const void* w2f1, const void* wdf1,
-           const float* rbias, const float* fw2, const float* w2wo, const float* wdwo,
-           const float* obias, float* primal, float* tang, int64_t n, int in_ch, int n_vars,
-           int t_layout, cudaStream_t stream) {
+template <typename T, int VARIANT>
+int launch(const PointInputs& in, const void* w1, const void* w1c, const float* b1, const void* w2f1,
+           const void* wdf1, const float* rbias, const float* fw2, const float* w2wo,
+           const float* wdwo, const float* obias, float* primal, float* tang, int64_t n, int in_ch,
+           int n_vars, int t_layout, cudaStream_t stream) {
   const size_t smem = shared_bytes<T>(in_ch);
-  cudaError_t err = cudaFuncSetAttribute(decode_jvp_v4_kernel<T>,
+  cudaError_t err = cudaFuncSetAttribute(decode_jvp_v4_kernel<T, VARIANT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((n + NB - 1) / NB), (unsigned)n_vars);
-  decode_jvp_v4_kernel<T><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(pe), static_cast<const T*>(dpe), static_cast<const T*>(cd), ref,
-      static_cast<const T*>(w1), static_cast<const T*>(w1c), b1, static_cast<const T*>(w2f1),
+  decode_jvp_v4_kernel<T, VARIANT><<<grid, THREADS, smem, stream>>>(
+      in, static_cast<const T*>(w1), static_cast<const T*>(w1c), b1, static_cast<const T*>(w2f1),
       static_cast<const T*>(wdf1), rbias, fw2, w2wo, wdwo, obias, primal, tang, n, in_ch, n_vars,
       t_layout);
   return (int)cudaGetLastError();
+}
+
+template <int VARIANT>
+int dispatch(int is_bf16, const PointInputs& in, const void* w1, const void* w1c, const float* b1,
+             const void* w2f1, const void* wdf1, const float* rbias, const float* fw2,
+             const float* w2wo, const float* wdwo, const float* obias, float* primal, float* tang,
+             int64_t n, int in_ch, int n_vars, int t_layout, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return launch<__nv_bfloat16, VARIANT>(in, w1, w1c, b1, w2f1, wdf1, rbias, fw2, w2wo, wdwo,
+                                          obias, primal, tang, n, in_ch, n_vars, t_layout, s);
+  return launch<float, VARIANT>(in, w1, w1c, b1, w2f1, wdf1, rbias, fw2, w2wo, wdwo, obias, primal,
+                                tang, n, in_ch, n_vars, t_layout, s);
+}
+
+PointInputs prepared(const void* pe, const void* dpe, const void* cd, const float* ref) {
+  return PointInputs{pe, dpe, cd, ref, nullptr, nullptr, nullptr, nullptr, nullptr};
 }
 
 }  // namespace
@@ -144,7 +169,7 @@ int launch(const void* pe, const void* dpe, const void* cd, const float* ref, co
 extern "C" {
 
 // Hidden width the kernel was built for; shared memory one block needs at this
-// input width.
+// input width (the same for every variant).
 int dpn_decode_jvp_v4_hid() { return dpn::HID; }
 int dpn_decode_jvp_v4_shared_bytes(int is_bf16, int in_ch) {
   return (int)(is_bf16 ? shared_bytes<__nv_bfloat16>(in_ch) : shared_bytes<float>(in_ch));
@@ -159,12 +184,32 @@ int dpn_decode_jvp_v4(int is_bf16, const void* pe, const void* dpe, const void* 
                       const void* w2f1, const void* wdf1, const float* rbias, const float* fw2,
                       const float* w2wo, const float* wdwo, const float* obias, float* primal,
                       float* tang, int64_t n, int in_ch, int n_vars, int t_layout, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch<__nv_bfloat16>(pe, dpe, cd, ref, w1, w1c, b1, w2f1, wdf1, rbias, fw2, w2wo,
-                                 wdwo, obias, primal, tang, n, in_ch, n_vars, t_layout, s);
-  return launch<float>(pe, dpe, cd, ref, w1, w1c, b1, w2f1, wdf1, rbias, fw2, w2wo, wdwo, obias,
-                       primal, tang, n, in_ch, n_vars, t_layout, s);
+  return dispatch<kV4>(is_bf16, prepared(pe, dpe, cd, ref), w1, w1c, b1, w2f1, wdf1, rbias, fw2,
+                       w2wo, wdwo, obias, primal, tang, n, in_ch, n_vars, t_layout, stream);
+}
+
+// v5: the arguments of dpn_decode_jvp_v4.
+int dpn_decode_jvp_v5(int is_bf16, const void* pe, const void* dpe, const void* cd,
+                      const float* ref, const void* w1, const void* w1c, const float* b1,
+                      const void* w2f1, const void* wdf1, const float* rbias, const float* fw2,
+                      const float* w2wo, const float* wdwo, const float* obias, float* primal,
+                      float* tang, int64_t n, int in_ch, int n_vars, int t_layout, void* stream) {
+  return dispatch<kV5>(is_bf16, prepared(pe, dpe, cd, ref), w1, w1c, b1, w2f1, wdf1, rbias, fw2,
+                       w2wo, wdwo, obias, primal, tang, n, in_ch, n_vars, t_layout, stream);
+}
+
+// v4pe: coords [n, 3] and cdata [n, 6] f32 (cdata is also the reference value),
+// scales [3], fb [in_ch / 6], fb2 [in_ch / 12] f32; w1 [n_vars, in_ch, HID], wdf1 and
+// wdwo with their rows channel-major; n_vars is 6.
+int dpn_decode_jvp_v4pe(int is_bf16, const float* coords, const float* cdata,
+                        const float* scales, const float* fb, const float* fb2, const void* w1,
+                        const float* b1, const void* w2f1, const void* wdf1, const float* rbias,
+                        const float* fw2, const float* w2wo, const float* wdwo,
+                        const float* obias, float* primal, float* tang, int64_t n, int in_ch,
+                        int n_vars, int t_layout, void* stream) {
+  const PointInputs in{nullptr, nullptr, nullptr, cdata, coords, cdata, scales, fb, fb2};
+  return dispatch<kV4pe>(is_bf16, in, w1, nullptr, b1, w2f1, wdf1, rbias, fw2, w2wo, wdwo, obias,
+                         primal, tang, n, in_ch, n_vars, t_layout, stream);
 }
 
 }  // extern "C"

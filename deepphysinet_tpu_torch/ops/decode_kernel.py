@@ -40,7 +40,19 @@ inference path and the flagship training step run:
   of the v4s pair and differs in where the operand lies (``trig [3, N, 2F]``,
   direction-major) and where the results go (``[N, 6]``, ``[3, N, 6]``), so each
   pass shares its CUDA source with v4s (``csrc/decode_jvp_v4s.cu``,
-  ``csrc/decode_bwd_v4s.cu``) under an operand-layout flag.
+  ``csrc/decode_bwd_v4s.cu``) under an operand-layout flag;
+* the four forward-only variants (:166-478, :1117-1407).  v2, the round-1 decode
+  without the collapse (``DecodeWeights``): ``fused_decode_jvp``
+  (``csrc/decode_jvp_v2.cu``; plain version ``decode_jvp_v2_ref``) and
+  ``FusedDecodeJvpV2`` behind ``fused_decode_jvp_trainable``, the kernel forward
+  with the plain version's gradient, since the TPU has no v2 backward kernel
+  either.  v3, the same chain with the PE computed in the kernel from raw
+  coordinates: ``fused_decode_jvp_v3`` (the same source with the front end of
+  ``csrc/decode_pe.cuh``; plain version ``decode_jvp_v3_ref`` over
+  ``pe_front_end``).  v4pe, the v4 chain behind that front end, and v5, the v4
+  function with one sum in another order: ``fused_decode_jvp_v4pe`` and
+  ``fused_decode_jvp_v5``, compile-time variants of ``csrc/decode_jvp_v4.cu``
+  (plain versions ``decode_jvp_v4pe_ref`` and ``decode_jvp_v5_ref``).
 
 Every wrapper picks by device: a CUDA tensor launches the kernel or raises, a
 CPU tensor takes the plain version.  Each wrapper counts its launches in its
@@ -64,7 +76,8 @@ SOURCE_JVP_V4S = "decode_jvp_v4s.cu"
 SOURCE_BWD_V4S = "decode_bwd_v4s.cu"
 SOURCE_JVP_V4 = "decode_jvp_v4.cu"
 SOURCE_BWD_V4 = "decode_bwd_v4.cu"
-SOURCES = (SOURCE, SOURCE_JVP_V4S, SOURCE_BWD_V4S, SOURCE_JVP_V4, SOURCE_BWD_V4)
+SOURCE_JVP_V2 = "decode_jvp_v2.cu"
+SOURCES = (SOURCE, SOURCE_JVP_V4S, SOURCE_BWD_V4S, SOURCE_JVP_V4, SOURCE_BWD_V4, SOURCE_JVP_V2)
 
 
 class DecodeWeights(NamedTuple):
@@ -432,8 +445,11 @@ def _layer1_v6(fw: FusedDecodeWeightsV6, trig) -> _Layer1:
                    fw.w1g.reshape(n_vars, 3 * two_f, hid), (trig[0], trig[1], trig[2]), fw.w1t)
 
 
-def _jvp_ref(l1: _Layer1, fw, cd_pe, ref_t, cdt, round_tangents: bool):
-    """Var-major plain forward shared by v4, v4s and v6: ([V, N], [3, V, N]) float32."""
+def _jvp_ref(l1: _Layer1, fw, cd_pe, ref_t, cdt, round_tangents: bool, split_rbias: bool = False):
+    """Var-major plain forward shared by v4, v4s, v6, v5 and v4pe: ([V, N], [3, V, N]) float32.
+
+    ``split_rbias`` sums ``r`` as v5 does, ``p . w2f1 + (cd . wdf1 + rbias)`` (:1149,
+    :1156), where the others sum ``(p . w2f1 + cd . wdf1) + rbias`` (:548)."""
     z = dot_f32(l1.pe, l1.w1, cdt) + fw.b1[:, None, :]  # [V, N, hid]
     mask = z > 0
     p = torch.relu(z)
@@ -442,7 +458,10 @@ def _jvp_ref(l1: _Layer1, fw, cd_pe, ref_t, cdt, round_tangents: bool):
     if round_tangents:
         t = t.to(cdt).float()
 
-    rp = dot_f32(p, fw.w2f1, cdt) + dot_f32(cd_pe, fw.wdf1, cdt) + fw.rbias[:, None, :]
+    if split_rbias:
+        rp = dot_f32(p, fw.w2f1, cdt) + (dot_f32(cd_pe, fw.wdf1, cdt) + fw.rbias[:, None, :])
+    else:
+        rp = dot_f32(p, fw.w2f1, cdt) + dot_f32(cd_pe, fw.wdf1, cdt) + fw.rbias[:, None, :]
     maskr = rp > 0
     pr = torch.relu(rp)
     tr = torch.where(maskr[None], dot_f32(t, fw.w2f1[None], cdt), 0.0)  # [3, V, N, hid]
@@ -608,31 +627,33 @@ def decode_bwd_v4_ref(fw: FusedDecodeWeights, pe: torch.Tensor, dpe: torch.Tenso
     return FusedDecodeWeights(**g)
 
 
-# Per source: the launch function's name and its number of pointer arguments.  A
-# layout flag follows (n, in_ch, n_vars): the output layout of the v4 pair, v4s
-# against v6 for the v4s sources.
+# Per source: its launch functions, each with its number of pointer arguments.  A
+# flag follows (n, in_ch, n_vars): the output layout of the v4 pair, v4s against
+# v6 for the v4s sources, 0 for the others.  The first name also prefixes the
+# source's ``_hid`` and ``_shared_bytes`` queries.
 _LAUNCHERS = {
-    SOURCE_JVP_V4S: ("dpn_decode_jvp_v4s", 15),
-    SOURCE_BWD_V4S: ("dpn_decode_bwd_v4s", 22),
-    SOURCE_JVP_V4: ("dpn_decode_jvp_v4", 16),
-    SOURCE_BWD_V4: ("dpn_decode_bwd_v4", 23),
+    SOURCE_JVP_V4S: (("dpn_decode_jvp_v4s", 15),),
+    SOURCE_BWD_V4S: (("dpn_decode_bwd_v4s", 22),),
+    SOURCE_JVP_V4: (("dpn_decode_jvp_v4", 16), ("dpn_decode_jvp_v5", 16), ("dpn_decode_jvp_v4pe", 16)),
+    SOURCE_BWD_V4: (("dpn_decode_bwd_v4", 23),),
+    SOURCE_JVP_V2: (("dpn_decode_jvp_v2", 20), ("dpn_decode_jvp_v3", 20)),
 }
 
 
 @functools.cache
 def _jvp_library(source: str) -> ctypes.CDLL:
-    """Build (at first use) and load one of the jvp-pair kernels; declare its C signatures."""
+    """Build (at first use) and load one of the jvp-family kernels; declare its C signatures."""
     from deepphysinet_tpu_torch.ops.cuda_build import load_library
 
     lib = load_library(source)
     vp = ctypes.c_void_p
-    name, n_pointers = _LAUNCHERS[source]
-    launch = getattr(lib, name)
-    launch.argtypes = ([ctypes.c_int] + [vp] * n_pointers
-                       + [ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, vp])
-    launch.restype = ctypes.c_int
+    for name, n_pointers in _LAUNCHERS[source]:
+        launch = getattr(lib, name)
+        launch.argtypes = ([ctypes.c_int] + [vp] * n_pointers
+                           + [ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, vp])
+        launch.restype = ctypes.c_int
     for suffix, argtypes in (("_hid", []), ("_shared_bytes", [ctypes.c_int, ctypes.c_int])):
-        fn = getattr(lib, name + suffix)
+        fn = getattr(lib, _LAUNCHERS[source][0][0] + suffix)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
@@ -646,6 +667,48 @@ _FWD_WEIGHTS = ("b1", "w2f1", "wdf1", "rbias", "fw2", "w2wo", "wdwo", "obias")
 _CONTRACTION_ROWS = 64
 
 
+def _kernel_checks(name: str, source: str, hid: int, in_ch: int, compute_dtype, rows,
+                   weights) -> ctypes.CDLL:
+    """Checks shared by the jvp-family wrappers; returns the kernel's library.
+
+    ``rows`` are (name, tensor, shape, dtype or None for the compute dtype) of the
+    per-point inputs, the first of which names the device; ``weights`` are the
+    weights as the kernel reads them."""
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name}: compute dtype {compute_dtype} not supported")
+    lib = _jvp_library(source)
+    prefix = _LAUNCHERS[source][0][0]
+    built_hid = getattr(lib, prefix + "_hid")()
+    if hid != built_hid or in_ch % (3 * _CONTRACTION_ROWS):
+        raise ValueError(f"{name}: kernel built for hidden {built_hid} and three tangent operands "
+                         f"of a multiple of {_CONTRACTION_ROWS} lanes; got hidden {hid}, in_ch {in_ch}")
+    smem = getattr(lib, prefix + "_shared_bytes")(int(compute_dtype == torch.bfloat16), in_ch)
+    if smem > _MAX_SHARED_BYTES:
+        raise ValueError(f"{name}: in_ch {in_ch} needs {smem} bytes of shared memory")
+    for nm, t, shape, dtype in rows:
+        dtype = dtype or compute_dtype
+        if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
+            raise ValueError(f"{name}: {nm} is {tuple(t.shape)} {t.dtype}, expected {tuple(shape)} {dtype}")
+    device = rows[0][1].device
+    for t in [r[1] for r in rows] + list(weights):
+        if t.device != device:
+            raise ValueError(f"{name}: tensors on {t.device} and {device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: inputs must be contiguous and 16-byte aligned")
+    return lib
+
+
+def _fused_weights(fw, matrices: dict, cd) -> dict:
+    """The fused weights as the forward kernels read them, by name: ``matrices`` (the layer-1
+    weights, already in the kernel's shape) then ``_FWD_WEIGHTS``."""
+    f32 = torch.float32
+    weights = {k: w.to(cd) for k, w in matrices.items()}
+    weights.update(
+        b1=fw.b1.to(f32), w2f1=fw.w2f1.to(cd), wdf1=fw.wdf1.to(cd), rbias=fw.rbias.to(f32),
+        fw2=fw.fw2.to(f32), w2wo=fw.w2wo.to(f32), wdwo=fw.wdwo.to(f32), obias=fw.obias.to(f32))
+    return {k: w.detach().contiguous() for k, w in weights.items()}
+
+
 def _jvp_kernel_inputs(name: str, source: str, fw, matrices: dict, pe: torch.Tensor,
                        cd_pe: torch.Tensor, compute_dtype, point_rows,
                        pe_shape=None) -> Tuple[ctypes.CDLL, dict]:
@@ -656,36 +719,10 @@ def _jvp_kernel_inputs(name: str, source: str, fw, matrices: dict, pe: torch.Ten
     (name, tensor, shape, dtype or None for the compute dtype) of the per-point
     inputs besides ``pe`` and ``cd_pe``; ``pe_shape`` is the shape of the primal
     operand where it is not ``cd_pe``'s [N, in_ch] (the v6 trig blocks)."""
-    if compute_dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"{name}: compute dtype {compute_dtype} not supported")
-    lib = _jvp_library(source)
-    lib_name = _LAUNCHERS[source][0]
-    n_vars, hid = fw.b1.shape
     n, in_ch = cd_pe.shape
-    built_hid = getattr(lib, lib_name + "_hid")()
-    if hid != built_hid or in_ch % (3 * _CONTRACTION_ROWS):
-        raise ValueError(f"{name}: kernel built for hidden {built_hid} and three tangent operands "
-                         f"of a multiple of {_CONTRACTION_ROWS} lanes; got hidden {hid}, in_ch {in_ch}")
-    smem = getattr(lib, lib_name + "_shared_bytes")(int(compute_dtype == torch.bfloat16), in_ch)
-    if smem > _MAX_SHARED_BYTES:
-        raise ValueError(f"{name}: in_ch {in_ch} needs {smem} bytes of shared memory")
+    weights = _fused_weights(fw, matrices, compute_dtype)
     rows = [("pe", pe, pe_shape or (n, in_ch), None), ("cd_pe", cd_pe, (n, in_ch), None)] + list(point_rows)
-    for nm, t, shape, dtype in rows:
-        dtype = dtype or compute_dtype
-        if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
-            raise ValueError(f"{name}: {nm} is {tuple(t.shape)} {t.dtype}, expected {tuple(shape)} {dtype}")
-    cd, f32 = compute_dtype, torch.float32
-    weights = {k: w.to(cd) for k, w in matrices.items()}
-    weights.update(
-        b1=fw.b1.to(f32), w2f1=fw.w2f1.to(cd), wdf1=fw.wdf1.to(cd), rbias=fw.rbias.to(f32),
-        fw2=fw.fw2.to(f32), w2wo=fw.w2wo.to(f32), wdwo=fw.wdwo.to(f32), obias=fw.obias.to(f32))
-    weights = {k: w.detach().contiguous() for k, w in weights.items()}
-    for t in [r[1] for r in rows] + list(weights.values()):
-        if t.device != pe.device:
-            raise ValueError(f"{name}: tensors on {t.device} and {pe.device}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name}: inputs must be contiguous and 16-byte aligned")
-    return lib, weights
+    return _kernel_checks(name, source, fw.b1.shape[1], in_ch, compute_dtype, rows, weights.values()), weights
 
 
 def _launch(name: str, wrapper, fn, compute_dtype, tensors, ints, device) -> None:
@@ -830,9 +867,14 @@ def _point_shapes(n: int, n_vars: int, t_layout: bool):
     return ((n_vars, n), (3, n_vars, n)) if t_layout else ((n, n_vars), (3, n, n_vars))
 
 
-def _jvp_v4(wrapper, fw: FusedDecodeWeights, pe, dpe, cd_pe, ref, compute_dtype, t_layout: bool):
+def _jvp_v4(wrapper, fw: FusedDecodeWeights, pe, dpe, cd_pe, ref, compute_dtype, t_layout: bool,
+            launcher: str = "dpn_decode_jvp_v4", plain=None):
+    """A forward of the v4 family on the v4 inputs: ``plain`` (default
+    ``decode_jvp_v4_ref`` in the given layout) on CPU tensors, ``launcher`` on CUDA ones."""
     name = wrapper.__name__
     if pe.device.type == "cpu":
+        if plain is not None:
+            return plain(fw, pe, dpe, cd_pe, ref, compute_dtype)
         return decode_jvp_v4_ref(fw, pe, dpe, cd_pe, ref, compute_dtype, t_layout=t_layout)
     if pe.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {pe.device}")
@@ -845,7 +887,7 @@ def _jvp_v4(wrapper, fw: FusedDecodeWeights, pe, dpe, cd_pe, ref, compute_dtype,
     tang = torch.empty(t_shape, dtype=torch.float32, device=pe.device)
     if n == 0:
         return primal, tang
-    _launch(name, wrapper, lib.dpn_decode_jvp_v4, compute_dtype,
+    _launch(name, wrapper, getattr(lib, launcher), compute_dtype,
             [pe, dpe, cd_pe, ref, w["w1"], w["w1c"]] + [w[k] for k in _FWD_WEIGHTS] + [primal, tang],
             (n, in_ch, n_vars, int(t_layout)), pe.device)
     return primal, tang
@@ -1098,3 +1140,327 @@ def fused_decode_jvp_v6_kbwd(fw: FusedDecodeWeightsV6, trig: torch.Tensor, cd_pe
                              compute_dtype=torch.bfloat16) -> Tuple[torch.Tensor, torch.Tensor]:
     """``FusedDecodeJvpV6`` with the argument order of the JAX function."""
     return FusedDecodeJvpV6.apply(trig, cd_pe, ref, compute_dtype, *fw)
+
+
+# ---------------------------------------------------------------------------
+# v2 / v3: the round-1 decode without the collapse (DecodeWeights), forward only.
+# v2 reads the interleaved PE and the compact tangent input dpe; v3 computes the
+# channel-major PE inside the kernel from raw coordinates.  One CUDA source,
+# csrc/decode_jvp_v2.cu, serves both.
+# ---------------------------------------------------------------------------
+
+
+def _v2_chain_ref(l1: _Layer1, w: DecodeWeights, cd_pe, wd, ref_t, cdt, round_wo: bool):
+    """Var-major plain forward of the uncollapsed decode: ([V, N], [3, V, N]) float32.
+
+    Line for line ``_decode_kernel`` (:166-236): every product's two operands are
+    rounded to the compute dtype, ``c``, the tangents and the masked products stay
+    float32 between products, and ``wo`` is rounded to the compute dtype with
+    ``round_wo`` (the kernel's, :264) or read in float32 without it (the XLA twin
+    ``decode_jvp_xla``'s, :1786-1824).  Differentiable."""
+    z = dot_f32(l1.pe, l1.w1, cdt) + w.b1[:, None, :]  # [V, N, hid]
+    mask = z > 0
+    t = torch.stack([torch.where(mask, dot_f32(l1.tin[k], l1.w1k[:, k], cdt), 0.0)
+                     for k in range(3)], dim=0)  # [3, V, N, hid]
+    p2 = dot_f32(torch.relu(z), w.w2, cdt) + w.b2[:, None, :]
+    t2 = dot_f32(t, w.w2[None], cdt)
+    c = p2 + (dot_f32(cd_pe, wd, cdt) + w.bd[:, None, :]) + w.fh_add[:, None, :]
+    r = dot_f32(c, w.f1, cdt) + w.g1[:, None, :]
+    tr = torch.where((r > 0)[None], dot_f32(t2, w.f1[None], cdt), 0.0)
+    y = dot_f32(torch.relu(r), w.f2, cdt) + w.g2[:, None, :] + 2.0 * c  # the trunk's skip
+    ty = dot_f32(tr, w.f2[None], cdt) + 2.0 * t2
+    wo = (w.wo.to(cdt) if round_wo else w.wo).float()
+    o = (y * wo[:, None, :]).sum(-1) + w.bo[:, None] + ref_t  # [V, N]
+    to = (ty * wo[None, :, None, :]).sum(-1)  # [3, V, N]
+    return o, to
+
+
+def decode_jvp_v2_ref(weights: DecodeWeights, pe: torch.Tensor, dpe: torch.Tensor,
+                      cd_pe: torch.Tensor, ref: torch.Tensor, compute_dtype=torch.bfloat16,
+                      round_wo: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the v2 kernel: ``([N, 6], [3, N, 6])`` float32.
+
+    ``pe`` / ``cd_pe`` [N, in_ch], ``dpe`` [3, N, in_ch//3] (``pe_and_tangents``),
+    ``ref`` [N, 6].  The tangent rows of layer 1 are ``slice_tangent_weights``.
+    ``round_wo=True`` has the kernel's rounding, ``round_wo=False`` the XLA twin's
+    (ROADMAP C19); the two agree exactly when the compute dtype is float32."""
+    l1 = _Layer1(pe, weights.w1, (dpe[0], dpe[1], dpe[2]), slice_tangent_weights(weights.w1))
+    o, to = _v2_chain_ref(l1, weights, cd_pe, weights.wd, ref.t(), compute_dtype, round_wo)
+    return o.t(), to.transpose(1, 2)
+
+
+_V2_MATRICES = ("w1", "w2", "wd", "f1", "f2", "wo")
+
+
+def _v2_weights(w: DecodeWeights, cd, **tangent_rows) -> dict:
+    """The decode weights as the v2 kernels read them, in launch order: ``w1``, the
+    ``tangent_rows`` (v2's ``w1c``; none for v3), then the other fields.  The matrices and the
+    head ``wo`` are in the compute dtype (the TPU wrappers cast ``wo`` too, :264, :447), the
+    biases float32."""
+    out = {"w1": w.w1.to(cd), **{k: t.to(cd) for k, t in tangent_rows.items()}}
+    out.update({k: t.to(cd) if k in _V2_MATRICES else t.float() for k, t in zip(w._fields[1:], w[1:])})
+    return {k: t.detach().contiguous() for k, t in out.items()}
+
+
+def fused_decode_jvp(weights: DecodeWeights, pe: torch.Tensor, dpe: torch.Tensor,
+                     cd_pe: torch.Tensor, ref: torch.Tensor,
+                     compute_dtype=torch.bfloat16) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Primal [N, 6] and tangents [3, N, 6] (float32) of the v2 decode: the CUDA kernel on GPU
+    tensors (``csrc/decode_jvp_v2.cu``).
+
+    ``pe`` / ``cd_pe`` [N, in_ch] and ``dpe`` [3, N, in_ch//3] in ``compute_dtype``,
+    ``ref`` [N, 6] float32.  CPU tensors take ``decode_jvp_v2_ref``; a CUDA tensor
+    launches the kernel or raises.  The result carries no autograd graph: training
+    goes through ``FusedDecodeJvpV2``.  ``fused_decode_jvp.launches`` counts kernel
+    launches."""
+    name = "fused_decode_jvp"
+    if pe.device.type == "cpu":
+        return decode_jvp_v2_ref(weights, pe, dpe, cd_pe, ref, compute_dtype)
+    if pe.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {pe.device}")
+    n_vars, in_ch, hid = weights.w1.shape
+    n = pe.shape[0]
+    w = _v2_weights(weights, compute_dtype, w1c=slice_tangent_weights(weights.w1))
+    lib = _kernel_checks(name, SOURCE_JVP_V2, hid, in_ch, compute_dtype,
+                         [("pe", pe, (n, in_ch), None), ("dpe", dpe, (3, n, in_ch // 3), None),
+                          ("cd_pe", cd_pe, (n, in_ch), None), ("ref", ref, (n, n_vars), torch.float32)],
+                         w.values())
+    primal = torch.empty((n, n_vars), dtype=torch.float32, device=pe.device)
+    tang = torch.empty((3, n, n_vars), dtype=torch.float32, device=pe.device)
+    if n == 0:
+        return primal, tang
+    _launch(name, fused_decode_jvp, lib.dpn_decode_jvp_v2, compute_dtype,
+            [pe, dpe, cd_pe, ref, *w.values(), primal, tang], (n, in_ch, n_vars, 0), pe.device)
+    return primal, tang
+
+
+fused_decode_jvp.launches = 0
+
+
+class FusedDecodeJvpV2(torch.autograd.Function):
+    """The v2 decode with the kernel on the forward pass: ``fused_decode_jvp_trainable``
+    (:1827-1862).
+
+    ``FusedDecodeJvpV2.apply(pe, dpe, cd_pe, ref, compute_dtype, *weights)`` with
+    ``weights`` a ``DecodeWeights`` returns ``(primal [N, 6], tang [3, N, 6])``.  The TPU
+    has no backward kernel for v2, and neither has the port: the backward recomputes the
+    plain version with the XLA twin's rounding (``round_wo=False``) under autograd and
+    returns its vector-Jacobian product for every input, as JAX's custom VJP does.  Saved
+    for backward: the inputs; no activations.  First derivatives only."""
+
+    @staticmethod
+    def forward(ctx, pe, dpe, cd_pe, ref, compute_dtype, *weights):
+        ctx.compute_dtype = compute_dtype
+        ctx.save_for_backward(pe, dpe, cd_pe, ref, *weights)
+        return fused_decode_jvp(DecodeWeights(*weights), pe, dpe, cd_pe, ref, compute_dtype)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_primal, g_tang):
+        needs = ctx.needs_input_grad[:4] + ctx.needs_input_grad[5:]
+        inputs = [x.detach().requires_grad_(need) for x, need in zip(ctx.saved_tensors, needs)]
+        wanted = [x for x in inputs if x.requires_grad]
+        with torch.enable_grad():
+            pe, dpe, cd_pe, ref, *weights = inputs
+            outs = decode_jvp_v2_ref(DecodeWeights(*weights), pe, dpe, cd_pe, ref, ctx.compute_dtype,
+                                     round_wo=False)
+            grads = iter(torch.autograd.grad(outs, wanted, (g_primal, g_tang), allow_unused=True))
+        out = [next(grads) if x.requires_grad else None for x in inputs]
+        return (*out[:4], None, *out[4:])
+
+
+def fused_decode_jvp_trainable(weights: DecodeWeights, pe: torch.Tensor, dpe: torch.Tensor,
+                               cd_pe: torch.Tensor, ref: torch.Tensor,
+                               compute_dtype=torch.bfloat16) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``FusedDecodeJvpV2`` with the argument order of the JAX function."""
+    return FusedDecodeJvpV2.apply(pe, dpe, cd_pe, ref, compute_dtype, *weights)
+
+
+# ---- the in-kernel PE front end of v3 and v4pe ----------------------------------------
+
+
+def _check_pe_front_end(name: str, n_vars: int, in_ch: int, coord_spec) -> None:
+    """The front end builds 3 coordinate blocks of 2F lanes and, from the 6 conditioning values
+    (also the 6 variables' reference values), 6 blocks of 2F / 2 lanes: in_ch must be
+    6 * ``coord_spec.n_freqs`` (JAX's v4pe check, :1337-1340) and the variables 6."""
+    n_freqs = in_ch // 6
+    if in_ch % 12 or n_freqs != coord_spec.n_freqs:
+        raise ValueError(f"{name}: decode in_channels {in_ch} implies {n_freqs} coordinate frequencies "
+                         f"but coord_spec.n_freqs={coord_spec.n_freqs}")
+    if n_vars != 6:
+        raise ValueError(f"{name}: the 6 conditioning values are the variables' reference values; "
+                         f"got {n_vars} variables")
+
+
+def _perm(in_ch: int, n_channels: int, device) -> torch.Tensor:
+    return torch.as_tensor(channel_major_perm(in_ch, n_channels), device=device)
+
+
+def pe_front_end(coords: torch.Tensor, coord_data: torch.Tensor, coord_spec,
+                 in_ch: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the in-kernel PE of v3 and v4pe (``_decode_kernel_v3``, :339-360;
+    ``_decode_kernel_v4pe``, :1264-1284), float32:
+    ``(pe_cm [N, in_ch], tangents [3, N, in_ch/3], cd_cm [N, in_ch])``.
+
+    Block c of ``pe_cm`` is ``[sin(fb cn_c) | cos(fb cn_c)]`` with ``cn = coords * scales``;
+    direction k's tangent is ``[(cos(fb cn_k) fb) s_k | (-sin(fb cn_k) fb) s_k]`` with ``s_k``
+    the k-th scale; block c of ``cd_cm`` is ``[sin(fb2 x_c) | cos(fb2 x_c)]`` of conditioning
+    value c with ``fb2 = make_freq_bands(in_ch / 12, 4.0)``.  These are ``pe_and_tangents``
+    and the cd PE with their features in channel-major order (``channel_major_perm``): the
+    same angles, rounded the same way."""
+    pe, dpe = pe_and_tangents(coords, coord_spec)
+    cd = sinecos_pe(coord_data, make_freq_bands(in_ch // 12, max_freq=4.0))
+    dev = coords.device
+    return (pe[:, _perm(in_ch, 3, dev)], dpe[:, :, _perm(in_ch // 3, 1, dev)],
+            cd[:, _perm(in_ch, 6, dev)])
+
+
+def _pe_point_rows(coords: torch.Tensor, coord_data: torch.Tensor, coord_spec, in_ch: int):
+    """The in-kernel PE's inputs, as (name, tensor, shape, dtype) rows in launch order: raw
+    coordinates [N, 3], conditioning values [N, 6] (also the reference values), the scales
+    [3] and the two sets of frequency bands, all float32 on the coordinates' device."""
+    f32, dev, n = torch.float32, coords.device, coords.shape[0]
+    fb = torch.as_tensor(coord_spec.freq_bands(), dtype=f32, device=dev)
+    fb2 = torch.as_tensor(make_freq_bands(in_ch // 12, max_freq=4.0), dtype=f32, device=dev)
+    return [("coords", coords.float().contiguous(), (n, 3), f32),
+            ("coord_data", coord_data.float().contiguous(), (n, 6), f32),
+            ("scales", coord_scales(coord_spec, dev), (3,), f32),
+            ("fb", fb, (in_ch // 6,), f32), ("fb2", fb2, (in_ch // 12,), f32)]
+
+
+def decode_jvp_v3_ref(weights: DecodeWeights, coords: torch.Tensor, coord_data: torch.Tensor,
+                      coord_spec, compute_dtype=torch.bfloat16) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the v3 kernel (``_decode_kernel_v3``, :315-400):
+    ``([N, 6], [3, N, 6])`` float32.
+
+    The v2 chain (with the kernel's rounding of ``wo``) behind ``pe_front_end``: ``w1`` and
+    ``wd`` channel-major, direction k's tangent rows the contiguous rows ``k*2F:(k+1)*2F``
+    of ``w1``, the conditioning values ``coord_data`` [N, 6] also the reference values."""
+    n_vars, in_ch, hid = weights.w1.shape
+    _check_pe_front_end("fused_decode_jvp_v3", n_vars, in_ch, coord_spec)
+    pe_cm, t_cm, cd_cm = pe_front_end(coords, coord_data, coord_spec, in_ch)
+    w1 = weights.w1[:, _perm(in_ch, 3, coords.device)]
+    l1 = _Layer1(pe_cm, w1, (t_cm[0], t_cm[1], t_cm[2]), w1.reshape(n_vars, 3, in_ch // 3, hid))
+    o, to = _v2_chain_ref(l1, weights, cd_cm, weights.wd[:, _perm(in_ch, 6, coords.device)],
+                          coord_data.float().t(), compute_dtype, round_wo=True)
+    return o.t(), to.transpose(1, 2)
+
+
+def fused_decode_jvp_v3(weights: DecodeWeights, coords: torch.Tensor, coord_data: torch.Tensor,
+                        coord_spec, compute_dtype=torch.bfloat16) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Primal [N, 6] and tangents [3, N, 6] (float32) of the v2 decode with the PE computed in
+    the kernel: raw coordinates [N, 3] (physical x, y, t) and conditioning values [N, 6] in.
+    The CUDA kernel on GPU tensors (``csrc/decode_jvp_v2.cu`` with the PE front end of
+    ``csrc/decode_pe.cuh``); CPU tensors take ``decode_jvp_v3_ref``.
+    ``fused_decode_jvp_v3.launches`` counts kernel launches."""
+    name = "fused_decode_jvp_v3"
+    n_vars, in_ch, hid = weights.w1.shape
+    _check_pe_front_end(name, n_vars, in_ch, coord_spec)
+    if coords.device.type == "cpu":
+        return decode_jvp_v3_ref(weights, coords, coord_data, coord_spec, compute_dtype)
+    if coords.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {coords.device}")
+    dev, n = coords.device, coords.shape[0]
+    w = _v2_weights(weights._replace(w1=weights.w1[:, _perm(in_ch, 3, dev)],
+                                     wd=weights.wd[:, _perm(in_ch, 6, dev)]), compute_dtype)
+    rows = _pe_point_rows(coords, coord_data, coord_spec, in_ch)
+    lib = _kernel_checks(name, SOURCE_JVP_V2, hid, in_ch, compute_dtype, rows, w.values())
+    primal = torch.empty((n, n_vars), dtype=torch.float32, device=dev)
+    tang = torch.empty((3, n, n_vars), dtype=torch.float32, device=dev)
+    if n == 0:
+        return primal, tang
+    _launch(name, fused_decode_jvp_v3, lib.dpn_decode_jvp_v3, compute_dtype,
+            [r[1] for r in rows] + [*w.values(), primal, tang], (n, in_ch, n_vars, 0), dev)
+    return primal, tang
+
+
+fused_decode_jvp_v3.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# v4pe / v5: the collapsed v4 algebra with the PE computed in the kernel (v4pe,
+# the in_kernel_pe route of fused_kernel_fields) and with r summed in another
+# order (v5).  Both are compile-time variants of csrc/decode_jvp_v4.cu.
+# ---------------------------------------------------------------------------
+
+
+def _channel_major(fw: FusedDecodeWeights) -> FusedDecodeWeights:
+    """``w1``, ``wdf1`` and ``wdwo`` with their input rows in the front end's channel-major
+    order (the v4pe wrapper's gathers, :1348-1353)."""
+    in_ch, dev = fw.w1.shape[1], fw.w1.device
+    perm, perm_cd = _perm(in_ch, 3, dev), _perm(in_ch, 6, dev)
+    return fw._replace(w1=fw.w1[:, perm], wdf1=fw.wdf1[:, perm_cd], wdwo=fw.wdwo[:, perm_cd])
+
+
+def decode_jvp_v4pe_ref(fw: FusedDecodeWeights, coords: torch.Tensor, coord_data: torch.Tensor,
+                        coord_spec, compute_dtype=torch.bfloat16) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the v4pe kernel (``_decode_kernel_v4pe``, :1249-1291):
+    ``([N, 6], [3, N, 6])`` float32.
+
+    ``pe_front_end`` with its three outputs rounded to the compute dtype (``P_in``, the
+    tangent blocks and ``CD``, :1270, :1276, :1280), then the v4 chain with the kernel's
+    rounding on the channel-major weights; ``coord_data`` is the reference value."""
+    n_vars, in_ch, hid = fw.w1.shape
+    _check_pe_front_end("fused_decode_jvp_v4pe", n_vars, in_ch, coord_spec)
+    cdt = compute_dtype
+    pe_cm, t_cm, cd_cm = (x.to(cdt) for x in pe_front_end(coords, coord_data, coord_spec, in_ch))
+    fw = _channel_major(fw)
+    l1 = _Layer1(pe_cm, fw.w1, (t_cm[0], t_cm[1], t_cm[2]), fw.w1.reshape(n_vars, 3, in_ch // 3, hid))
+    o, to = _jvp_ref(l1, fw, cd_cm, coord_data.float().t(), cdt, round_tangents=True)
+    return o.t(), to.transpose(1, 2)
+
+
+def fused_decode_jvp_v4pe(fw: FusedDecodeWeights, coords: torch.Tensor, coord_data: torch.Tensor,
+                          coord_spec, compute_dtype=torch.bfloat16) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Primal [N, 6] and tangents [3, N, 6] (float32) of the v4 decode with the PE computed in
+    the kernel: raw coordinates [N, 3] and conditioning values [N, 6] in.  The CUDA kernel on
+    GPU tensors (``csrc/decode_jvp_v4.cu``, in-kernel PE variant); CPU tensors take
+    ``decode_jvp_v4pe_ref``.  Forward only.  ``fused_decode_jvp_v4pe.launches`` counts
+    kernel launches."""
+    name = "fused_decode_jvp_v4pe"
+    n_vars, in_ch, hid = fw.w1.shape
+    _check_pe_front_end(name, n_vars, in_ch, coord_spec)
+    if coords.device.type == "cpu":
+        return decode_jvp_v4pe_ref(fw, coords, coord_data, coord_spec, compute_dtype)
+    if coords.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {coords.device}")
+    dev, n = coords.device, coords.shape[0]
+    fw = _channel_major(fw)
+    w = _fused_weights(fw, dict(w1=fw.w1), compute_dtype)
+    rows = _pe_point_rows(coords, coord_data, coord_spec, in_ch)
+    lib = _kernel_checks(name, SOURCE_JVP_V4, hid, in_ch, compute_dtype, rows, w.values())
+    primal = torch.empty((n, n_vars), dtype=torch.float32, device=dev)
+    tang = torch.empty((3, n, n_vars), dtype=torch.float32, device=dev)
+    if n == 0:
+        return primal, tang
+    _launch(name, fused_decode_jvp_v4pe, lib.dpn_decode_jvp_v4pe, compute_dtype,
+            [r[1] for r in rows] + [*w.values(), primal, tang], (n, in_ch, n_vars, 0), dev)
+    return primal, tang
+
+
+fused_decode_jvp_v4pe.launches = 0
+
+
+def decode_jvp_v5_ref(fw: FusedDecodeWeights, pe: torch.Tensor, dpe: torch.Tensor,
+                      cd_pe: torch.Tensor, ref: torch.Tensor,
+                      compute_dtype=torch.bfloat16) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the v5 kernel (``_decode_kernel_v5``, :1117-1172):
+    ``([N, 6], [3, N, 6])`` float32 from the v4 inputs.  The v4 function with the kernel's
+    rounding, ``r`` summed as ``p . w2f1 + (cd . wdf1 + rbias)``.  The TPU kernel stacks the
+    six variables' layer-1 weights by column into one wide product, which changes no sum."""
+    o, to = _jvp_ref(_layer1_v4(fw, pe, dpe), fw, cd_pe, ref.t(), compute_dtype, True, split_rbias=True)
+    return o.t(), to.transpose(1, 2)
+
+
+def fused_decode_jvp_v5(fw: FusedDecodeWeights, pe: torch.Tensor, dpe: torch.Tensor,
+                        cd_pe: torch.Tensor, ref: torch.Tensor,
+                        compute_dtype=torch.bfloat16) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Primal [N, 6] and tangents [3, N, 6] (float32) of v5: the CUDA kernel on GPU tensors
+    (``csrc/decode_jvp_v4.cu``, the variant that keeps ``cd . wdf1 + rbias`` in an accumulator
+    of its own).  Inputs as ``fused_decode_jvp_v4``; CPU tensors take ``decode_jvp_v5_ref``.
+    ``fused_decode_jvp_v5.launches`` counts kernel launches."""
+    return _jvp_v4(fused_decode_jvp_v5, fw, pe, dpe, cd_pe, ref, compute_dtype, False,
+                   launcher="dpn_decode_jvp_v5", plain=decode_jvp_v5_ref)
+
+
+fused_decode_jvp_v5.launches = 0

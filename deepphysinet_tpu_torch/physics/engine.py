@@ -18,14 +18,18 @@ Counterpart of ``deepphysinet_tpu/physics/engine.py``:
   the v4t pair (``version=4``) or the v4s pair (``version=7``), each with a
   hand-written kernel on both passes (engine ``'kernel'``) or as its plain
   version under autograd (engine ``'jvp'``);
-* ``fused_kernel_fields`` (:380-487) and ``jvp_fields`` (:490-548) for versions
-  4, 6 and 7: the ``[N, 6]`` forms; version 6 runs the v6 pair on the
-  direction-major trig blocks.  Version 2 and ``in_kernel_pe`` wait for their
-  kernels (ROADMAP B8);
-* ``fused_residual_losses`` (:626-696) for versions 4, 6 and 7: the forward-only
-  residual losses of the evaluation sweeps.  Version 6 takes the in-kernel
-  residual assembly (``ops/residual_kernel.py``) from ``FUSED_ASSEMBLY_MIN_N``
-  points on and the split path (v6 forward kernel, dict-form assembly) below;
+* ``fused_kernel_fields`` (:380-487) and ``jvp_fields`` (:490-548): the ``[N, 6]``
+  forms, with JAX's routes.  ``fused_kernel_fields``: version 7 means 4; 6 runs the
+  v6 pair on the direction-major trig blocks; 4 the v4 pair, or with
+  ``in_kernel_pe`` and not ``trainable`` the v4pe kernel on raw coordinates; any
+  other version (2, and 3 and 5 as in JAX: ROADMAP C20) the round-1 v2 decode,
+  ``FusedDecodeJvpV2`` when ``trainable``.  ``jvp_fields``: 6 the v6 twin, any other
+  version the v4 twin;
+* ``fused_residual_losses`` (:626-696): the forward-only residual losses of the
+  evaluation sweeps.  Versions 4 and 7 run a var-major split path; any other takes
+  the in-kernel residual assembly (``ops/residual_kernel.py``: the v6 layer 1 for 6,
+  the v4 one otherwise) from ``FUSED_ASSEMBLY_MIN_N`` points on and the split path
+  (``fused_kernel_fields``, dict-form assembly) below;
 * the packed residual assembly: ``packed_physical_from_primal_tangents`` (:147)
   and its var-major form (:167), ``saturation_specific_humidity_packed``
   (:270), ``residual_losses_packed`` (:211, with ``detach()`` exactly where
@@ -47,10 +51,11 @@ import torch
 
 from deepphysinet_tpu_torch.ops.decode_kernel import (
     decode_jvp_v4_ref, decode_jvp_v4s_ref, decode_jvp_v6_ref, decode_primal_v4t,
-    extract_decode_weights, fuse_decode_weights, fuse_v6_from_v4, fused_decode_jvp_v4,
-    fused_decode_jvp_v4_kbwd, fused_decode_jvp_v4s, fused_decode_jvp_v4s_kbwd, fused_decode_jvp_v4t,
-    fused_decode_jvp_v4t_kbwd, fused_decode_jvp_v6, fused_decode_jvp_v6_kbwd, pe_and_tangents,
-    pe_primal, trig3_inputs, trig_cm_inputs)
+    extract_decode_weights, fuse_decode_weights, fuse_v6_from_v4, fused_decode_jvp,
+    fused_decode_jvp_trainable, fused_decode_jvp_v4, fused_decode_jvp_v4_kbwd, fused_decode_jvp_v4pe,
+    fused_decode_jvp_v4s, fused_decode_jvp_v4s_kbwd, fused_decode_jvp_v4t, fused_decode_jvp_v4t_kbwd,
+    fused_decode_jvp_v6, fused_decode_jvp_v6_kbwd, pe_and_tangents, pe_primal, trig3_inputs,
+    trig_cm_inputs)
 from deepphysinet_tpu_torch.ops.normalization import inverse_normalize
 from deepphysinet_tpu_torch.ops.position_encoding import make_freq_bands, sinecos_pe, sinecos_pe_flat
 from deepphysinet_tpu_torch.ops.residual_kernel import kernel_residual_losses
@@ -212,13 +217,6 @@ def _check_engine(engine: str) -> None:
         raise ValueError(f"unknown engine {engine!r}; expected 'kernel' or 'jvp'")
 
 
-def _check_version(version: int, what: str, supported=(4, 6, 7)) -> None:
-    if version not in supported:
-        raise NotImplementedError(
-            f"{what}: decode-kernel version {version} is not ported yet (ROADMAP B8: the v2, v3, "
-            f"v5 and v4pe kernels); use one of {supported}")
-
-
 def fused_kernel_fields_t(
     model,
     tokens: torch.Tensor,  # [T, D]
@@ -241,7 +239,9 @@ def fused_kernel_fields_t(
     kernel on both passes on a GPU); ``engine='jvp'`` its plain version under
     autograd."""
     _check_engine(engine)
-    _check_version(version, "fused_kernel_fields_t", supported=(4, 7))  # v6 has no var-major form
+    if version not in (4, 7):  # the JAX step takes the var-major path under 4 and 7 only
+        raise ValueError(f"fused_kernel_fields_t: decode-kernel version {version} has no var-major "
+                         "form; use 4 or 7, or fused_kernel_fields")
     coord_data = coord_data.detach()
     ref_t = coord_data.float().t().contiguous()
     cdt = model.compute_dtype
@@ -303,35 +303,47 @@ def fused_kernel_fields(
     in_kernel_pe: bool = False,
     raw_tangents: bool = False,
 ):
-    """``(primal_norm [N, 6], FieldDerivatives)`` via the v4 or the v6 decode kernel.
+    """``(primal_norm [N, 6], FieldDerivatives)`` via a decode kernel.
 
     With ``raw_tangents`` the normalized ``tang [3, N, 6]`` is returned instead
     of the assembled ``FieldDerivatives`` (for the packed assembly).  The
     normalized primal comes back beside the fields so that the training step
-    can use it as the data-loss prediction.  ``trainable`` goes through
-    ``FusedDecodeJvpV4`` (a kernel on both passes on a GPU), so the result can
-    sit inside a differentiated loss; otherwise the forward kernel alone runs
-    and the result carries no graph on a GPU.  ``version=6`` runs the v6 pair
-    (``FusedDecodeJvpV6`` when ``trainable``): the PE derivative folded into the
-    per-window weights, the trig blocks the only per-point prep.  ``version=7``
-    means the v4 algebra here, as in ``jvp_fields``: v4s is a var-major variant
-    (``fused_kernel_fields_t``)."""
-    _check_version(version, "fused_kernel_fields")
-    if in_kernel_pe:
-        raise NotImplementedError(
-            "fused_kernel_fields: in_kernel_pe needs the v4pe kernel, which is not ported yet "
-            "(ROADMAP B8)")
+    can use it as the data-loss prediction.  ``trainable`` goes through the
+    version's ``torch.autograd.Function``, so the result can sit inside a
+    differentiated loss; otherwise the forward kernel alone runs and the result
+    carries no graph on a GPU.  The routes are JAX's (:418-484):
+
+    * ``version=7`` means the v4 algebra here, as in ``jvp_fields``: v4s is a
+      var-major variant (``fused_kernel_fields_t``);
+    * ``version=6``: the v6 pair (``FusedDecodeJvpV6`` when ``trainable``), the PE
+      derivative folded into the per-window weights;
+    * ``version=4``: the v4 pair (``FusedDecodeJvpV4``, a kernel on both passes),
+      or with ``in_kernel_pe`` and not ``trainable`` the v4pe kernel, which
+      computes the PE from raw coordinates;
+    * any other version: the uncollapsed v2 decode, ``FusedDecodeJvpV2`` (the v2
+      forward kernel, the plain version's gradient) when ``trainable``.  JAX runs
+      versions 3 and 5 here too, not through their own kernels (ROADMAP C20)."""
+    if version == 7:
+        version = 4
     coord_data = coord_data.detach()
+    ref = coord_data.float().contiguous()
+    cdt = model.compute_dtype
     if version == 6:
         fw6, trig, cd_pe = _kernel_inputs_6(model, tokens, coords.detach(), coord_data, fore_h, coord_spec)
         decode = fused_decode_jvp_v6_kbwd if trainable else fused_decode_jvp_v6
-        primal, tang = decode(fw6, trig, cd_pe, coord_data.float().contiguous(), model.compute_dtype)
+        primal, tang = decode(fw6, trig, cd_pe, ref, cdt)
+    elif version == 4 and in_kernel_pe and not trainable:
+        fw = fuse_decode_weights(extract_decode_weights(model, tokens, fore_h))
+        primal, tang = fused_decode_jvp_v4pe(fw, coords.detach(), ref, coord_spec, cdt)
     else:
         weights, pe, dpe, cd_pe = _kernel_inputs(model, tokens, coords.detach(), coord_data, fore_h,
                                                  coord_spec)
-        fw = fuse_decode_weights(weights)
-        decode = fused_decode_jvp_v4_kbwd if trainable else fused_decode_jvp_v4
-        primal, tang = decode(fw, pe, dpe, cd_pe, coord_data.float().contiguous(), model.compute_dtype)
+        if version == 4:
+            decode = fused_decode_jvp_v4_kbwd if trainable else fused_decode_jvp_v4
+            primal, tang = decode(fuse_decode_weights(weights), pe, dpe, cd_pe, ref, cdt)
+        else:
+            decode = fused_decode_jvp_trainable if trainable else fused_decode_jvp
+            primal, tang = decode(weights, pe, dpe, cd_pe, ref, cdt)
     if raw_tangents:
         return primal, tang
     return primal, fields_from_primal_tangents(primal, tang, obs_specs, with_clip)
@@ -356,9 +368,9 @@ def jvp_fields(
     ``decode_jvp_xla_v4``, which keeps the masked tangents float32 for the
     ``w2wo`` sum (``round_tangents=False``).  ``version=6`` is the trig-input
     formulation over ``decode_jvp_xla_v6``, which besides reads the cd PE in
-    float32 in its ``wdwo`` sum.  ``version=7`` is a kernel layout choice with no
-    meaning here and is treated as 4."""
-    _check_version(version, "jvp_fields")
+    float32 in its ``wdwo`` sum.  Every other version is treated as 4, as in JAX
+    (:521-548): 7 is a kernel layout choice with no meaning here, and the
+    uncollapsed v2 decode is the same function."""
     coord_data = coord_data.detach()
     if version == 6:
         fw6, trig, cd_pe = _kernel_inputs_6(model, tokens, coords.detach(), coord_data, fore_h, coord_spec)
@@ -400,14 +412,15 @@ def fused_residual_losses(
 ) -> Dict[str, torch.Tensor]:
     """Forward-only residual losses (MSE criterion): the evaluation sweeps' path.
 
-    ``version=4``: the var-major v4t forward kernel, then the packed ``[6, N]``
-    assembly; ``version=7``: the same with the v4s forward kernel; ``version=6``:
-    the in-kernel residual assembly (``kernel_residual_losses``, one launch) from
-    ``FUSED_ASSEMBLY_MIN_N`` points on, and below it the split path of the v6
-    forward kernel and the dict-form assembly.  Not differentiable; training goes
-    through ``fused_kernel_fields_t`` or ``fused_kernel_fields``."""
-    _check_version(version, "fused_residual_losses")
-    if version == 6:
+    JAX's routes (:665-696): ``version=4``: the var-major v4t forward kernel, then
+    the packed ``[6, N]`` assembly; ``version=7``: the same with the v4s forward
+    kernel; any other version: the in-kernel residual assembly
+    (``kernel_residual_losses``, one launch; the v6 layer 1 for 6, the v4 one
+    otherwise) from ``FUSED_ASSEMBLY_MIN_N`` points on, and below it the split path
+    of ``fused_kernel_fields`` (the v6 forward kernel for 6, the v2 one for 2) and
+    the dict-form assembly.  Not differentiable; training goes through
+    ``fused_kernel_fields_t`` or ``fused_kernel_fields``."""
+    if version not in (4, 7):
         if coords.shape[0] >= FUSED_ASSEMBLY_MIN_N:
             return kernel_residual_losses(
                 model, tokens, coords, coord_data, fore_h, coriolis_f, coord_spec, obs_specs,

@@ -26,7 +26,11 @@ Differences from the JAX step, which is one jitted program:
   (``var_major`` holds for 4 and 7 only): both engines run ``[N, 6]``,
   ``'kernel'`` through ``FusedDecodeJvpV6`` and ``'jvp'`` through the plain
   version with the XLA twin's rounding (``jvp_fields(version=6)``), packed or
-  dict assembly by ``packed_assembly`` and the criterion;
+  dict assembly by ``packed_assembly`` and the criterion.  Any other version is
+  JAX's round-1 decode under ``'kernel'``: ``FusedDecodeJvpV2``, the v2 forward
+  kernel with the plain version's gradient, ``[N, 6]`` (2, and 3 and 5, which JAX
+  also runs through the v2 kernel: ROADMAP C20); under ``'jvp'`` it is the v4
+  plain version, as in JAX;
 * the non-finite guard decides on the host whether to step the optimizer,
   which costs one device-to-host read of the gradient norm per step.
 """
@@ -120,7 +124,8 @@ class StepConfig:
     # decode-kernel generation of the 'kernel' and 'jvp' engines: 7 = the v4s
     # pair (channel-major trig operand, PE derivative folded into the weights),
     # 4 = the v4 / v4t pair (interleaved PE plus the compact tangent input dpe),
-    # 6 = the v6 pair (direction-major trig blocks, [N, 6] outputs only).
+    # 6 = the v6 pair (direction-major trig blocks, [N, 6] outputs only), any
+    # other = the uncollapsed v2 decode under 'kernel' and v4 under 'jvp'.
     # The same function every way; train_cfg.tpu.kernel_version
     kernel_version: int = 7
     # packed [6, N] residual assembly for the 'kernel' and 'jvp' engines under
@@ -135,14 +140,24 @@ class StepConfig:
         return dict(self.loss_factor)
 
 
+def default_pde_engine(obs_norm_cfg: Mapping[str, Any]) -> str:
+    """The engine the JAX interface picks on its accelerator when the configuration names
+    none (interface_physics.py:156-166): ``'kernel'``, or ``'linearize'`` when an
+    observation variable is normalized other than by mean_norm, since the decode pairs'
+    chain rule knows mean_norm only."""
+    for v in obs_norm_cfg.values():
+        if v.get("use_norm", True) and str(v.get("norm_type", "mean_norm")).lower() != "mean_norm":
+            return "linearize"
+    return "kernel"
+
+
 def step_config_from_cfg(config: Mapping[str, Any], pred_t_span: float = 86400.0,
                          **overrides) -> StepConfig:
     """Hydrate from a reference-schema ``config`` dict, as the JAX interface does
-    (interface_physics.py:218-238)."""
+    (interface_physics.py:218-238).  ``pde_engine`` is ``train_cfg.tpu.pde_engine``
+    unless that is unset or ``None``, then ``default_pde_engine``."""
     train = config["train_cfg"]
     tpu_cfg = train.get("tpu", {})
-    kernel_version = int(tpu_cfg.get("kernel_version", 7))
-    _check_kernel_version(kernel_version)
     img = train["img_size"]
     lat_size, lon_size = (int(img), int(img)) if isinstance(img, (int, float)) else map(int, img)
     specs = norm_specs_from_cfg(config["obs_norm_cfg"])
@@ -156,24 +171,17 @@ def step_config_from_cfg(config: Mapping[str, Any], pred_t_span: float = 86400.0
         prediction_loss=losses["prediction_loss"]["name"],
         prediction_beta=float(losses["prediction_loss"].get("beta", 0.1)),
         pde_loss=losses["pde_loss"]["name"],
-        kernel_version=kernel_version,
+        pde_engine=str(tpu_cfg.get("pde_engine") or default_pde_engine(config["obs_norm_cfg"])),
+        kernel_version=int(tpu_cfg.get("kernel_version", 7)),
         packed_assembly=bool(tpu_cfg.get("packed_assembly", True)),
     )
     fields.update(overrides)
     return StepConfig(**fields)
 
 
-def _check_kernel_version(kernel_version: int) -> None:
-    if kernel_version not in (4, 6, 7):
-        raise NotImplementedError(
-            f"kernel_version={kernel_version} needs decode kernels that are not ported yet "
-            "(ROADMAP B8: v2, v3, v5, v4pe); use 4, 6 or 7")
-
-
 def _check_supported(cfg: StepConfig) -> None:
     if cfg.pde_engine not in PDE_ENGINES:
         raise ValueError(f"unknown pde_engine {cfg.pde_engine!r}; expected one of {PDE_ENGINES}")
-    _check_kernel_version(cfg.kernel_version)
 
 
 def _snap_forecast_h(forecast_h: torch.Tensor, cfg: StepConfig) -> torch.Tensor:

@@ -370,17 +370,34 @@ def test_linearize_engine_matches_jax(world):
 
 
 def test_unported_versions_name_their_roadmap_item(world):
-    for fn, extra in ((tengine.fused_kernel_fields, (world["tspecs"],)), (tengine.jvp_fields, (world["tspecs"],)),
-                      (tengine.fused_kernel_fields_t, ())):
-        # version 6 has no var-major form: in JAX fused_kernel_fields_t knows 4 and 7 only
-        for version in (2, 6) if fn is tengine.fused_kernel_fields_t else (2, 3, 5):
-            with pytest.raises(NotImplementedError, match=f"version {version}.*ROADMAP B8"):
-                fn(*_t_args(world), world["tspec"], *extra, version=version)
-    with pytest.raises(NotImplementedError, match="in_kernel_pe.*ROADMAP B8"):
-        tengine.fused_kernel_fields(*_t_args(world), world["tspec"], world["tspecs"], in_kernel_pe=True)
-    with pytest.raises(NotImplementedError, match="version 2.*ROADMAP B8"):
-        tengine.fused_residual_losses(*_t_args(world), _t(world["f"]), world["tspec"], world["tspecs"],
-                                      FACTORS, version=2)
+    """The versions that waited for ROADMAP B8 run now, by JAX's routes (the item is done):
+    ``fused_kernel_fields`` takes the v2 decode for 2 and, as JAX does, for 3 and 5 (C20),
+    not their own kernels; ``jvp_fields`` takes the v4 twin for every version but 6;
+    ``fused_kernel_fields_t`` refuses what JAX's var-major step never takes."""
+    p_j, t_j = jengine.fused_kernel_fields(*_j_args(world), world["jspec"], world["jspecs"], interpret=True,
+                                           version=2, raw_tangents=True)
+    p2, t2 = tengine.fused_kernel_fields(*_t_args(world), world["tspec"], world["tspecs"], version=2,
+                                         raw_tangents=True)
+    np.testing.assert_allclose(p2.detach().numpy(), np.asarray(p_j), rtol=MODEL_RTOL, atol=2e-5)
+    np.testing.assert_allclose(t2.detach().numpy(), np.asarray(t_j), rtol=MODEL_RTOL,
+                               atol=MODEL_RTOL * float(jnp.max(jnp.abs(t_j))))
+    p4, _ = tengine.fused_kernel_fields(*_t_args(world), world["tspec"], world["tspecs"], version=4,
+                                        raw_tangents=True)
+    assert not torch.equal(p2, p4)  # the uncollapsed decode rounds otherwise than v4
+    for version in (3, 5):
+        p, t = tengine.fused_kernel_fields(*_t_args(world), world["tspec"], world["tspecs"], version=version,
+                                           raw_tangents=True)
+        assert torch.equal(p, p2) and torch.equal(t, t2), version
+    j_twin = jengine.jvp_fields(*_j_args(world), world["jspec"], world["jspecs"], version=4, raw_tangents=True)
+    for version in (2, 3, 5):
+        p, t = tengine.jvp_fields(*_t_args(world), world["tspec"], world["tspecs"], version=version,
+                                  raw_tangents=True)
+        np.testing.assert_allclose(p.detach().numpy(), np.asarray(j_twin[0]), rtol=MODEL_RTOL, atol=2e-5)
+        np.testing.assert_allclose(t.detach().numpy(), np.asarray(j_twin[1]), rtol=MODEL_RTOL,
+                                   atol=MODEL_RTOL * float(jnp.max(jnp.abs(j_twin[1]))))
+    for version in (2, 6):
+        with pytest.raises(ValueError, match=f"version {version} has no var-major form"):
+            tengine.fused_kernel_fields_t(*_t_args(world), world["tspec"], version=version)
     with pytest.raises(ValueError, match="unknown engine"):
         tengine.fused_kernel_fields_t(*_t_args(world), world["tspec"], engine="linearize")
 

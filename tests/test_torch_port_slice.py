@@ -317,6 +317,24 @@ args = (model, tokens, torch.stack([m.x[0], m.y[0], m.t[0]], -1), m.nwp[0], fh[0
         scfg6.coord_spec, scfg6.obs_specs, scfg6.factors())
 fused = [kernel_residual_losses(*args, version=v) for v in (4, 6)]
 fused.append(fused_residual_losses(*args, version=6))
+# one PDE step with kernel_version=2 (FusedDecodeJvpV2, on a copy of the state) and the
+# version-2 residual losses; the in_kernel_pe route (v4pe) and direct calls of v3 and v5
+import copy
+from deepphysinet_tpu_torch.ops import decode_kernel as dk
+from deepphysinet_tpu_torch.physics.engine import _kernel_inputs, fused_kernel_fields
+cfg["train_cfg"]["tpu"]["kernel_version"] = 2
+scfg2 = step_config_from_cfg(cfg)
+_, metrics2 = make_train_step(scfg2)(copy.deepcopy(state), batch, True)
+losses2 = fused_residual_losses(*args, version=2)
+with torch.no_grad():
+    outs = [fused_kernel_fields(*args[:5], scfg2.coord_spec, scfg2.obs_specs, version=4, in_kernel_pe=True,
+                                raw_tangents=True)]
+    weights, pe, dpe, cd_pe = _kernel_inputs(*args[:5], scfg2.coord_spec)
+    outs.append(dk.fused_decode_jvp_v3(weights, args[2], args[3], scfg2.coord_spec, torch.bfloat16))
+    outs.append(dk.fused_decode_jvp_v5(dk.fuse_decode_weights(weights), pe, dpe, cd_pe, args[3], torch.bfloat16))
+v2 = [scfg2.kernel_version, scfg2.pde_engine, all(np.isfinite(float(v)) for v in metrics2.values()),
+      len(losses2), all(np.isfinite(float(v)) for v in losses2.values()),
+      all(bool(torch.isfinite(x).all()) for pair in outs for x in pair)]
 # the encoder's attention kernels (attn_impl) and the fused encoder, through their plain versions
 from deepphysinet_tpu_torch.ops.encoder_kernel import encode_fused
 encoded = {}
@@ -343,7 +361,7 @@ print(json.dumps({"loaded": loaded, "T": list(grid["T"].shape), "pts": list(pts.
                   "sweeps_finite": all(np.isfinite(v) for v in sweeps.values()),
                   "sweep_hours": sweeps["n_hours"], "sweep_points": sweeps["n_points"],
                   "has_lead": "rmse_t2_f048" in sweeps and "weighted_total" in sweeps,
-                  "encoded": encoded}))
+                  "encoded": encoded, "v2": v2}))
 """
 
 
@@ -359,4 +377,5 @@ def test_port_runs_with_jax_blocked():
                    "all_moved": True, "kernel_version": 4, "v4_finite": True, "sweeps_finite": True,
                    "v6": [6, True, 3], "fused_keys": [7, 7, 7], "fused_finite": True,
                    "sweep_hours": 5.0, "sweep_points": 5.0 * 37 * 65, "has_lead": True,
-                   "encoded": {"pallas": True, "flash": True, "fused": True}}
+                   "encoded": {"pallas": True, "flash": True, "fused": True},
+                   "v2": [2, "kernel", True, 7, True, True]}

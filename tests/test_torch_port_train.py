@@ -10,9 +10,12 @@ Three steps each, data-only and with the PDE terms.  The same again, with the PD
 terms, for the step's other routes: ``kernel_version=4`` in both layouts (the
 v4t and the ``[N, 6]`` v4 Pallas pairs in interpret mode against the port's
 plain versions), ``kernel_version=6`` under ``'kernel'`` (the v6 Pallas pair in
-interpret mode) and ``'jvp'`` (the XLA twin), packed and dict assembly, the
-``'linearize'`` engine (``jax.linearize`` against
-``torch.func.jvp``) and a PDE criterion other than MSE (the dict-form assembly).
+interpret mode) and ``'jvp'`` (the XLA twin), packed and dict assembly,
+``kernel_version=2`` under ``'kernel'`` (off the TPU JAX's ``fused_decode_jvp_trainable``
+is the v2 XLA twin, the same function as the port's plain version of the v2 kernel in
+float32) and ``'jvp'`` (the v4 twin in both packages), the ``'linearize'`` engine
+(``jax.linearize`` against ``torch.func.jvp``) and a PDE criterion other than MSE (the
+dict-form assembly).
 
 Tolerances.  Every metric of every step: rtol 1e-4 (float32 matmul chains in
 another summation order; the loss factors span 1e-7..1e14 but each metric is
@@ -46,6 +49,7 @@ from deepphysinet_tpu.train.optim import build_optimizer as j_build_optimizer
 
 from deepphysinet_tpu_torch.ops.coords import CoordSpec
 from deepphysinet_tpu_torch.ops.normalization import OBS_NAME_ORDER, norm_specs_from_cfg
+from deepphysinet_tpu_torch.physics import engine as tengine
 from deepphysinet_tpu_torch.train import train_step as tts
 from deepphysinet_tpu_torch.train.torch_import import load_train_state, state_dict_from_jax
 
@@ -273,20 +277,51 @@ def test_eval_step_makes_no_update_and_reports_the_step_losses(world):
     assert all(p.grad is None for p in state.model.parameters())
 
 
-def test_unported_options_raise(world):
+def test_unported_options_raise(world, monkeypatch):
+    """An unknown engine or loss still raises.  ``kernel_version=2``, which waited for the v2
+    kernel (ROADMAP B8), now hydrates and steps: under ``'kernel'`` every PDE evaluation goes
+    through ``FusedDecodeJvpV2`` in the ``[N, 6]`` layout (``var_major`` holds for 4 and 7
+    only), two per window."""
     tcfg = world["tcfg"]
     with pytest.raises(ValueError, match="unknown pde_engine"):
         tts.make_train_step(dataclasses.replace(tcfg, pde_engine="pallas"))
-    # kernel_version 2 (the uncollapsed decode) is the one generation of the step still to port
-    with pytest.raises(NotImplementedError, match="kernel_version=2.*ROADMAP B8"):
-        tts.step_config_from_cfg(dict(train_cfg=dict(tpu=dict(kernel_version=2))))
-    with pytest.raises(NotImplementedError, match="kernel_version=2.*ROADMAP B8"):
-        tts.make_eval_step(dataclasses.replace(tcfg, kernel_version=2))
-    with pytest.raises(NotImplementedError, match="kernel_version=2.*ROADMAP B8"):
-        tts.make_train_step(dataclasses.replace(tcfg, kernel_version=2))
     with pytest.raises(KeyError, match="NoSuchLoss"):
         tts.make_eval_step(dataclasses.replace(tcfg, pde_loss="NoSuchLoss"))(
             None, tts.batch_to_device(world["nb"], device="cpu"), True)
+    assert tts.step_config_from_cfg(_reference_cfg(kernel_version=2)).kernel_version == 2
+    calls = []
+    trainable = tengine.fused_decode_jvp_trainable
+    monkeypatch.setattr(tengine, "fused_decode_jvp_trainable", lambda *a: calls.append(1) or trainable(*a))
+    state = _port_state(world["jax"][True][0][0])
+    metrics = tts.make_eval_step(dataclasses.replace(tcfg, kernel_version=2))(
+        state.model, tts.batch_to_device(world["nb"], device="cpu"), True)
+    assert len(calls) == 2 * world["nb"]["field"].shape[0]
+    assert all(np.isfinite(float(v)) for v in metrics.values())
+
+
+def _reference_cfg(obs_cfg=OBS_CFG, **tpu):
+    """A reference-schema configuration dict with ``train_cfg.tpu`` set to ``tpu``."""
+    losses = dict(loss_factor=FACTORS, prediction_loss=dict(name="WeightSmoothL1Loss", beta=0.1),
+                  pde_loss=dict(name="MSELoss"))
+    return dict(train_cfg=dict(img_size=[145, 257], losses=losses, tpu=tpu), obs_norm_cfg=obs_cfg)
+
+
+MIN_MAX_T2 = dict(OBS_CFG, t2=dict(OBS_CFG["t2"], norm_type="min_max"))
+
+
+@pytest.mark.parametrize("tpu, obs_cfg, engine", [
+    (dict(pde_engine="jvp"), OBS_CFG, "jvp"),
+    (dict(pde_engine=None), OBS_CFG, "kernel"),
+    ({}, MIN_MAX_T2, "linearize"),
+    (dict(pde_engine="kernel"), MIN_MAX_T2, "kernel"),
+], ids=["explicit", "none_is_automatic", "min_max_variable", "explicit_wins"])
+def test_step_config_reads_the_pde_engine_as_the_jax_interface_does(tpu, obs_cfg, engine):
+    """ROADMAP C18: ``train_cfg.tpu.pde_engine`` when set, else ``'kernel'`` (the JAX
+    interface's choice on its accelerator) unless an observation variable is normalized
+    other than by mean_norm, then ``'linearize'`` (interface_physics.py:156-166, :235)."""
+    cfg = tts.step_config_from_cfg(_reference_cfg(obs_cfg, **tpu))
+    assert cfg.pde_engine == engine
+    assert tts.step_config_from_cfg(_reference_cfg(obs_cfg, **tpu), pde_engine="jvp").pde_engine == "jvp"
 
 
 # the step's other routes: (JAX StepConfig fields, port StepConfig fields)
@@ -307,6 +342,9 @@ VARIANTS = {
     "jvp_v6": (dict(pde_engine="jvp", kernel_version=6), dict(pde_engine="jvp", kernel_version=6)),
     "jvp_v6_dict_assembly": (dict(pde_engine="jvp", kernel_version=6, packed_assembly=False),
                              dict(pde_engine="jvp", kernel_version=6, packed_assembly=False)),
+    "kernel_v2": (dict(pde_engine="kernel", kernel_interpret=True, kernel_version=2),
+                  dict(kernel_version=2)),
+    "jvp_v2": (dict(pde_engine="jvp", kernel_version=2), dict(pde_engine="jvp", kernel_version=2)),
     "linearize": (dict(pde_engine="linearize"), dict(pde_engine="linearize")),
     "l1_pde_criterion": (dict(pde_engine="kernel", kernel_interpret=True, pde_loss="L1Loss"),
                          dict(pde_loss="L1Loss")),
