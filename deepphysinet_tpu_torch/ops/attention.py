@@ -33,6 +33,7 @@ The backward (``FusedAttention``) is the plain-PyTorch counterpart of
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 from typing import Optional
@@ -120,7 +121,22 @@ def _library() -> ctypes.CDLL:
     lib.dpn_attention.restype = ctypes.c_int
     lib.dpn_attention_supports_head_dim.argtypes = [ctypes.c_int]
     lib.dpn_attention_supports_head_dim.restype = ctypes.c_int
+    lib.dpn_attention_plan.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_longlong)]
+    lib.dpn_attention_plan.restype = ctypes.c_int
     return lib
+
+
+def launch_plan(q: torch.Tensor, flash: bool) -> dict:
+    """The launch ``csrc/attention.cu`` makes for a CUDA tensor q [B, L, H, E]: warps a
+    block, blocks, dynamic shared memory in bytes, and whether all of a head's K and V stay
+    in shared memory (``resident``)."""
+    b, length, h, e = q.shape
+    out = (ctypes.c_longlong * 4)()
+    with torch.cuda.device(q.device):
+        err = _library().dpn_attention_plan(int(q.dtype == torch.bfloat16), b, length, h, e, int(flash), out)
+    if err != 0:
+        raise RuntimeError(f"launch_plan: CUDA error {err}")
+    return dict(zip(("warps", "blocks", "smem_bytes", "resident"), (int(x) for x in out)))
 
 
 def _launch(wrapper, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
@@ -144,10 +160,14 @@ def _launch(wrapper, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: f
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+    # on q's device and its current stream.  At the encoder's size the host's work per call
+    # outlasts the kernel (PERF.md), so the device is switched only when q is not on the
+    # current one, and the stream is read raw rather than through a Stream object.
+    idx = q.device.index
+    with contextlib.nullcontext() if idx == torch.cuda.current_device() else torch.cuda.device(idx):
         err = lib.dpn_attention(int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(),
-                                v.data_ptr(), out.data_ptr(), b, length, h, e, scale, int(flash), stream)
+                                v.data_ptr(), out.data_ptr(), b, length, h, e, scale, int(flash),
+                                torch._C._cuda_getCurrentRawStream(idx))
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
     wrapper.launches += 1

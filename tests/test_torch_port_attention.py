@@ -15,6 +15,7 @@ summation order alone does; the rounding fault C14 put 14% there).
 """
 
 import functools
+import inspect
 from unittest import mock
 
 import numpy as np
@@ -92,6 +93,42 @@ def test_plain_version_matches_pallas_kernel(kernel, dtype):
     assert torch.equal(wrapper(tq, tk, tv, scale), got if kernel == "tile" else
                        tattn.attention_flash_ref(tq, tk, tv, scale))
     assert wrapper.launches == launches
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("head_dim", [16, 64])
+@pytest.mark.parametrize("kernel,length", [("tile", 1), ("tile", 257), ("flash", 257), ("flash", 513)])
+def test_plain_version_matches_pallas_kernel_at_tiling_edges(kernel, length, head_dim, dtype):
+    """The plain versions, which chip_smoke.py holds the CUDA kernels to, against the Pallas
+    kernels in interpret mode where the CUDA kernels' tiling has edges: head widths 16 and 64
+    (one and four k16 steps of the tensor-core products, beside the 32 above); one token (a key
+    tile of one real key, the rest zero-filled); 257 tokens (one key past the first 256-key
+    tile); the flash kernel with JAX's default 256-key block at 257 and 513 tokens (a last
+    block of one key)."""
+    (q, k, v), (tq, tk, tv) = _inputs(length + head_dim, (1, length, 2, head_dim), dtype)
+    scale = 1.0 / np.sqrt(head_dim)
+    with _interpret():
+        want = (jattn._attention_pallas if kernel == "tile" else jattn._attention_flash)(q, k, v, scale)
+    got = (tattn.attention_tile_ref if kernel == "tile" else tattn.attention_flash_ref)(tq, tk, tv, scale)
+    assert got.dtype == tq.dtype
+    _assert_close(got, want, dtype)
+
+
+def test_flash_key_block_is_jax_default_and_sets_the_rounding():
+    """``FLASH_BLOCK`` is the default ``block_k`` of JAX's ``_attention_flash``, and the key
+    block is part of the flash kernel's function: ``p = exp(s - m_cur)`` is rounded to bf16
+    with ``m_cur`` the running max after the WHOLE block, so the same online softmax over
+    64-key blocks rounds other p and differs on some bf16 entries (in float32 it is the same
+    function).  This is why the CUDA kernel takes each 256-key block's max over all its keys
+    before it forms any p of the block, and may not sub-block its max."""
+    assert tattn.FLASH_BLOCK == inspect.signature(jattn._attention_flash).parameters["block_k"].default
+    _, (q, k, v) = _inputs(9, (1, 600, 2, 32), "float32")
+    _assert_close(tattn.attention_flash_ref(q, k, v, 0.5, block_k=64), tattn.attention_flash_ref(q, k, v, 0.5),
+                  "float32")
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+    full = _np(tattn.attention_flash_ref(qb, kb, vb, 0.5))
+    sub = _np(tattn.attention_flash_ref(qb, kb, vb, 0.5, block_k=64))
+    assert np.mean(full != sub) > 1e-3
 
 
 def test_tile_kernel_is_the_plain_path_and_flash_rounds_elsewhere():
@@ -232,11 +269,14 @@ def cuda_device():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("head_dim", [16, 32, 64])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_attention_kernels_match_plain(cuda_device, dtype):
-    """Both CUDA kernels against their plain versions: ragged lengths either side of a key block."""
-    for length in (3, 287, 300):
-        _, (q, k, v) = _inputs(length, (2, length, 8, 32), dtype)
+def test_attention_kernels_match_plain(cuda_device, dtype, head_dim):
+    """Both CUDA kernels against their plain versions at every head width: one token and 3 (a
+    partial key tile), 287 and 300 (either side of a 256-key block), 1,024 (the single-tile
+    kernel's routing limit), 1,025 and 4,096 (the flash kernel's range, a ring of key tiles)."""
+    for length in (1, 3, 287, 300, 1024, 1025, 4096):
+        _, (q, k, v) = _inputs(length, (2, length, 8, head_dim), dtype)
         q, k, v = (t.to(cuda_device) for t in (q, k, v))
         for wrapper, plain in ((tattn.attention_tile, tattn.attention_tile_ref),
                                (tattn.attention_flash, tattn.attention_flash_ref)):
