@@ -10,7 +10,8 @@ Phases, each of which raises (exit code 1) on failure:
 1. build    -- compile the nine sources under ``deepphysinet_tpu_torch/csrc/`` with
                nvcc, all at once, and log registers, spills and shared memory;
 2. primal   -- the primal decode kernel against its plain PyTorch version on the
-               card, at 37,265 (one 145 x 257 frame), 1,000 and 3 points, bf16 and f32;
+               card, at 37,265 (one 145 x 257 frame), 1,000 and 3 points and at the
+               point-block edges 17, 64, 65 and 129, bf16 and f32;
 3. infer    -- the flagship model (configs/DeepPhysiNet_NCEP_cfg.py, random weights
                from a seeded generator) on a seeded synthetic window:
                ``predict_grid`` at three time offsets and ``predict_points`` at 3, 300
@@ -31,9 +32,13 @@ Phases, each of which raises (exit code 1) on failure:
                plain version under autograd), for ``kernel_version`` 7, 4, 6 and 2;
 7. v4       -- the v4 forward and backward kernels against their plain versions in
                both layouts ([N, 6] and [6, N]), bf16 and f32, at 37,265, 20,480, 4,096,
-               1,000 and 3 points of one flagship frame; the two layouts against each
+               1,000 and 3 points of one flagship frame and at 17, 64, 65 and 129; the
+               two layouts against each
                other; two runs of the backward; and ``FusedDecodeJvpV4`` in both
-               layouts against autograd of the plain forward;
+               layouts against autograd of the plain forward; a reading of the plain
+               version's rounding (cuBLAS's z against one FMA a term in k order, and
+               what float64 sums change in T(p) and the tangents), which the bf16
+               kernel's recomputation near a rounding tie rests on;
 8. eval     -- the evaluation sweeps on one seeded flagship window with a label cube:
                ``evaluate_residuals`` (25 hours x 37,265 points through the v4t
                forward kernel), ``residual_field_maps`` (one [N, 6] forward launch)
@@ -86,7 +91,9 @@ Phases, each of which raises (exit code 1) on failure:
 19. timing  -- by CUDA events, medians, alternating order: each kernel and its
                plain version at the main paths' sizes (the attention kernels beside one
                ``scaled_dot_product_attention`` call and a bound of three terms, the
-               single-tile kernel also at 1,024 tokens), and the in-kernel residual
+               single-tile kernel also at 1,024 tokens; the primal and v4 forward
+               kernels with their points a block, ptxas registers and spills, and
+               their products as batched ``torch.bmm`` calls), and the in-kernel residual
                assembly against the split path at 40,960 to 131,072 points; by host
                clock around a synchronize: one frame, one training step of each
                kind, one residual sweep, split into their parts, and one encode
@@ -116,7 +123,11 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 FLAGSHIP_CFG = os.path.join(REPO, "configs", "DeepPhysiNet_NCEP_cfg.py")
 GRID_POINTS = 145 * 257
 V4S_SIZES = (20480, 4096, 1000, 3)
-V4_SIZES = (GRID_POINTS, 20480, 4096, 1000, 3)  # one evaluation frame, the step's launches, ragged edges
+# the point-block edges of the tensor-core decode kernels (64 points a block for v4, 128 for
+# the primal): a ragged block alone, one block, one past it, one past two v4 blocks
+BLOCK_EDGE_SIZES = (17, 64, 65, 129)
+PRIMAL_SIZES = (GRID_POINTS, 1000, 3) + BLOCK_EDGE_SIZES  # one frame, ragged edges
+V4_SIZES = (GRID_POINTS, 20480, 4096, 1000, 3) + BLOCK_EDGE_SIZES  # a frame, the step's launches, edges
 TIMING_POINTS = 20480 + 4096  # the points one PDE step decodes
 # the residual-sum kernels: at and above the engine's crossover, one ragged size; the split
 # branch's size; the sizes of the in-kernel against split timing
@@ -417,6 +428,18 @@ def attention_ptxas(build_log: str):
             out.append((name, line.split(":", 1)[1].strip() + "; " + spills))
             name = None
     return out
+
+
+def kernel_ptxas(build_log: str, kernel: str) -> str:
+    """Registers, barriers and spills of the entry function whose mangled name holds ``kernel``
+    in a ptxas -v report."""
+    report, inside = [], False
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            inside = kernel in line
+        elif inside and ("registers" in line or "spill" in line):
+            report.append(line.split(":", 1)[-1].strip())
+    return "; ".join(report) or "no ptxas report"
 
 
 def sm_clock_mhz() -> float:
@@ -824,7 +847,7 @@ def main() -> int:
     errs, rel_errs = {}, {}  # absolute; and as a share of what the tolerance is stated in
     for dtype in (torch.bfloat16, torch.float32):
         fw, pe, cd_pe, ref_t = frame_inputs(6.5, dtype)
-        for n in (GRID_POINTS, 1000, 3):
+        for n in PRIMAL_SIZES:
             got = dk.decode_primal_v4t(fw, pe[:n].contiguous(), cd_pe[:n].contiguous(),
                                        ref_t[:, :n].contiguous(), dtype)
             torch.cuda.synchronize()
@@ -1319,6 +1342,49 @@ def main() -> int:
                    lambda w, *pts: dk.fused_decode_jvp_v4_kbwd(w, *pts, f32),
                    lambda w, *pts: dk.decode_jvp_v4_ref(w, *pts, f32),
                    dk.fused_decode_jvp_v4, dk.decode_bwd_kernel_v4)
+
+    # The rounding the bf16 v4 kernel follows (csrc/decode_jvp_v4.cu, fix_ties): the plain
+    # version's z and u_k are one FMA a term in k order, and any other sum flips some T(p)
+    # roundings, which switch tangent terms through r's relu mask.  A reading, held to nothing.
+    fw, pe, dpe, cd_pe, ref_t = frame_inputs(6.5, torch.bfloat16, with_tangents=True)
+    bf = torch.bfloat16
+    with torch.no_grad():
+        def sequential(x, y):  # x [N, K] @ y [V, K, H], one rounding a term in k order
+            x, y = x.to(bf).float(), y.to(bf).float()  # bf16 products are exact in f32
+            s = torch.zeros(y.shape[0], x.shape[0], y.shape[2], device=dev)
+            for k in range(x.shape[1]):
+                s = s + x[None, :, k, None] * y[:, None, k, :]
+            return s
+
+        z = dk.dot_f32(pe, fw.w1, bf)
+        differ_seq = int((sequential(pe, fw.w1) != z).sum())
+        differ_u = sum(int((sequential(dpe[k], fw.w1c[:, k]) != dk.dot_f32(dpe[k], fw.w1c[:, k], bf)).sum())
+                       for k in range(3))
+
+        def dot64(x, y):
+            return torch.matmul(x.to(bf).double(), y.to(bf).double()).float()
+
+        z += fw.b1[:, None, :]
+        z64 = dot64(pe, fw.w1) + fw.b1[:, None, :]
+        differ_tp = int((torch.relu(z).to(bf) != torch.relu(z64).to(bf)).sum())
+        near = near_kink(fw, pe, fw.w1, cd_pe, bf)
+        p64 = torch.relu(z64)
+        t64 = torch.stack([torch.where(z64 > 0, dot64(dpe[k], fw.w1c[:, k]), 0.0) for k in range(3)]).to(bf).float()
+        r64 = dot64(p64, fw.w2f1) + dot64(cd_pe, fw.wdf1) + fw.rbias[:, None, :]
+        to64 = ((torch.where((r64 > 0)[None], dot64(t64, fw.w2f1[None]), 0.0) * fw.fw2[None, :, None, :]).sum(-1)
+                + 2.0 * (t64 * fw.w2wo[None, :, None, :]).sum(-1))
+        _, t0_ = dk.decode_jvp_v4_ref(fw, pe, dpe, cd_pe, ref_t, bf, t_layout=True)
+        past = torch.zeros_like(near)
+        for k in range(3):
+            past |= ((to64[k] - t0_[k]).abs() > TOL_TANGENT[bf] * t0_[k].abs().max()).any(0)
+        log(f"[rounding] one frame, bf16: cuBLAS's z differs from one FMA a term in k order at {differ_seq} "
+            f"of {z.numel()} elements, its u_k at {differ_u} of {3 * z.numel()}; with float64 sums {differ_tp} "
+            f"T(p) elements round the other way, "
+            f"and {int((past & ~near).sum())} points' tangents then move past {TOL_TANGENT[bf]:.0e} of their "
+            f"largest outside the kink set")
+        del z, z64, p64, t64, r64, to64, t0_
+    del fw, pe, dpe, cd_pe, ref_t
+    torch.cuda.empty_cache()
 
     # ---- 8. the evaluation sweeps ---------------------------------------------------------------------
     model.eval()
@@ -1863,6 +1929,30 @@ def main() -> int:
         f"({primal_bound[1]}); runs kernel {[round(t, 4) for t in times['kernel']]} "
         f"plain {[round(t, 4) for t in times['plain']]}")
 
+    def bmm_ms(pairs) -> float:
+        """Median ms of the batched torch.bmm calls of ``pairs`` (A [B, M, K], W [B, K, N], bf16
+        out), back to back: the decode's products alone on cuBLAS, a reading beside the kernels
+        (the port never calls it)."""
+        fn = lambda: [torch.bmm(a, w) for a, w in pairs]  # noqa: E731
+        for _ in range(2):
+            fn()
+        return statistics.median(cuda_ms(fn, 10) for _ in range(4))
+
+    def per_variable(x):  # [N, K] -> [6, N, K], as each variable's product reads it
+        return x.expand(n_vars, *x.shape).contiguous()
+
+    wt = {k: getattr(fw, k).to(torch.bfloat16) for k in ("w1", "w1c", "w2f1", "wdf1")}
+    rows = lambda k, m: torch.randn(n_vars, m, k, device=dev, dtype=torch.bfloat16)  # noqa: E731
+    pe16, cd16 = per_variable(pe.to(torch.bfloat16)), per_variable(cd_pe.to(torch.bfloat16))
+    primal_bmm = bmm_ms([(pe16, wt["w1"]), (rows(hid, GRID_POINTS), wt["w2f1"]), (cd16, wt["wdf1"])])
+    primal_block = dk._library().dpn_decode_primal_block(int(cd == torch.bfloat16))
+    primal_ptxas = kernel_ptxas(cuda_build.BUILD_LOGS.get(dk.SOURCE, ""),
+                                "decode_primal_tc" if cd == torch.bfloat16 else "decode_primal_kernel")
+    log(f"[timing] primal decode {cd}: {primal_block} points a block, 256 threads; ptxas {primal_ptxas}; "
+        f"its products as 3 batched torch.bmm calls (a reading): {primal_bmm:.4f} ms "
+        f"({primal_flops / primal_bmm / 1e9:.2f} TFLOP/s)")
+    del pe16, cd16
+
     fwd_macs = in_ch * hid + 3 * two_f * hid + hid * hid + in_ch * hid + 3 * hid * hid  # per point and variable
     bwd_macs = fwd_macs + (4 * hid * hid + in_ch * hid) + 4 * hid * hid + (in_ch * hid + 3 * two_f * hid)
     v4s_ms = {}
@@ -1918,7 +2008,21 @@ def main() -> int:
                 f"({2e-9 * n_vars * bwd_macs * n / b_ms:.2f} TFLOP/s), plain {bp_ms:.4f} ms, bound "
                 f"{b_bound[0]:.4f} ms ({b_bound[1]}); runs fwd {[round(t, 3) for t in f_times['kernel']]} "
                 f"bwd {[round(t, 3) for t in b_times['kernel']]}")
-    del frame, ins, ref_t, ref_n, g_p, g_t, gp, gt, ref
+        # the forward's products as batched bf16 torch.bmm calls: layer 1, the three tangent
+        # directions, [T(p); t_1; t_2; t_3] . w2f1 as one product, cd . wdf1
+        _, pe_, dpe_, cd_ = ins
+        dpe16 = dpe_.to(torch.bfloat16).expand(n_vars, *dpe_.shape).reshape(3 * n_vars, n, two_f)
+        v4_bmm = bmm_ms([(per_variable(pe_.to(torch.bfloat16)), wt["w1"]),
+                         (dpe16, wt["w1c"].reshape(3 * n_vars, two_f, hid)),
+                         (rows(hid, 4 * n), wt["w2f1"]), (per_variable(cd_.to(torch.bfloat16)), wt["wdf1"])])
+        log(f"[timing] v4 forward at N={n} {cd}: its products as 4 batched torch.bmm calls (a reading): "
+            f"{v4_bmm:.4f} ms ({2e-9 * n_vars * fwd_macs * n / v4_bmm:.2f} TFLOP/s)")
+        del pe_, dpe_, cd_, dpe16
+    v4_block = dk._jvp_library(dk.SOURCE_JVP_V4).dpn_decode_jvp_v4_block()
+    v4_ptxas = kernel_ptxas(cuda_build.BUILD_LOGS.get(dk.SOURCE_JVP_V4, ""), "decode_jvp_v4_tc"
+                            if cd == torch.bfloat16 else "decode_jvp_v4_kernelIfLi0E")
+    log(f"[timing] v4 forward {cd}: {v4_block} points and one variable a block, 256 threads; ptxas {v4_ptxas}")
+    del frame, ins, ref_t, ref_n, g_p, g_t, gp, gt, ref, wt
 
     # the v6 pair at the step's two launches: the v4s pair's operations and bytes
     v6_ms = {}
@@ -2230,6 +2334,8 @@ def main() -> int:
     t = v4s_ms[main_n]
     csrc = "deepphysinet_tpu_torch/csrc/"
     jax_file = "deepphysinet_tpu/ops/decode_kernel.py"
+    # the decode kernels whose bf16 products run on the tensor cores
+    tc_products = "tensor cores (mma.sync), PR 8" if cd == torch.bfloat16 else "CUDA cores (FMA)"
 
     def v4_entry(name, source, replaces, t_layout, n, which, errs_, rels_):
         tm = v4_ms[(t_layout, n)]
@@ -2286,7 +2392,7 @@ def main() -> int:
          "max_abs_err": errs[(cd, GRID_POINTS)], "max_rel_err": rel_errs[(cd, GRID_POINTS)],
          "points": GRID_POINTS,
          "ms": k_ms, "plain_ms": p_ms, "bound_ms": primal_bound[0], "bound_by": primal_bound[1],
-         "library_ms": None},
+         "library_ms": None, "products": tc_products},
         {"name": "fused_decode_jvp_v4s", "route": "cuda", "source": csrc + "decode_jvp_v4s.cu",
          "replaces": f"{jax_file}:2358",
          "launches": fwd_launches, "max_abs_err": fwd_err[(cd, main_n)],
@@ -2300,8 +2406,10 @@ def main() -> int:
          "ms": t["bwd"], "plain_ms": t["bwd_plain"], "bound_ms": t["bwd_bound"][0],
          "bound_by": t["bwd_bound"][1], "library_ms": None},
         # the [N, 6] and [6, N] forms share one source; the sweeps decode one frame per launch
-        v4_entry("fused_decode_jvp_v4", "decode_jvp_v4.cu", 781, False, GRID_POINTS, "fwd", v4_fwd_err, v4_fwd_rel),
-        v4_entry("fused_decode_jvp_v4t", "decode_jvp_v4.cu", 855, True, GRID_POINTS, "fwd", v4_fwd_err, v4_fwd_rel),
+        {**v4_entry("fused_decode_jvp_v4", "decode_jvp_v4.cu", 781, False, GRID_POINTS, "fwd", v4_fwd_err,
+                    v4_fwd_rel), "products": tc_products},
+        {**v4_entry("fused_decode_jvp_v4t", "decode_jvp_v4.cu", 855, True, GRID_POINTS, "fwd", v4_fwd_err,
+                    v4_fwd_rel), "products": tc_products},
         v4_entry("decode_bwd_kernel_v4", "decode_bwd_v4.cu", 1562, False, main_n, "bwd", v4_bwd_err, v4_bwd_rel),
         v4_entry("decode_bwd_kernel_v4t", "decode_bwd_v4.cu", 1642, True, main_n, "bwd", v4_bwd_err, v4_bwd_rel),
         # the v6 pair shares its sources with the v4s pair (another operand layout)

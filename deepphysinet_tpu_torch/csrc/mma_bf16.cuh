@@ -1,7 +1,7 @@
 // Warp-level bf16 tensor-core helpers for Hopper (sm_90a): the m16n8k16 product with
 // f32 accumulation (mma.sync), its operand loads from shared memory (ldmatrix), the
-// 16-byte global -> shared copy (cp.async) and the fragment maps.  attention.cu uses
-// them; any kernel that multiplies bf16 tiles on the tensor cores can.
+// 16-byte global -> shared copy (cp.async) and the fragment maps.  attention.cu and
+// decode_mma.cuh use them; any kernel that multiplies bf16 tiles on the tensor cores can.
 //
 // Fragments of mma.m16n8k16.row.col (lane = 4 g + t, g = lane >> 2, t = lane & 3):
 //   A [16 x 16] row-major, 4 registers of two bf16 each, the lower column in the low half:

@@ -255,14 +255,17 @@ def _library() -> ctypes.CDLL:
     lib.dpn_decode_primal_v4t.argtypes = [ctypes.c_int] + [vp] * 13 + [
         ctypes.c_int64, ctypes.c_int, ctypes.c_int, vp]
     lib.dpn_decode_primal_v4t.restype = ctypes.c_int
-    for fn in (lib.dpn_decode_primal_hid, lib.dpn_decode_primal_k_tile, lib.dpn_decode_primal_block):
+    for fn in (lib.dpn_decode_primal_hid, lib.dpn_decode_primal_k_tile):
         fn.argtypes = []
         fn.restype = ctypes.c_int
+    lib.dpn_decode_primal_shared_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.dpn_decode_primal_shared_bytes.restype = ctypes.c_int
+    lib.dpn_decode_primal_block.argtypes = [ctypes.c_int]
+    lib.dpn_decode_primal_block.restype = ctypes.c_int
     return lib
 
 
-# The kernel's shared memory: p [64, hid] f32, one weight tile [32, hid] and
-# the block's pe / cd rows; a Hopper block may use 232,448 bytes.
+# The shared memory a Hopper block may use; each kernel's library says what it needs.
 _MAX_SHARED_BYTES = 232448
 
 
@@ -287,9 +290,7 @@ def decode_primal_v4t(fw: FusedDecodeWeights, pe: torch.Tensor, cd_pe: torch.Ten
         raise ValueError(f"decode_primal_v4t: kernel built for hidden {lib.dpn_decode_primal_hid()} "
                          f"and in_ch a multiple of {lib.dpn_decode_primal_k_tile()}; "
                          f"got hidden {hid}, in_ch {in_ch}")
-    elt = torch.finfo(compute_dtype).bits // 8
-    smem = lib.dpn_decode_primal_block() * (4 * hid + 2 * elt * in_ch) + \
-        lib.dpn_decode_primal_k_tile() * hid * elt
+    smem = lib.dpn_decode_primal_shared_bytes(int(compute_dtype == torch.bfloat16), in_ch)
     if smem > _MAX_SHARED_BYTES:
         raise ValueError(f"decode_primal_v4t: in_ch {in_ch} needs {smem} bytes of shared memory")
     for name, t, shape, dtype in (("pe", pe, (n, in_ch), compute_dtype),

@@ -7,6 +7,8 @@ float32 matmul chains use the bar of tests/test_decode_kernel_v4t.py
 (rtol 2e-4 / atol 2e-5) unless a comment says why a case needs more.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -166,19 +168,33 @@ def _torch_fw(fw):
     return tdk.FusedDecodeWeights(w1c=tdk.slice_tangent_weights(fw["w1"]), **fw)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_decode_primal_ref_matches_jax(dtype):
-    """decode_primal_v4t_ref == the Pallas kernel (interpret) == its XLA twin."""
+@functools.lru_cache(maxsize=None)
+def _jax_primal(dtype):
+    """The Pallas kernel (interpret) and its XLA twin on the N_DEC points of ``_fused_inputs()``,
+    once per dtype: each point's output depends on its own inputs only, so a case at n points
+    reads the first n."""
     fw, pe, cd, ref_t = _fused_inputs()
-    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    jd = getattr(jnp, dtype)
     # the decode path feeds both in the compute dtype
     pe_j, cd_j = jnp.asarray(pe).astype(jd), jnp.asarray(cd).astype(jd)
-    pe_t, cd_t = torch.from_numpy(pe).to(td), torch.from_numpy(cd).to(td)
     k = jdk.decode_primal_v4t(_jax_fw(fw), pe_j, cd_j, jnp.asarray(ref_t), block_n=128,
                               interpret=True, compute_dtype=jd)
     x = jdk.decode_xla_v4t_primal(_jax_fw(fw), pe_j, cd_j, jnp.asarray(ref_t), jd)
-    got = _np(tdk.decode_primal_v4t_ref(_torch_fw(fw), pe_t, cd_t, torch.from_numpy(ref_t), td))
-    assert got.shape == (NV, N_DEC)
+    return np.asarray(k), np.asarray(x)
+
+
+# N_DEC points, and the point-block edges of the port's tensor-core kernel (128 points a
+# block; 64 for float32), where chip_smoke.py holds it to this plain version
+@pytest.mark.parametrize("dtype, n", [pytest.param(d, N_DEC, id=d) for d in ("float32", "bfloat16")] + [
+    pytest.param(d, n, id=f"{d}-{n}") for d in ("float32", "bfloat16") for n in (1, 17, 64, 65, 129)])
+def test_decode_primal_ref_matches_jax(dtype, n):
+    """decode_primal_v4t_ref == the Pallas kernel (interpret) == its XLA twin."""
+    fw, pe, cd, ref_t = _fused_inputs()
+    td = getattr(torch, dtype)
+    pe_t, cd_t = torch.from_numpy(pe[:n]).to(td), torch.from_numpy(cd[:n]).to(td)
+    k, x = (a[:, :n] for a in _jax_primal(dtype))
+    got = _np(tdk.decode_primal_v4t_ref(_torch_fw(fw), pe_t, cd_t, torch.from_numpy(ref_t[:, :n]), td))
+    assert got.shape == (NV, n)
     if dtype == "float32":
         tol = dict(rtol=2e-4, atol=2e-5)
     else:
@@ -186,8 +202,8 @@ def test_decode_primal_ref_matches_jax(dtype):
         # |out| ~ 8); the bound leaves room for a summation-order difference
         # to flip one bf16 rounding of p (2^-8 of one term) before w2f1
         tol = dict(rtol=1e-3, atol=1e-3)
-    np.testing.assert_allclose(got, np.asarray(k), **tol)
-    np.testing.assert_allclose(got, np.asarray(x), **tol)
+    np.testing.assert_allclose(got, k, **tol)
+    np.testing.assert_allclose(got, x, **tol)
 
 
 def test_decode_primal_wrapper_takes_plain_path_on_cpu():
@@ -312,9 +328,11 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_decode_primal_kernel_matches_plain(cuda_device, dtype):
-    """The CUDA kernel against its plain version at the kernel's hidden width."""
+    """The CUDA kernel against its plain version at the kernel's hidden width, at the
+    point-block edges (128 points a block in bf16, 64 in float32), 1,000 points and one
+    145 x 257 frame."""
     rng = np.random.RandomState(11)
-    n, in_ch, hid = 1000, 192, 256
+    n_max, in_ch, hid = 37265, 192, 256
     fw = {
         k: torch.from_numpy((rng.randn(*s) * 0.1).astype(np.float32)).to(cuda_device)
         for k, s in dict(w1=(6, in_ch, hid), b1=(6, hid), w2f1=(6, hid, hid),
@@ -322,14 +340,17 @@ def test_decode_primal_kernel_matches_plain(cuda_device, dtype):
                          w2wo=(6, hid), wdwo=(6, in_ch), obias=(6,)).items()}
     fw = tdk.FusedDecodeWeights(w1c=tdk.slice_tangent_weights(fw["w1"]), **fw)
     td = getattr(torch, dtype)
-    pe = torch.from_numpy(rng.randn(n, in_ch).astype(np.float32)).to(cuda_device, td)
-    cd = torch.from_numpy(rng.randn(n, in_ch).astype(np.float32)).to(cuda_device, td)
-    ref_t = torch.from_numpy(rng.randn(6, n).astype(np.float32)).to(cuda_device)
-    before = tdk.decode_primal_v4t.launches
-    got = tdk.decode_primal_v4t(fw, pe, cd, ref_t, td)
-    torch.cuda.synchronize()
-    assert tdk.decode_primal_v4t.launches == before + 1
-    want = tdk.decode_primal_v4t_ref(fw, pe, cd, ref_t, td)
+    pe_all = torch.from_numpy(rng.randn(n_max, in_ch).astype(np.float32)).to(cuda_device, td)
+    cd_all = torch.from_numpy(rng.randn(n_max, in_ch).astype(np.float32)).to(cuda_device, td)
+    ref_all = torch.from_numpy(rng.randn(6, n_max).astype(np.float32)).to(cuda_device)
     # the bounds of chip_smoke.py: same rounding points, float32 summation order
     tol = 1e-5 if dtype == "float32" else 1e-3
-    assert float((got - want).abs().max()) <= tol * (1.0 + float(want.abs().max()))
+    for n in (1, 17, 64, 65, 129, 1000, n_max):
+        pe, cd, ref_t = pe_all[:n].contiguous(), cd_all[:n].contiguous(), ref_all[:, :n].contiguous()
+        before = tdk.decode_primal_v4t.launches
+        got = tdk.decode_primal_v4t(fw, pe, cd, ref_t, td)
+        torch.cuda.synchronize()
+        assert tdk.decode_primal_v4t.launches == before + 1
+        want = tdk.decode_primal_v4t_ref(fw, pe, cd, ref_t, td)
+        assert got.shape == (6, n) and bool(torch.isfinite(got).all())
+        assert float((got - want).abs().max()) <= tol * (1.0 + float(want.abs().max())), n
