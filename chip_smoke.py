@@ -18,11 +18,13 @@ Phases, each of which raises (exit code 1) on failure:
                and 50,000 points, with the launch count of the kernel, output
                checks, and one frame against the plain decode;
 4. forward  -- the v4s forward kernel (primal + three tangents) against its plain
-               version at 20,480, 4,096, 1,000 and 3 points of one flagship window,
-               bf16 and f32;
+               version at 20,480, 4,096, 1,000 and 3 points of one flagship window and
+               at the 64-point block edges 17, 64, 65 and 129 (the backward's point tile
+               too), bf16 and f32, the points near a relu's kink left out and counted;
 5. backward -- the v4s backward kernel against its plain version at the same sizes
-               with seeded random cotangents, per weight; and the
-               ``torch.autograd.Function`` that joins the two kernels against
+               with seeded random cotangents, per weight, and two runs of it; a reading
+               of the plain version's rounding on the v4s operands (as in phase 7); and
+               the ``torch.autograd.Function`` that joins the two kernels against
                autograd of the plain forward (weights, ``ref_t``, the zero cotangents);
 6. train    -- the flagship training step under the ``'kernel'`` engine on a seeded
                synthetic batch (20,480 margin + 4,096 collocation points): 3
@@ -51,7 +53,7 @@ Phases, each of which raises (exit code 1) on failure:
                ``kernel_version=4`` (the v4t pair), 1 with ``var_major`` off (the
                [N, 6] pair) and 1 under ``'linearize'``, with the launch counts;
 10. v6      -- the v6 forward and backward kernels against their plain versions,
-               bf16 and f32, at 20,480, 4,096, 1,000 and 3 points; the forward
+               bf16 and f32, at the sizes of phase 4; the forward
                against the v4s kernel on the same points and weights (the same
                bits); two runs of the backward; ``FusedDecodeJvpV6`` against
                autograd of the plain forward;
@@ -91,9 +93,10 @@ Phases, each of which raises (exit code 1) on failure:
 19. timing  -- by CUDA events, medians, alternating order: each kernel and its
                plain version at the main paths' sizes (the attention kernels beside one
                ``scaled_dot_product_attention`` call and a bound of three terms, the
-               single-tile kernel also at 1,024 tokens; the primal and v4 forward
-               kernels with their points a block, ptxas registers and spills, and
-               their products as batched ``torch.bmm`` calls), and the in-kernel residual
+               single-tile kernel also at 1,024 tokens; the primal, v4 forward and
+               v4s pair with their points a block, ptxas registers and spills, and
+               their products as batched ``torch.bmm`` calls; the v4s / v6 backward's
+               bytes of atomic adds a launch), and the in-kernel residual
                assembly against the split path at 40,960 to 131,072 points; by host
                clock around a synchronize: one frame, one training step of each
                kind, one residual sweep, split into their parts, and one encode
@@ -109,6 +112,7 @@ Without CUDA it exits with code 1 and prints no result.
 from __future__ import annotations
 
 import copy
+import ctypes
 import json
 import os
 import statistics
@@ -122,10 +126,11 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 FLAGSHIP_CFG = os.path.join(REPO, "configs", "DeepPhysiNet_NCEP_cfg.py")
 GRID_POINTS = 145 * 257
-V4S_SIZES = (20480, 4096, 1000, 3)
-# the point-block edges of the tensor-core decode kernels (64 points a block for v4, 128 for
-# the primal): a ragged block alone, one block, one past it, one past two v4 blocks
+# the point-block edges of the tensor-core decode kernels (64 points a block for v4, v4s and v6,
+# forward and backward, 128 for the primal): a ragged block alone, one block, one past it, one
+# past two 64-point blocks
 BLOCK_EDGE_SIZES = (17, 64, 65, 129)
+V4S_SIZES = (20480, 4096, 1000, 3) + BLOCK_EDGE_SIZES  # the step's two launches, ragged edges
 PRIMAL_SIZES = (GRID_POINTS, 1000, 3) + BLOCK_EDGE_SIZES  # one frame, ragged edges
 V4_SIZES = (GRID_POINTS, 20480, 4096, 1000, 3) + BLOCK_EDGE_SIZES  # a frame, the step's launches, edges
 TIMING_POINTS = 20480 + 4096  # the points one PDE step decodes
@@ -193,7 +198,10 @@ RTOL_BWD = {torch.float32: 1e-4, torch.bfloat16: 2e-3}
 # to its scale): the forward is compared on the others, and the backward's cotangents
 # are zero there (every output is linear in them, point by point).  The share left
 # out is printed and must stay under KINK_SHARE (or be one point: 3 to 4% of the points
-# lie that close, so at the 3-point size one of them does in a tenth of the runs).
+# lie that close, so at the 3-point size one of them does in a tenth of the runs).  The v4s
+# and v6 checks run on the training batch's points, of which 7 to 8% lie that close; at their
+# block-edge sizes (17 to 129 of the same first points) the count is printed and not held to
+# the share, which a handful of points cannot estimate (4 of the first 17 in bf16).
 KINK_EPS = 2e-6
 KINK_SHARE = 0.2
 #
@@ -440,6 +448,31 @@ def kernel_ptxas(build_log: str, kernel: str) -> str:
         elif inside and ("registers" in line or "spill" in line):
             report.append(line.split(":", 1)[-1].strip())
     return "; ".join(report) or "no ptxas report"
+
+
+def without_partial_atomics(cuda_build, source: str) -> ctypes.CDLL:
+    """``source`` built from a copy of the sources in which the backward's partials skip their
+    atomic adds (add_tile adds only a value that does not occur): a reading of what those adds
+    cost, never called by the port."""
+    work = os.path.join(cuda_build.BUILD_DIR, "without_partial_atomics")
+    os.makedirs(work, exist_ok=True)
+    for name in os.listdir(cuda_build.CSRC_DIR):
+        if name.endswith((".cu", ".cuh")):
+            with open(os.path.join(cuda_build.CSRC_DIR, name)) as f:
+                text = f.read()
+            if name == "decode_mma.cuh":
+                add = "atomicAdd(reinterpret_cast<float4*>(at), v);"
+                if add not in text:
+                    raise AssertionError("add_tile's atomic add not found in decode_mma.cuh")
+                text = text.replace(add, "if (v.x == 1.25e-37f) " + add)
+            with open(os.path.join(work, name), "w") as f:
+                f.write(text)
+    so = os.path.join(work, os.path.splitext(source)[0] + ".so")
+    res = subprocess.run([cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS, "-o", so, os.path.join(work, source)],
+                         capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed on the variant of {source}: {res.stderr[-2000:]}")
+    return ctypes.CDLL(so)
 
 
 def sm_clock_mhz() -> float:
@@ -975,15 +1008,77 @@ def main() -> int:
             f"differ by {rerun:.1e} (atomic adds){extra}")
         return worst_abs, rel[worst]
 
+    # The decode is not continuous in its sums (see KINK_EPS): the forward checks leave out the
+    # points with a relu argument near zero
+    def near_kink(fw, pe, w1, cd_pe, dtype):
+        """[N] bool: the points with a relu argument of the plain version near zero (KINK_EPS);
+        ``pe`` [N, in_ch] and ``w1`` [6, in_ch, hid] are the primal operand and its layer-1 rows."""
+        z = dk.dot_f32(pe, w1, dtype) + fw.b1[:, None, :]  # [6, N, hid]
+        near = (z.abs() < KINK_EPS * (1.0 + float(z.abs().max()))).any(-1).any(0)
+        r = (dk.dot_f32(torch.relu(z), fw.w2f1, dtype) + dk.dot_f32(cd_pe, fw.wdf1, dtype)
+             + fw.rbias[:, None, :])
+        return near | (r.abs() < KINK_EPS * (1.0 + float(r.abs().max()))).any(-1).any(0)
+
+    def rounding_reading(what, fw, pe, w1, tins, w1k, cd_pe, t0_):
+        """The rounding the bf16 tensor-core forward kernels follow (csrc/decode_jvp_tc.cuh,
+        fix_ties), a reading held to nothing: the plain version's z and u_k are one FMA a term in
+        k order, and any other sum flips some T(p) roundings, which switch tangent terms through
+        r's relu mask.  ``pe`` [N, in_ch] by ``w1`` [6, in_ch, hid] is layer 1; ``tins[k]`` [N, ch]
+        by ``w1k[:, k]`` the tangent rows; ``t0_`` the plain version's var-major tangents."""
+        bf = torch.bfloat16
+        with torch.no_grad():
+            def sequential(x, y):  # x [N, K] @ y [V, K, H], one rounding a term in k order
+                x, y = x.to(bf).float(), y.to(bf).float()  # bf16 products are exact in f32
+                s = torch.zeros(y.shape[0], x.shape[0], y.shape[2], device=dev)
+                for k in range(x.shape[1]):
+                    s = s + x[None, :, k, None] * y[:, None, k, :]
+                return s
+
+            z = dk.dot_f32(pe, w1, bf)
+            differ_seq = int((sequential(pe, w1) != z).sum())
+            differ_u = sum(int((sequential(tins[k], w1k[:, k]) != dk.dot_f32(tins[k], w1k[:, k], bf)).sum())
+                           for k in range(3))
+
+            def dot64(x, y):
+                return torch.matmul(x.to(bf).double(), y.to(bf).double()).float()
+
+            z += fw.b1[:, None, :]
+            z64 = dot64(pe, w1) + fw.b1[:, None, :]
+            differ_tp = int((torch.relu(z).to(bf) != torch.relu(z64).to(bf)).sum())
+            near = near_kink(fw, pe, w1, cd_pe, bf)
+            p64 = torch.relu(z64)
+            t64 = torch.stack([torch.where(z64 > 0, dot64(tins[k], w1k[:, k]), 0.0) for k in range(3)]).to(bf).float()
+            r64 = dot64(p64, fw.w2f1) + dot64(cd_pe, fw.wdf1) + fw.rbias[:, None, :]
+            to64 = ((torch.where((r64 > 0)[None], dot64(t64, fw.w2f1[None]), 0.0) * fw.fw2[None, :, None, :]).sum(-1)
+                    + 2.0 * (t64 * fw.w2wo[None, :, None, :]).sum(-1))
+            past = torch.zeros_like(near)
+            for k in range(3):
+                past |= ((to64[k] - t0_[k]).abs() > TOL_TANGENT[bf] * t0_[k].abs().max()).any(0)
+            log(f"[rounding] {what}, bf16: cuBLAS's z differs from one FMA a term in k order at {differ_seq} "
+                f"of {z.numel()} elements, its u_k at {differ_u} of {3 * z.numel()}; with float64 sums {differ_tp} "
+                f"T(p) elements round the other way, "
+                f"and {int((past & ~near).sum())} points' tangents then move past {TOL_TANGENT[bf]:.0e} of their "
+                f"largest outside the kink set")
+            del z, z64, p64, t64, r64, to64
+        torch.cuda.empty_cache()
+
+    def v4s_w1(fw6):  # the primal layer-1 rows of the v4s / v6 weights, [6, in_ch, hid]
+        return fw6.w1g.reshape(n_vars, -1, fw6.w1g.shape[-1])
+
     # ---- 4. v4s forward kernel against plain version -------------------------------------------
     fwd_err, fwd_rel, bwd_err, bwd_rel = {}, {}, {}, {}
     for dtype in (torch.bfloat16, torch.float32):
         for n in V4S_SIZES:
             fw6, pe_cm, cd_pe, ref_t = v4s_inputs(n, dtype)
+            near = near_kink(fw6, pe_cm, v4s_w1(fw6), cd_pe, dtype)
+            left_out = f"; {int(near.sum())} of {n} points near a relu's kink left out"
+            if n not in BLOCK_EDGE_SIZES and int(near.sum()) > max(1, KINK_SHARE * n):
+                raise AssertionError(f"v4s checks: {left_out} ({dtype})")
             p, t = dk.fused_decode_jvp_v4s(fw6, pe_cm, cd_pe, ref_t, dtype)
             torch.cuda.synchronize()
             p0, t0_ = dk.decode_jvp_v4s_ref(fw6, pe_cm, cd_pe, ref_t, dtype)
-            fwd_err[(dtype, n)], fwd_rel[(dtype, n)] = forward_check("forward", dtype, n, p, t, p0, t0_)
+            fwd_err[(dtype, n)], fwd_rel[(dtype, n)] = forward_check("forward", dtype, n, p, t, p0, t0_, left_out,
+                                                                     keep=~near)
 
     # ---- 5. v4s backward kernel against plain version -------------------------------------------
     for dtype in (torch.bfloat16, torch.float32):
@@ -995,6 +1090,14 @@ def main() -> int:
             torch.cuda.synchronize()
             want = dk.decode_bwd_v4s_ref(fw6, pe_cm, cd_pe, g_p, g_t, dtype)
             bwd_err[(dtype, n)], bwd_rel[(dtype, n)] = backward_check("backward", dtype, n, got, want, again)
+
+    # the rounding the bf16 v4s kernels follow, on the step's larger launch
+    fw6, pe_cm, cd_pe, ref_t = v4s_inputs(20480, torch.bfloat16)
+    two_f_ = fw6.w1t.shape[2]
+    rounding_reading("20,480 points of the v4s pair", fw6, pe_cm, v4s_w1(fw6),
+                     [pe_cm[:, k * two_f_:(k + 1) * two_f_] for k in range(3)], fw6.w1t, cd_pe,
+                     dk.decode_jvp_v4s_ref(fw6, pe_cm, cd_pe, ref_t, torch.bfloat16)[1])
+    del fw6, pe_cm, cd_pe, ref_t
 
     # the autograd.Function against autograd of the plain forward, f32
     def function_check(what, weights, points, g_p, g_t, kernel_fn, plain_fn, forward, backward):
@@ -1280,15 +1383,6 @@ def main() -> int:
         ref_t = ref_t[:, :n].contiguous()
         return (fw, pe[:n].contiguous(), dpe[:, :n].contiguous(), cd_pe[:n].contiguous()), ref_t, ref_t.t().contiguous()
 
-    def near_kink(fw, pe, w1, cd_pe, dtype):
-        """[N] bool: the points with a relu argument of the plain version near zero (KINK_EPS);
-        ``pe`` [N, in_ch] and ``w1`` [6, in_ch, hid] are the primal operand and its layer-1 rows."""
-        z = dk.dot_f32(pe, w1, dtype) + fw.b1[:, None, :]  # [6, N, hid]
-        near = (z.abs() < KINK_EPS * (1.0 + float(z.abs().max()))).any(-1).any(0)
-        r = (dk.dot_f32(torch.relu(z), fw.w2f1, dtype) + dk.dot_f32(cd_pe, fw.wdf1, dtype)
-             + fw.rbias[:, None, :])
-        return near | (r.abs() < KINK_EPS * (1.0 + float(r.abs().max()))).any(-1).any(0)
-
     v4_fwd_err, v4_fwd_rel, v4_bwd_err, v4_bwd_rel = {}, {}, {}, {}
     for dtype in (torch.bfloat16, torch.float32):
         frame = frame_inputs(6.5, dtype, with_tangents=True)
@@ -1343,46 +1437,10 @@ def main() -> int:
                    lambda w, *pts: dk.decode_jvp_v4_ref(w, *pts, f32),
                    dk.fused_decode_jvp_v4, dk.decode_bwd_kernel_v4)
 
-    # The rounding the bf16 v4 kernel follows (csrc/decode_jvp_v4.cu, fix_ties): the plain
-    # version's z and u_k are one FMA a term in k order, and any other sum flips some T(p)
-    # roundings, which switch tangent terms through r's relu mask.  A reading, held to nothing.
+    # The rounding the bf16 v4 kernel follows (csrc/decode_jvp_tc.cuh, fix_ties): a reading
     fw, pe, dpe, cd_pe, ref_t = frame_inputs(6.5, torch.bfloat16, with_tangents=True)
-    bf = torch.bfloat16
-    with torch.no_grad():
-        def sequential(x, y):  # x [N, K] @ y [V, K, H], one rounding a term in k order
-            x, y = x.to(bf).float(), y.to(bf).float()  # bf16 products are exact in f32
-            s = torch.zeros(y.shape[0], x.shape[0], y.shape[2], device=dev)
-            for k in range(x.shape[1]):
-                s = s + x[None, :, k, None] * y[:, None, k, :]
-            return s
-
-        z = dk.dot_f32(pe, fw.w1, bf)
-        differ_seq = int((sequential(pe, fw.w1) != z).sum())
-        differ_u = sum(int((sequential(dpe[k], fw.w1c[:, k]) != dk.dot_f32(dpe[k], fw.w1c[:, k], bf)).sum())
-                       for k in range(3))
-
-        def dot64(x, y):
-            return torch.matmul(x.to(bf).double(), y.to(bf).double()).float()
-
-        z += fw.b1[:, None, :]
-        z64 = dot64(pe, fw.w1) + fw.b1[:, None, :]
-        differ_tp = int((torch.relu(z).to(bf) != torch.relu(z64).to(bf)).sum())
-        near = near_kink(fw, pe, fw.w1, cd_pe, bf)
-        p64 = torch.relu(z64)
-        t64 = torch.stack([torch.where(z64 > 0, dot64(dpe[k], fw.w1c[:, k]), 0.0) for k in range(3)]).to(bf).float()
-        r64 = dot64(p64, fw.w2f1) + dot64(cd_pe, fw.wdf1) + fw.rbias[:, None, :]
-        to64 = ((torch.where((r64 > 0)[None], dot64(t64, fw.w2f1[None]), 0.0) * fw.fw2[None, :, None, :]).sum(-1)
-                + 2.0 * (t64 * fw.w2wo[None, :, None, :]).sum(-1))
-        _, t0_ = dk.decode_jvp_v4_ref(fw, pe, dpe, cd_pe, ref_t, bf, t_layout=True)
-        past = torch.zeros_like(near)
-        for k in range(3):
-            past |= ((to64[k] - t0_[k]).abs() > TOL_TANGENT[bf] * t0_[k].abs().max()).any(0)
-        log(f"[rounding] one frame, bf16: cuBLAS's z differs from one FMA a term in k order at {differ_seq} "
-            f"of {z.numel()} elements, its u_k at {differ_u} of {3 * z.numel()}; with float64 sums {differ_tp} "
-            f"T(p) elements round the other way, "
-            f"and {int((past & ~near).sum())} points' tangents then move past {TOL_TANGENT[bf]:.0e} of their "
-            f"largest outside the kink set")
-        del z, z64, p64, t64, r64, to64, t0_
+    rounding_reading("one frame", fw, pe, fw.w1, dpe, fw.w1c, cd_pe,
+                     dk.decode_jvp_v4_ref(fw, pe, dpe, cd_pe, ref_t, torch.bfloat16, t_layout=True)[1])
     del fw, pe, dpe, cd_pe, ref_t
     torch.cuda.empty_cache()
 
@@ -1484,8 +1542,8 @@ def main() -> int:
             p0, t0_ = dk.decode_jvp_v6_ref(fw6, trig, cd_pe, ref, dtype)
             # by now the model has taken training steps whose atomic adds differ from run to
             # run, so which points lie on a relu's kink does too: left out as in the v4 checks
-            near = near_kink(fw6, pe_cm, fw6.w1g.reshape(n_vars, -1, fw6.w1g.shape[-1]), cd_pe, dtype)
-            if int(near.sum()) > max(1, KINK_SHARE * n):
+            near = near_kink(fw6, pe_cm, v4s_w1(fw6), cd_pe, dtype)
+            if n not in BLOCK_EDGE_SIZES and int(near.sum()) > max(1, KINK_SHARE * n):
                 raise AssertionError(f"v6 checks: {int(near.sum())} of {n} points near a relu's kink ({dtype})")
             v6_fwd_err[(dtype, n)], v6_fwd_rel[(dtype, n)] = forward_check(
                 "v6 forward", dtype, n, p.t(), t.transpose(1, 2), p0.t(), t0_.transpose(1, 2),
@@ -1502,7 +1560,7 @@ def main() -> int:
             del p0, t0_, got, again, want
     fw6, trig, cd_pe, ref, pe_cm, _ = v6_inputs(1000, f32)
     g_p, g_t = cotangents(1000, seed=9)
-    near = near_kink(fw6, pe_cm, fw6.w1g.reshape(n_vars, -1, fw6.w1g.shape[-1]), cd_pe, f32)  # as for v4
+    near = near_kink(fw6, pe_cm, v4s_w1(fw6), cd_pe, f32)  # as for v4
     g_p[:, near], g_t[:, :, near] = 0.0, 0.0
     function_check("v6 backward", fw6, [trig, cd_pe, ref], *point_major(g_p, g_t),
                    lambda w, *pts: dk.fused_decode_jvp_v6_kbwd(w, *pts, f32),
@@ -1955,7 +2013,7 @@ def main() -> int:
 
     fwd_macs = in_ch * hid + 3 * two_f * hid + hid * hid + in_ch * hid + 3 * hid * hid  # per point and variable
     bwd_macs = fwd_macs + (4 * hid * hid + in_ch * hid) + 4 * hid * hid + (in_ch * hid + 3 * two_f * hid)
-    v4s_ms = {}
+    v4s_ms, v4s_bmm = {}, {}
     for n in (TIMING_POINTS, 20480, 4096):
         fw6, pe_cm, cd_pe6, ref6 = v4s_inputs(n, cd)
         g_p, g_t = cotangents(n, seed=3)
@@ -1970,6 +2028,28 @@ def main() -> int:
             pe_cm, cd_pe6, ref6, *matrices) + 4 * (n_vars * n + 3 * n_vars * n))
         b_bound = bound(2.0 * n_vars * bwd_macs * n, tensor_bytes(
             pe_cm, cd_pe6, g_p, g_t, *matrices[:-1]) + 4 * sum(w.numel() for w in fw6[:-1]))
+        # the products of each kernel as batched bf16 torch.bmm calls (a reading): the forward's
+        # layer 1, the three tangent directions, [T(p); t_k] . w2f1, cd . wdf1; the backward's the
+        # same plus g W^T for the four row sets and the point contractions (gw2f1 over 4 n points,
+        # gwdf1, gw1g, gw1t)
+        if n in (20480, 4096):
+            pe16 = per_variable(pe_cm.to(torch.bfloat16))
+            tin16 = pe16.reshape(n_vars, n, 3, two_f).permute(0, 2, 1, 3).reshape(3 * n_vars, n, two_f)
+            w16 = {k: getattr(fw6, k).to(torch.bfloat16) for k in ("w1g", "w1t", "w2f1", "wdf1")}
+            fwd_pairs = [(pe16, w16["w1g"].reshape(n_vars, in_ch, hid)),
+                         (tin16.contiguous(), w16["w1t"].reshape(3 * n_vars, two_f, hid)),
+                         (rows(hid, 4 * n), w16["w2f1"]), (per_variable(cd_pe6.to(torch.bfloat16)), w16["wdf1"])]
+            cols = lambda k, m: torch.randn(n_vars, k, m, device=dev, dtype=torch.bfloat16)  # noqa: E731
+            bwd_pairs = fwd_pairs + [(rows(hid, 4 * n), w16["w2f1"].transpose(1, 2)),
+                                     (cols(hid, 4 * n), rows(hid, 4 * n)), (cols(in_ch, n), rows(hid, n)),
+                                     (cols(in_ch, n), rows(hid, n)),
+                                     (torch.randn(3 * n_vars, two_f, n, device=dev, dtype=torch.bfloat16),
+                                      torch.randn(3 * n_vars, n, hid, device=dev, dtype=torch.bfloat16))]
+            v4s_bmm[n] = (bmm_ms(fwd_pairs), bmm_ms(bwd_pairs))
+            log(f"[timing] v4s at N={n} {cd}: the forward's products as 4 batched torch.bmm calls (a reading): "
+                f"{v4s_bmm[n][0]:.4f} ms ({2e-9 * n_vars * fwd_macs * n / v4s_bmm[n][0]:.2f} TFLOP/s); the "
+                f"backward's as 9: {v4s_bmm[n][1]:.4f} ms ({2e-9 * n_vars * bwd_macs * n / v4s_bmm[n][1]:.2f} TFLOP/s)")
+            del pe16, tin16, w16, fwd_pairs, bwd_pairs
         v4s_ms[n] = dict(fwd=f_ms, fwd_plain=fp_ms, bwd=b_ms, bwd_plain=bp_ms, fwd_bound=f_bound, bwd_bound=b_bound)
         log(f"[timing] v4s at N={n} {cd}: forward kernel {f_ms:.4f} ms ({2e-9 * n_vars * fwd_macs * n / f_ms:.2f} "
             f"TFLOP/s), plain {fp_ms:.4f} ms, bound {f_bound[0]:.4f} ms ({f_bound[1]}); backward kernel "
@@ -1977,6 +2057,51 @@ def main() -> int:
             f"{b_bound[0]:.4f} ms ({b_bound[1]}); runs fwd {[round(t, 3) for t in f_times['kernel']]} "
             f"bwd {[round(t, 3) for t in b_times['kernel']]}")
     del fw6, pe_cm, cd_pe6, ref6, g_p, g_t
+    # points a block, registers and spills, and the backward's atomic adds into global memory
+    jvp_lib, bwd_lib = dk._jvp_library(dk.SOURCE_JVP_V4S), dk._jvp_library(dk.SOURCE_BWD_V4S)
+    bwd_lib.dpn_decode_bwd_v4s_atomic_bytes.restype = ctypes.c_int64
+    is_bf16 = int(cd == torch.bfloat16)
+    v4s_block = (jvp_lib.dpn_decode_jvp_v4s_block(), bwd_lib.dpn_decode_bwd_v4s_block(is_bf16))
+    v4s_ptxas = (kernel_ptxas(cuda_build.BUILD_LOGS.get(dk.SOURCE_JVP_V4S, ""),
+                              "decode_jvp_v4s_tc" if is_bf16 else "decode_jvp_v4s_kernel"),
+                 kernel_ptxas(cuda_build.BUILD_LOGS.get(dk.SOURCE_BWD_V4S, ""),
+                              "decode_bwd_v4s_tc" if is_bf16 else "decode_bwd_v4s_kernel"))
+    # the earlier CUDA-core body added each 64-point block's gw2f1 partial once for each of the
+    # four row-set pairs: 4 HID^2 + 3 in_ch HID floats, and 4 HID + in_ch of column sums
+    atomic_before = 4 * (4 * hid * hid + 3 * in_ch * hid + 4 * hid + in_ch)
+    v4s_atomic = {}
+    for n in (20480, 4096):
+        blocks = -(-n // v4s_block[1]) * n_vars
+        v4s_atomic[n] = blocks * bwd_lib.dpn_decode_bwd_v4s_atomic_bytes(is_bf16, in_ch)
+        log(f"[backward traffic] v4s / v6 backward at N={n} {cd}: {blocks} blocks add "
+            f"{v4s_atomic[n] / 1e9:.3f} GB into the outputs with atomic adds (the earlier CUDA-core body: "
+            f"{-(-n // 64) * n_vars * atomic_before / 1e9:.3f} GB)")
+    # what the partials' atomic adds cost: the backward against its variant without them, at the
+    # step's larger launch, in turns (tree, variant, tree)
+    fw6, pe_cm, cd_pe6, _ = v4s_inputs(20480, cd)
+    g_p, g_t = cotangents(20480, seed=3)
+    bwd_fn = lambda: dk.decode_bwd_kernel_v4s(fw6, pe_cm, cd_pe6, g_p, g_t, cd)  # noqa: E731
+    variant = without_partial_atomics(cuda_build, dk.SOURCE_BWD_V4S)
+    load_library = cuda_build.load_library
+    atomic_ms = []
+    for skip in (False, True, False):
+        dk._jvp_library.cache_clear()
+        cuda_build.load_library = (lambda source: variant if source == dk.SOURCE_BWD_V4S
+                                   else load_library(source)) if skip else load_library
+        try:
+            bwd_fn()
+            atomic_ms.append(statistics.median(cuda_ms(bwd_fn, 5) for _ in range(4)))
+        finally:
+            cuda_build.load_library = load_library
+            dk._jvp_library.cache_clear()
+    log(f"[backward traffic] v4s backward at N=20480 {cd}: {atomic_ms[0]:.4f} / {atomic_ms[2]:.4f} ms, and "
+        f"{atomic_ms[1]:.4f} ms with the partials' atomic adds skipped (a variant built for this reading): "
+        f"the adds cost {(atomic_ms[0] + atomic_ms[2]) / 2 - atomic_ms[1]:.4f} ms")
+    del fw6, pe_cm, cd_pe6, g_p, g_t
+    log(f"[timing] v4s forward {cd}: {v4s_block[0]} points and one variable a block, 256 threads; ptxas "
+        f"{v4s_ptxas[0]}")
+    log(f"[timing] v4s backward {cd}: {v4s_block[1]} points and one variable a block, 256 threads; ptxas "
+        f"{v4s_ptxas[1]}")
 
     # the v4 pair in both layouts, at one evaluation frame and at the step's larger launch;
     # the same operations per point as v4s (two_f = in_ch / 3 lanes per tangent direction)
@@ -2336,6 +2461,20 @@ def main() -> int:
     jax_file = "deepphysinet_tpu/ops/decode_kernel.py"
     # the decode kernels whose bf16 products run on the tensor cores
     tc_products = "tensor cores (mma.sync), PR 8" if cd == torch.bfloat16 else "CUDA cores (FMA)"
+    tc_products9 = "tensor cores (mma.sync), PR 9" if cd == torch.bfloat16 else "CUDA cores (FMA)"
+
+    def v4s_extra(which, times):
+        """The v4s / v6 rows' readings beside the contract's keys: the products, points a block,
+        ptxas, the time at the step's smaller launch, the products as batched torch.bmm calls and,
+        for the backward, the atomic bytes a launch."""
+        i = 0 if which == "fwd" else 1
+        extra = {"products": tc_products9, "points_a_block": v4s_block[i], "ptxas": v4s_ptxas[i],
+                 "ms_4096": times[4096][which], "bound_ms_4096": times[4096][which + "_bound"][0],
+                 "bmm_ms": v4s_bmm[main_n][i], "bmm_ms_4096": v4s_bmm[4096][i]}
+        if which == "bwd":
+            extra.update(atomic_bytes=v4s_atomic[main_n], atomic_bytes_4096=v4s_atomic[4096],
+                         ms_without_partial_atomics=atomic_ms[1])
+        return extra
 
     def v4_entry(name, source, replaces, t_layout, n, which, errs_, rels_):
         tm = v4_ms[(t_layout, n)]
@@ -2398,13 +2537,13 @@ def main() -> int:
          "launches": fwd_launches, "max_abs_err": fwd_err[(cd, main_n)],
          "max_rel_err": fwd_rel[(cd, main_n)], "points": main_n,
          "ms": t["fwd"], "plain_ms": t["fwd_plain"], "bound_ms": t["fwd_bound"][0],
-         "bound_by": t["fwd_bound"][1], "library_ms": None},
+         "bound_by": t["fwd_bound"][1], "library_ms": None, **v4s_extra("fwd", v4s_ms)},
         {"name": "decode_bwd_kernel_v4s", "route": "cuda", "source": csrc + "decode_bwd_v4s.cu",
          "replaces": f"{jax_file}:2508",
          "launches": bwd_launches, "max_abs_err": bwd_err[(cd, main_n)],
          "max_rel_err": bwd_rel[(cd, main_n)], "points": main_n,
          "ms": t["bwd"], "plain_ms": t["bwd_plain"], "bound_ms": t["bwd_bound"][0],
-         "bound_by": t["bwd_bound"][1], "library_ms": None},
+         "bound_by": t["bwd_bound"][1], "library_ms": None, **v4s_extra("bwd", v4s_ms)},
         # the [N, 6] and [6, N] forms share one source; the sweeps decode one frame per launch
         {**v4_entry("fused_decode_jvp_v4", "decode_jvp_v4.cu", 781, False, GRID_POINTS, "fwd", v4_fwd_err,
                     v4_fwd_rel), "products": tc_products},
@@ -2413,8 +2552,10 @@ def main() -> int:
         v4_entry("decode_bwd_kernel_v4", "decode_bwd_v4.cu", 1562, False, main_n, "bwd", v4_bwd_err, v4_bwd_rel),
         v4_entry("decode_bwd_kernel_v4t", "decode_bwd_v4.cu", 1642, True, main_n, "bwd", v4_bwd_err, v4_bwd_rel),
         # the v6 pair shares its sources with the v4s pair (another operand layout)
-        v6_entry("fused_decode_jvp_v6", "decode_jvp_v4s.cu", 1978, "fwd", v6_fwd_err, v6_fwd_rel),
-        v6_entry("decode_bwd_kernel_v6", "decode_bwd_v4s.cu", 2115, "bwd", v6_bwd_err, v6_bwd_rel),
+        {**v6_entry("fused_decode_jvp_v6", "decode_jvp_v4s.cu", 1978, "fwd", v6_fwd_err, v6_fwd_rel),
+         **v4s_extra("fwd", v6_ms)},
+        {**v6_entry("decode_bwd_kernel_v6", "decode_bwd_v4s.cu", 2115, "bwd", v6_bwd_err, v6_bwd_rel),
+         **v4s_extra("bwd", v6_ms)},
         residual_entry("fused_residual_sums_v6", 6, 127),
         residual_entry("fused_residual_sums_v4", 4, 48),
         # the attention kernels at the encoder's 287 tokens: the paths' shape

@@ -92,7 +92,8 @@ template <int TM> __device__ __forceinline__ void zero_tile(float (&acc)[TM][TN]
 // lives in global memory and is staged through Ws one KT-row tile at a time.
 // The barrier at the top of each tile also publishes the caller's shared
 // writes and protects Ws and A from the previous stage's readers.
-template <typename T, typename TA, int TM>
+// With WT, W [HID, K] is read transposed: acc += A . W^T, each tile gathered column by column.
+template <typename T, typename TA, int TM, bool WT = false>
 __device__ __forceinline__ void block_gemm(const TA* As, int lda, const T* __restrict__ W,
                                            int K, T* Ws, float (&acc)[TM][TN]) {
   const int tid = threadIdx.x;
@@ -100,9 +101,16 @@ __device__ __forceinline__ void block_gemm(const TA* As, int lda, const T* __res
   constexpr int NVEC = KT * HID * (int)sizeof(T) / 16;
   for (int k0 = 0; k0 < K; k0 += KT) {
     __syncthreads();
-    const uint4* src = reinterpret_cast<const uint4*>(W + (size_t)k0 * HID);
-    uint4* dst = reinterpret_cast<uint4*>(Ws);
-    for (int i = tid; i < NVEC; i += THREADS) dst[i] = src[i];
+    if constexpr (WT) {
+      for (int i = tid; i < KT * HID; i += THREADS) {
+        const int col = i / KT, kk = i - col * KT;
+        Ws[kk * HID + col] = W[(size_t)col * K + k0 + kk];
+      }
+    } else {
+      const uint4* src = reinterpret_cast<const uint4*>(W + (size_t)k0 * HID);
+      uint4* dst = reinterpret_cast<uint4*>(Ws);
+      for (int i = tid; i < NVEC; i += THREADS) dst[i] = src[i];
+    }
     __syncthreads();
 #pragma unroll 2
     for (int kk = 0; kk < KT; ++kk) {

@@ -30,19 +30,30 @@
 // z as three K = two_f products; here it is one K = 3 two_f sum in f32, the
 // same terms in another order.
 //
-// What bounds it: 4.92 MFLOP per point (6 variables x 409,600 MACs) against
-// about 900 bytes of point I/O, so it is compute bound; this first version
-// runs the products on the CUDA cores (FMA), not the tensor cores.  Design:
-// a block owns NB = 64 points and ONE variable (grid = blocks x variables), so
-// blocks are independent and a 4,096-point launch still fills the card.  The
-// chain of one variable is decode_common.cuh's primal_stages and tangent_stage:
-// the tangents are processed one direction at a time and w2f1 is streamed four
-// times per block from L2.  The v6 operand is gathered into the channel-major
-// row as it is loaded, so the two forms share everything after the load; a v6
-// block stores one float per point at a stride of n_vars floats.  The ragged
-// last block is masked here (zero rows in, no stores out).
+// What bounds it: 4.92 MFLOP per point (6 variables x 409,600 MACs) against about 900 bytes of
+// point I/O, so it is compute bound.  A block owns NB = 64 points and ONE variable (grid =
+// blocks x variables), so blocks are independent and a 4,096-point launch still fills the card;
+// the ragged last block is masked (zero rows in, no stores out).
+//
+// bf16 (decode_jvp_v4s_tc, the flagship's type): the products on the tensor cores, in the body
+// of the v4 forward (decode_jvp_tc.cuh; design, shared memory and rounding in decode_jvp_v4.cu's
+// header), which computes the same function: only the tangent operand differs.  v4 reads it
+// from a dpe input of its own; here direction k's tangent rows are lanes k two_f .. of the primal
+// rows already in shared memory, so there is no dpe load and no dpe buffer, and the primal rows
+// lie under t_2's row set (read until u_2 is done).  fix_ties reads the same lanes from global
+// memory.  Shared memory at flagship width (in_ch 192): 226,560 bytes, as v4's (the row sets
+// outgrow the primal and dpe rows that lie under them).
+//
+// float (decode_jvp_v4s_kernel, the parity configuration; no TF32): the products on the CUDA
+// cores (FMA), decode_common.cuh's primal_stages and tangent_stage: the tangents are processed
+// one direction at a time and w2f1 is streamed four times per block from L2.
+//
+// The v6 operand is gathered into the channel-major row as it is loaded (by cp.async in bf16),
+// so the two forms share everything after the load; a v6 block stores one float per point at a
+// stride of n_vars floats.  The v6 forward therefore gives the bits of the v4s forward.
 
 #include "decode_common.cuh"
+#include "decode_jvp_tc.cuh"
 
 namespace {
 
@@ -50,6 +61,45 @@ using namespace dpn;
 
 constexpr int TM = 8;            // accumulator rows per thread
 constexpr int NB = WARPS * TM;   // points per block
+static_assert(NB == jvp::NB, "both bodies take the same points a block");
+
+// ---- bf16: tensor cores -----------------------------------------------------------------
+
+__global__ void __launch_bounds__(THREADS, 1)
+decode_jvp_v4s_tc(const jvp::bf16* __restrict__ pe, const jvp::bf16* __restrict__ cd,
+                  const float* __restrict__ ref, const jvp::bf16* __restrict__ w1g,
+                  const jvp::bf16* __restrict__ w1t, const float* __restrict__ b1,
+                  const jvp::bf16* __restrict__ w2f1, const jvp::bf16* __restrict__ wdf1,
+                  const float* __restrict__ rbias, const float* __restrict__ fw2,
+                  const float* __restrict__ w2wo, const float* __restrict__ wdwo,
+                  const float* __restrict__ obias, float* __restrict__ primal,
+                  float* __restrict__ tang, int64_t n, int in_ch, int n_vars, int v6) {
+  const int v = blockIdx.y;
+  const jvp::RowSource src{v6 ? nullptr : pe, v6 ? pe : nullptr, n, in_ch};
+  jvp::forward_block(src, cd, ref, w1g + (size_t)v * in_ch * HID, w1t + (size_t)v * in_ch * HID, b1, w2f1,
+                     wdf1, rbias, fw2, w2wo, wdwo, obias, primal, tang, n_vars, v6 == 0);
+}
+
+int launch_tc(const void* pe, const void* cd, const float* ref, const void* w1g, const void* w1t,
+              const float* b1, const void* w2f1, const void* wdf1, const float* rbias,
+              const float* fw2, const float* w2wo, const float* wdwo, const float* obias,
+              float* primal, float* tang, int64_t n, int in_ch, int n_vars, int v6,
+              cudaStream_t stream) {
+  if (!jvp::row_region_valid(in_ch, false)) return (int)cudaErrorInvalidValue;
+  const size_t smem = jvp::fwd_smem(in_ch, false).total;
+  cudaError_t err = cudaFuncSetAttribute(decode_jvp_v4s_tc, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  using jvp::bf16;
+  const dim3 grid((unsigned)((n + jvp::NB - 1) / jvp::NB), (unsigned)n_vars);
+  decode_jvp_v4s_tc<<<grid, THREADS, smem, stream>>>(
+      static_cast<const bf16*>(pe), static_cast<const bf16*>(cd), ref, static_cast<const bf16*>(w1g),
+      static_cast<const bf16*>(w1t), b1, static_cast<const bf16*>(w2f1), static_cast<const bf16*>(wdf1),
+      rbias, fw2, w2wo, wdwo, obias, primal, tang, n, in_ch, n_vars, v6);
+  return (int)cudaGetLastError();
+}
+
+// ---- float: CUDA cores ---------------------------------------------------------------------
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS, 1)
@@ -137,8 +187,10 @@ extern "C" {
 // Hidden width the kernel was built for; shared memory one block needs at this
 // input width.
 int dpn_decode_jvp_v4s_hid() { return dpn::HID; }
+int dpn_decode_jvp_v4s_block() { return NB; }  // points a block takes, both bodies
 int dpn_decode_jvp_v4s_shared_bytes(int is_bf16, int in_ch) {
-  return (int)(is_bf16 ? shared_bytes<__nv_bfloat16>(in_ch) : shared_bytes<float>(in_ch));
+  if (!is_bf16) return (int)shared_bytes<float>(in_ch);
+  return jvp::row_region_valid(in_ch, false) ? (int)jvp::fwd_smem(in_ch, false).total : 1 << 30;
 }
 
 // is_bf16: 1 for __nv_bfloat16 inputs, 0 for float.  v6: 0 for pe [n, in_ch], ref
@@ -152,8 +204,8 @@ int dpn_decode_jvp_v4s(int is_bf16, const void* pe, const void* cd, const float*
                        float* tang, int64_t n, int in_ch, int n_vars, int v6, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch<__nv_bfloat16>(pe, cd, ref, w1g, w1t, b1, w2f1, wdf1, rbias, fw2, w2wo,
-                                 wdwo, obias, primal, tang, n, in_ch, n_vars, v6, s);
+    return launch_tc(pe, cd, ref, w1g, w1t, b1, w2f1, wdf1, rbias, fw2, w2wo, wdwo, obias, primal, tang,
+                     n, in_ch, n_vars, v6, s);
   return launch<float>(pe, cd, ref, w1g, w1t, b1, w2f1, wdf1, rbias, fw2, w2wo, wdwo, obias,
                        primal, tang, n, in_ch, n_vars, v6, s);
 }

@@ -1,8 +1,9 @@
 // Shared device code of the decode kernels whose bf16 products run on the tensor cores
-// (decode_jvp_v4.cu's v4 body, decode_primal.cu): a warp's tile of a row-times-weight
-// product by mma.sync m16n8k16 (mma_bf16.cuh), the cp.async copies of the block's point rows
-// and of weight tiles into shared memory, and the ring of weight tiles that keeps the next
-// tiles' copies in flight while a tile is multiplied.
+// (decode_jvp_tc.cuh's forward body, decode_bwd_v4s.cu, decode_primal.cu): a warp's tile of a
+// row-times-weight product by mma.sync m16n8k16 (mma_bf16.cuh), the cp.async copies of the
+// block's point rows and of weight tiles into shared memory, the ring of weight tiles that keeps
+// the next tiles' copies in flight while a tile is multiplied, and the vector atomic add of a
+// warp's tile of a point contraction.
 //
 // Layout.  Every bf16 array in shared memory is row-major with a row stride of cols + 8
 // elements (ld_of): for cols a multiple of 64 the stride is 16 bytes past a multiple of 128,
@@ -37,6 +38,15 @@ __device__ __forceinline__ uint32_t a_lane(const bf16* tile, int ld, int lane) {
 }
 __device__ __forceinline__ uint32_t b_lane(const bf16* tile, int ld, int lane) {
   return mma::smem_addr(tile + ((lane & 7) + (((lane >> 3) & 1) << 3)) * ld + ((lane >> 4) << 3));
+}
+
+// This lane's ldmatrix row address for the four 8 x 8 matrices of the 16 x 16 block at `tile` in
+// quadrant order (rows 0-7, cols 0-7), (rows 0-7, cols 8-15), (rows 8-15, cols 0-7), (rows 8-15,
+// cols 8-15).  Read with ldmatrix_x4_trans from rows [n][i] it gives the A fragment of the
+// transpose (A^T[i][n], the point contractions' operand); read with ldmatrix_x4 from a weight
+// W [k][c] it gives the B fragments of W^T for two n8 tiles (k 0-7, then 8-15).
+__device__ __forceinline__ uint32_t quad_lane(const bf16* tile, int ld, int lane) {
+  return mma::smem_addr(tile + ((lane & 7) + ((lane >> 4) << 3)) * ld + (((lane >> 3) & 1) << 3));
 }
 
 // acc[0:MT] += A[., 0:16 KS] . W[0:16 KS, 0:8 NT]: a and b are this lane's addresses
@@ -135,6 +145,27 @@ __device__ __forceinline__ void cd_sums(const bf16* cd_s, int ld, int in_ch,
     s = warp_sum(s);
     if (lane == 0) out[row] = s;
   }
+}
+
+// out[i0 + 16 mt + g (+ 8), j0 + 8 nt + 2 t (+ 1)] += acc[mt][nt] in global memory (row stride
+// ld_out floats, 16-byte aligned rows): lanes t and t ^ 1 swap halves so that each adds four
+// adjacent floats of one row with one vector atomic add (even t: row g, odd t: row g + 8).
+template <int MT, int NT>
+__device__ __forceinline__ void add_tile(float* __restrict__ out, int ld_out, int i0, int j0,
+                                         const float (&acc)[MT][NT][4], int lane) {
+  const bool odd = lane & 1;
+  const int g = lane >> 2, col = j0 + 4 * ((lane & 3) >> 1);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const float* a = acc[mt][nt];
+      const float y0 = __shfl_xor_sync(0xffffffffu, odd ? a[0] : a[2], 1);
+      const float y1 = __shfl_xor_sync(0xffffffffu, odd ? a[1] : a[3], 1);
+      const float4 v = odd ? make_float4(y0, y1, a[2], a[3]) : make_float4(a[0], a[1], y0, y1);
+      float* at = out + (size_t)(i0 + 16 * mt + g + (odd ? 8 : 0)) * ld_out + col + 8 * nt;
+      atomicAdd(reinterpret_cast<float4*>(at), v);
+    }
 }
 
 // A ring of NS weight tiles in shared memory (slots of slot_bytes from base), filled by

@@ -634,7 +634,7 @@ def decode_bwd_v4_ref(fw: FusedDecodeWeights, pe: torch.Tensor, dpe: torch.Tenso
 # source's ``_hid`` and ``_shared_bytes`` queries.
 _LAUNCHERS = {
     SOURCE_JVP_V4S: (("dpn_decode_jvp_v4s", 15),),
-    SOURCE_BWD_V4S: (("dpn_decode_bwd_v4s", 22),),
+    SOURCE_BWD_V4S: (("dpn_decode_bwd_v4s", 21),),
     SOURCE_JVP_V4: (("dpn_decode_jvp_v4", 16), ("dpn_decode_jvp_v5", 16), ("dpn_decode_jvp_v4pe", 16)),
     SOURCE_BWD_V4: (("dpn_decode_bwd_v4", 23),),
     SOURCE_JVP_V2: (("dpn_decode_jvp_v2", 20), ("dpn_decode_jvp_v3", 20)),
@@ -776,8 +776,10 @@ def fused_decode_jvp_v4s(fw: FusedDecodeWeightsV6, pe_cm: torch.Tensor, cd_pe: t
 
 fused_decode_jvp_v4s.launches = 0
 
-# order of the backward kernels' weight inputs after the layer-1 pair (w2f1_t is
-# the transposed copy the kernels read W^T from) and of their outputs
+# order of the backward kernels' weight inputs after the layer-1 pair and of their
+# outputs; the v4 backward also takes w2f1_t, a transposed copy it reads W^T from
+# (the v4s / v6 backward reads W^T from w2f1 itself)
+_BWD_WEIGHTS_V4S = ("b1", "w2f1", "wdf1", "rbias", "fw2", "w2wo")
 _BWD_WEIGHTS = ("b1", "w2f1", "w2f1_t", "wdf1", "rbias", "fw2", "w2wo")
 _BWD_OUTPUTS = ("b1", "w2f1", "wdf1", "rbias", "fw2", "w2wo", "wdwo")
 
@@ -802,14 +804,13 @@ def decode_bwd_kernel_v4s(fw: FusedDecodeWeightsV6, pe_cm: torch.Tensor, cd_pe: 
     lib, w = _jvp_kernel_inputs(name, SOURCE_BWD_V4S, fw, _v4s_matrices(fw), pe_cm, cd_pe,
                                 compute_dtype, [("g_primal_t", g_primal_t, (n_vars, n), torch.float32),
                                                 ("g_tang_t", g_tang_t, (3, n_vars, n), torch.float32)])
-    w["w2f1_t"] = w["w2f1"].transpose(1, 2).contiguous()
     out = FusedDecodeWeightsV6(*(
         g_primal_t.sum(1) if k == "obias" else _zeros_f32(t)
         for k, t in zip(fw._fields, fw)))
     if n == 0:
         return out
     _launch(name, decode_bwd_kernel_v4s, lib.dpn_decode_bwd_v4s, compute_dtype,
-            [pe_cm, cd_pe, g_primal_t, g_tang_t, w["w1g"], w["w1t"]] + [w[k] for k in _BWD_WEIGHTS]
+            [pe_cm, cd_pe, g_primal_t, g_tang_t, w["w1g"], w["w1t"]] + [w[k] for k in _BWD_WEIGHTS_V4S]
             + [out.w1g, out.w1t] + [getattr(out, k) for k in _BWD_OUTPUTS],
             (n, in_ch, n_vars, 0), pe_cm.device)
     return out
@@ -1087,13 +1088,12 @@ def decode_bwd_kernel_v6(fw: FusedDecodeWeightsV6, trig: torch.Tensor, cd_pe: to
                                 [("g_primal", g_primal, (n, n_vars), torch.float32),
                                  ("g_tang", g_tang, (3, n, n_vars), torch.float32)],
                                 pe_shape=(3, n, in_ch // 3))
-    w["w2f1_t"] = w["w2f1"].transpose(1, 2).contiguous()
     out = FusedDecodeWeightsV6(*(
         g_primal.sum(0) if k == "obias" else _zeros_f32(t) for k, t in zip(fw._fields, fw)))
     if n == 0:
         return out
     _launch(name, decode_bwd_kernel_v6, lib.dpn_decode_bwd_v4s, compute_dtype,
-            [trig, cd_pe, g_primal, g_tang, w["w1g"], w["w1t"]] + [w[k] for k in _BWD_WEIGHTS]
+            [trig, cd_pe, g_primal, g_tang, w["w1g"], w["w1t"]] + [w[k] for k in _BWD_WEIGHTS_V4S]
             + [out.w1g, out.w1t] + [getattr(out, k) for k in _BWD_OUTPUTS],
             (n, in_ch, n_vars, 1), trig.device)
     return out
