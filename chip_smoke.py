@@ -219,11 +219,15 @@ RTOL_SWEEP = 2e-3
 # block, then blocks in order; the plain version: torch.sum).  float32 is held to 1e-4,
 # the bar of the JAX package's tests at 64 points; bf16 to 2e-3, where a summation
 # difference may flip the bf16 rounding of p or of a tangent (as RTOL_BWD).  The vapor
-# equation switches a whole term on delta = 1[Dp/Dt < 0 and q >= q_s]: a point within
-# SWITCH_EPS of either switch may land on the other side in the kernel, only sums come
+# equation switches a whole term on delta = 1[Dp/Dt < 0 and q >= q_s], and with the clip
+# its Dp/Dt or Dq/Dt drops to zero where p or q crosses a bound: a point within SWITCH_EPS
+# of a switch of delta (Dp/Dt = 0, q = q_s, the pole of q_s's Tetens formula), or within
+# KINK_EPS of a bound of p or q, may land on the other side in the kernel, only sums come
 # out, so that equation alone is also allowed the size of those points' terms (printed
 # with their count).  The same bounds hold the in-kernel path to the split path through
-# the entry points.
+# the entry points, whose decodes sum in different orders (the split path's bf16 forward
+# runs on the tensor cores), so that a p on its lower bound in one may lie just above it
+# in the other.
 RTOL_RESIDUAL = {torch.float32: 1e-4, torch.bfloat16: 2e-3}
 SWITCH_EPS = {torch.float32: 1e-5, torch.bfloat16: 1e-3}
 
@@ -417,6 +421,56 @@ def bound(flops: float, nbytes: float):
     """(least ms the card could take, what bounds it)."""
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def vapor_switch_set(engine, scfg, primal, tang, with_clip: bool, eps: float, bound_eps: float):
+    """Of a decode's points (``primal`` [N, 6], ``tang`` [3, N, 6]): those within eps of a
+    switch of the vapor equation's term ([N] bool), and the most each squared term can move
+    ([N]).  The term switches on delta = 1[Dp/Dt < 0 and q >= q_s] where Dp/Dt = 0 and where
+    q = q_s, and q_s jumps through the pole of the Tetens formula (p = 0.378 e_s); with the
+    clip, Dp/Dt and Dq/Dt jump where p or q crosses a bound, which zeroes its derivative on
+    one side: the points whose normalized p or q lies within bound_eps * (1 + its largest)
+    of a bound are allowed their terms with the derivatives of either side.  A bound is a
+    kink of the fields that the primal decides, as a relu's argument decides its kink, so
+    the checks pass KINK_EPS."""
+    c = scfg.constants
+    P, D = engine.packed_physical_from_primal_tangents(primal, tang, scfg.obs_specs, with_clip)
+    u, v, p, T, q = P[0], P[1], P[2], P[3], P[4]
+    q_s = torch.clamp(engine.saturation_specific_humidity_packed(p, T), min=1e-6)
+    e_s = 6.112 * torch.exp(17.67 * (T - 273.15) / (T - 273.15 + 243.5)) * 100.0
+    f_fac = (c.latent_heat * (1.0 + 0.608 * q) * c.r_d - c.c_p * c.r_v * T) / (
+        c.c_p * c.r_v + T * T + c.latent_heat**2 * q_s) * q_s * T
+
+    def derivatives_and_size(D_):
+        dp = D_[2, 2] + u * D_[0, 2] + v * D_[1, 2]
+        dq = D_[2, 4] + u * D_[0, 4] + v * D_[1, 4]
+        on = -dp * f_fac / (p + c.eps_rho) + dq
+        return dp, torch.maximum(on * on, dq * dq)
+
+    dp, size = derivatives_and_size(D)
+    # an exact tie is no switch (Dp/Dt = 0 of a clipped p, q = q_s of a q clipped to the floor
+    # of q_s): the clip's own switch is its bounds, below
+    near = ((dp != 0) & (dp.abs() < eps * dp.abs().max())) | ((q != q_s) & ((q - q_s).abs() < eps * q_s)) | (
+        (p - 0.378 * e_s).abs() < eps * p)
+    if with_clip:
+        on_bound = torch.zeros_like(near)
+        for i in (2, 4):
+            spec = scfg.obs_specs[i]
+            scale = 1.0 + float(primal[:, i].abs().max())
+            for b in spec.bound:
+                on_bound |= (primal[:, i] - (b - spec.norm_factor[0]) / spec.norm_factor[1]).abs() < bound_eps * scale
+        _, free = derivatives_and_size(engine.packed_physical_from_primal_tangents(
+            primal, tang, scfg.obs_specs, False)[1])
+        size = torch.where(on_bound, torch.maximum(size, free), size)
+        near |= on_bound
+    return near, size
+
+
+def vapor_switch_points(engine, scfg, primal, tang, with_clip: bool, eps: float, bound_eps: float):
+    """How many points lie near a switch of the vapor term, and the most their squared terms
+    can move together (``vapor_switch_set``)."""
+    near, size = vapor_switch_set(engine, scfg, primal, tang, with_clip, eps, bound_eps)
+    return int(near.sum()), float(size[near].double().sum())
 
 
 def attention_ptxas(build_log: str):
@@ -1595,24 +1649,7 @@ def main() -> int:
             weights, pe, dpe, cd_pe = engine._kernel_inputs(model, tokens_w, coords, nwp, fh_w, scfg.coord_spec)
             return dk.fuse_decode_weights(weights), pe.to(dtype), dpe.to(dtype), cd_pe.to(dtype), nwp
 
-    def vapor_switch_points(primal, tang, cor, with_clip, eps):
-        """Of the plain decode's points: how many lie within eps of a switch of the vapor
-        equation's delta (Dp/Dt = 0, q = q_s), and the most their squared terms can move."""
-        P, D = engine.packed_physical_from_primal_tangents(primal, tang, scfg.obs_specs, with_clip)
-        u, v, p, T, q = P[0], P[1], P[2], P[3], P[4]
-        dp = D[2, 2] + u * D[0, 2] + v * D[1, 2]
-        dq = D[2, 4] + u * D[0, 4] + v * D[1, 4]
-        c = scfg.constants
-        q_s = torch.clamp(engine.saturation_specific_humidity_packed(p, T), min=1e-6)
-        # exact ties are safe: a clipped p has Dp/Dt = 0 and a clipped q equals the floor of q_s
-        # on both sides, to the bit
-        near = ((dp != 0) & (dp.abs() < eps * dp.abs().max())) | ((q != q_s) & ((q - q_s).abs() < eps * q_s))
-        f_fac = (c.latent_heat * (1.0 + 0.608 * q) * c.r_d - c.c_p * c.r_v * T) / (
-            c.c_p * c.r_v + T * T + c.latent_heat**2 * q_s) * q_s * T
-        on = -dp * f_fac / (p + c.eps_rho) + dq
-        return int(near.sum()), float(torch.maximum(on * on, dq * dq)[near].double().sum())
-
-    resid_err, resid_rel, switch_moved = {}, {}, {}
+    resid_err, resid_rel, switch_moved, finite_points = {}, {}, {}, {}
     residual_fns = {4: (rk.fused_residual_sums_v4, rk.residual_sums_v4_ref, dk.decode_jvp_v4_ref),
                     6: (rk.fused_residual_sums_v6, rk.residual_sums_v6_ref, dk.decode_jvp_v6_ref)}
     for n in RESIDUAL_SIZES:
@@ -1625,8 +1662,10 @@ def main() -> int:
                     # Tetens formula is singular at T = 29.65 K and overflows below it: there the
                     # vapor term is inf / inf, and near it it amplifies the decode's last bits.
                     # So the no-clip runs leave out the points whose plain p or T lies outside its
-                    # physical bounds (u, v, q and rho stay as wild as they come) or whose terms
-                    # are not finite; the rest is a ragged size of its own.
+                    # physical bounds (u, v, q and rho stay as wild as they come), and every run
+                    # the points whose terms are not finite (with the clip, at the pole of q_s,
+                    # p = 0.378 e_s, which lies inside the bounds); the rest is a ragged size of
+                    # its own.
                     ins, cor_, dropped = all_ins, cor, 0
                     primal, tang = decode_ref(*ins, dtype)
                     keep = torch.isfinite(rk.residual_point_terms(primal, tang, cor, scfg.obs_specs, with_clip)).all(0)
@@ -1646,8 +1685,11 @@ def main() -> int:
                     want = plain_fn(*ins, cor_, scfg.obs_specs, with_clip=with_clip, compute_dtype=dtype)
                     exact = rk.residual_point_terms(primal, tang, cor_, scfg.obs_specs, with_clip).double().sum(1)
                     rel = ((got - want).abs() / want.abs()).tolist()
-                    n_near, moved = vapor_switch_points(primal, tang, cor_, with_clip, SWITCH_EPS[dtype])
+                    n_near, moved = vapor_switch_points(engine, scfg, primal, tang, with_clip, SWITCH_EPS[dtype],
+                                                        KINK_EPS)
                     switch_moved[(version, dtype, with_clip)] = moved
+                    if with_clip and dtype == cd:
+                        finite_points[version] = keep
                     limits = [RTOL_RESIDUAL[dtype]] * 6
                     limits[4] += moved / float(want[4])
                     worst = max(range(6), key=lambda e: rel[e] / limits[e])
@@ -1657,7 +1699,8 @@ def main() -> int:
                         + " ".join(f"{x:.8g}" for x in got.tolist()) + "; plain "
                         + " ".join(f"{x:.8g}" for x in want.tolist()) + "; float64 sum of the plain terms "
                         + " ".join(f"{x:.8g}" for x in exact.tolist())
-                        + f"; {n_near} points within {SWITCH_EPS[dtype]:.0e} of a switch of delta, their vapor "
+                        + f"; {n_near} points near a switch of the vapor term ({SWITCH_EPS[dtype]:.0e} of delta's, "
+                        f"{KINK_EPS:.0e} of a bound), their vapor "
                         f"terms at most {moved:.3g}; {dropped} points left out")
                     if not (got.shape == (6,) and bool(torch.isfinite(got).all()) and torch.equal(got, again)
                             and all(r_ <= l_ for r_, l_ in zip(rel, limits))):
@@ -1667,28 +1710,32 @@ def main() -> int:
                         resid_err[(version, dtype, n)] = float((got - want).abs().max())
                         resid_rel[(version, dtype, n)] = rel[worst]
                 del primal, tang, ins, all_ins
-        # the in-kernel path against the split path on the same points, through the entry points
-        args = (model, tokens_w, coords, nwp, fh_w, cor, scfg.coord_spec, scfg.obs_specs, unit)
-        crossover = engine.FUSED_ASSEMBLY_MIN_N
-        engine.FUSED_ASSEMBLY_MIN_N = 10**9  # version 6: the split branch at any size
-        try:
-            split = {4: engine.fused_residual_losses(*args, version=4),
-                     6: engine.fused_residual_losses(*args, version=6)}
-        finally:
-            engine.FUSED_ASSEMBLY_MIN_N = crossover
+        # the in-kernel path against the split path on the same points, through the entry points:
+        # those of the residual check above (whose terms are finite in the plain decode)
         for version in (4, 6):
+            keep = finite_points[version]
+            pts = (coords, nwp, cor) if bool(keep.all()) else tuple(x[keep].contiguous() for x in (coords, nwp, cor))
+            args = (model, tokens_w, pts[0], pts[1], fh_w, pts[2], scfg.coord_spec, scfg.obs_specs, unit)
+            crossover = engine.FUSED_ASSEMBLY_MIN_N
+            engine.FUSED_ASSEMBLY_MIN_N = 10**9  # version 6: the split branch at any size
+            try:
+                split = engine.fused_residual_losses(*args, version=version)
+            finally:
+                engine.FUSED_ASSEMBLY_MIN_N = crossover
             fused = rk.kernel_residual_losses(*args, version=version)
-            want = {k: float(split[version][k]) for k in LOSS_KEYS}
+            want = {k: float(split[k]) for k in LOSS_KEYS}
             rel = {k: abs(float(fused[k]) - w_) / abs(w_) for k, w_ in want.items()}
             worst = max(rel, key=rel.get)
-            log(f"[residual] v{version} {cd} N={n:6d}: in-kernel assembly against the split path, per loss at most "
-                f"{rel[worst]:.2e} ({worst}; bound {RTOL_RESIDUAL[cd]:.0e}, vapor as above)")
+            n_kept = int(keep.sum())
             vapor_limit = RTOL_RESIDUAL[cd] + switch_moved[(version, cd, True)] / (
-                want["vapor_loss"] * n)  # with unit factors a loss is its equation's sum over n
+                want["vapor_loss"] * n_kept)  # with unit factors a loss is its equation's sum over the points
+            log(f"[residual] v{version} {cd} N={n:6d}: in-kernel assembly against the split path, per loss at most "
+                f"{rel[worst]:.2e} ({worst}; bound {RTOL_RESIDUAL[cd]:.0e}), vapor {rel['vapor_loss']:.2e} (bound "
+                f"{vapor_limit:.2e}, as above); {n - n_kept} points left out")
             if not all(r_ <= RTOL_RESIDUAL[cd] for k, r_ in rel.items() if k != "vapor_loss") or \
                     not rel["vapor_loss"] <= vapor_limit:
                 raise AssertionError(f"in-kernel assembly v{version} disagrees with the split path (N={n}): {rel}")
-    del coords, nwp, cor, args
+    del coords, nwp, cor, args, pts
     torch.cuda.empty_cache()
 
     # the entry points on both sides of the crossover, from counts of 0
