@@ -27,30 +27,77 @@
 // caller, as on the TPU.  gw1 and gw1c are separate outputs: w1c is a row
 // slice of w1, and the caller's autograd adds the two.
 //
-// What bounds it: 12.98 MFLOP per point against about 1,200 bytes of point
-// input, so it is compute bound; this first version runs on the CUDA cores.
-// Design, as for the v4s backward: the TPU's sequential grid adds into
-// accumulators resident in fast memory; here blocks run concurrently and the
-// accumulators (5.1 MB of f32) fit neither a block's shared memory nor one
-// private copy per block.  A block owns NB points and ONE variable (grid =
-// blocks x variables); each product that contracts the point axis is summed
-// over the block's points in registers (8 x 8 output tile per thread, 64 output
-// rows per pass) and the tile is then added into the zero-initialised output in
-// global memory with float4 atomic adds, which resolve in L2.  The per-column
-// sums are first combined in shared memory.  The order in which blocks add is
-// not fixed, so the result is not bit-reproducible from run to run; it is
-// compared with the plain version by tolerance.  Points past n enter with zero
-// rows and zero cotangents, and every output is linear in the cotangents, so
-// they add nothing.  The layout flag changes only the addresses the two
-// cotangents are loaded from (in the [N, 6] layout a warp strides by 6 floats).
+// What bounds it: 12.98 MFLOP per point against about 1,200 bytes of point input, so it is
+// compute bound.  As for the v4s backward: the TPU's sequential grid adds into accumulators
+// resident in fast memory; here blocks run concurrently and the accumulators (5.1 MB of f32) fit
+// neither a block's shared memory nor one private copy per block.  A block owns NB points and ONE
+// variable (grid = blocks x variables); each product that contracts the point axis is summed over
+// the block's points and added into the zero-initialised output in global memory with float4
+// atomic adds, which resolve in L2.  The order in which blocks add is not fixed, so the result is
+// not bit-reproducible from run to run; it is compared with the plain version by tolerance.
+// Points past n enter with zero rows and zero cotangents, and every output is linear in the
+// cotangents, so they add nothing.  The layout flag changes only the addresses the two cotangents
+// are loaded from.
 //
-// W^T is read from a transposed copy of w2f1 that the wrapper passes in.
+// bf16 (decode_bwd_v4_tc, the flagship's type): the tensor-core body of decode_bwd_tc.cuh, which
+// the v4s / v6 backward shares (its header gives the design, the shared-memory budget and the
+// atomic traffic), with jvp::RowSource{pe, dm = dpe}: stages 1 and 2 recomputed through
+// decode_jvp_tc.cuh with fix_ties, so that the masks and T(p), T(t_k) have the v4 forward
+// kernel's bits; g_rp and g_rt_k formed in registers from r's mask bits; gw2f1 as one K = 4 x 64
+// product; W^T read by a plain ldmatrix from the row-major w2f1; the dpe rows of the block
+// loaded under the row sets' tail for stage 1 and into the ring for gw1c at the end.
+//
+// float (decode_bwd_v4_kernel, the parity configuration; no TF32): the products on the CUDA
+// cores (decode_common.cuh's block_gemm and point_contraction), one direction at a time; W^T is
+// gathered from w2f1 tile by tile (block_gemm<..., WT = true>).
 
 #include "decode_common.cuh"
+#include "decode_bwd_tc.cuh"
 
 namespace {
 
 using namespace dpn;
+
+// ---- bf16: tensor cores (decode_bwd_tc.cuh) ------------------------------------------------
+
+using jvp::bf16;
+
+__global__ void __launch_bounds__(THREADS, 1)
+decode_bwd_v4_tc(const bf16* __restrict__ pe, const bf16* __restrict__ dpe, const bf16* __restrict__ cd,
+                 const float* __restrict__ g_primal, const float* __restrict__ g_tang,
+                 const bf16* __restrict__ w1, const bf16* __restrict__ w1c, const float* __restrict__ b1,
+                 const bf16* __restrict__ w2f1, const bf16* __restrict__ wdf1, const float* __restrict__ rbias,
+                 const float* __restrict__ fw2, const float* __restrict__ w2wo, float* __restrict__ gw1,
+                 float* __restrict__ gw1c, float* __restrict__ gb1, float* __restrict__ gw2f1,
+                 float* __restrict__ gwdf1, float* __restrict__ grbias, float* __restrict__ gfw2,
+                 float* __restrict__ gw2wo, float* __restrict__ gwdwo, int64_t n, int in_ch, int n_vars,
+                 int t_layout) {
+  const int v = blockIdx.y;
+  const jvp::RowSource src{pe, dpe, n, in_ch};
+  bwd::backward_block(src, cd, g_primal, g_tang, w1 + (size_t)v * in_ch * HID, w1c + (size_t)v * in_ch * HID, b1,
+                      w2f1, wdf1, rbias, fw2, w2wo, gw1, gw1c, gb1, gw2f1, gwdf1, grbias, gfw2, gw2wo, gwdwo,
+                      n_vars, t_layout != 0);
+}
+
+int launch_tc(const void* pe, const void* dpe, const void* cd, const float* g_primal, const float* g_tang,
+              const void* w1, const void* w1c, const float* b1, const void* w2f1, const void* wdf1,
+              const float* rbias, const float* fw2, const float* w2wo, float* gw1, float* gw1c, float* gb1,
+              float* gw2f1, float* gwdf1, float* grbias, float* gfw2, float* gw2wo, float* gwdwo, int64_t n,
+              int in_ch, int n_vars, int t_layout, cudaStream_t stream) {
+  if (!bwd::bwd_valid(in_ch, true)) return (int)cudaErrorInvalidValue;
+  const size_t smem = bwd::bwd_smem(in_ch, true).total;
+  cudaError_t err = cudaFuncSetAttribute(decode_bwd_v4_tc, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)((n + jvp::NB - 1) / jvp::NB), (unsigned)n_vars);
+  decode_bwd_v4_tc<<<grid, THREADS, smem, stream>>>(
+      static_cast<const bf16*>(pe), static_cast<const bf16*>(dpe), static_cast<const bf16*>(cd), g_primal, g_tang,
+      static_cast<const bf16*>(w1), static_cast<const bf16*>(w1c), b1, static_cast<const bf16*>(w2f1),
+      static_cast<const bf16*>(wdf1), rbias, fw2, w2wo, gw1, gw1c, gb1, gw2f1, gwdf1, grbias, gfw2, gw2wo, gwdwo,
+      n, in_ch, n_vars, t_layout);
+  return (int)cudaGetLastError();
+}
+
+// ---- float: CUDA cores ------------------------------------------------------------------------
 
 // Column sums of this block, combined in shared memory before they go out.
 enum { CS_FW2 = 0, CS_W2WO, CS_RBIAS, CS_B1, CS_COUNT };
@@ -62,7 +109,7 @@ decode_bwd_v4_kernel(const T* __restrict__ pe, const T* __restrict__ dpe,
                      const float* __restrict__ g_primal, const float* __restrict__ g_tang,
                      const T* __restrict__ w1, const T* __restrict__ w1c,
                      const float* __restrict__ b1, const T* __restrict__ w2f1,
-                     const T* __restrict__ w2f1_t, const T* __restrict__ wdf1,
+                     const T* __restrict__ wdf1,
                      const float* __restrict__ rbias, const float* __restrict__ fw2,
                      const float* __restrict__ w2wo,
                      float* __restrict__ gw1, float* __restrict__ gw1c, float* __restrict__ gb1,
@@ -88,7 +135,6 @@ decode_bwd_v4_kernel(const T* __restrict__ pe, const T* __restrict__ dpe,
   const int ch = in_ch / 3;
   const bool tl = t_layout != 0;
   const T* W = w2f1 + (size_t)v * HID * HID;
-  const T* Wt = w2f1_t + (size_t)v * HID * HID;
 
   load_rows<T>(pe, cd, pe_s, cd_s, n0, n, NB, in_ch);
   {
@@ -176,7 +222,7 @@ decode_bwd_v4_kernel(const T* __restrict__ pe, const T* __restrict__ dpe,
 
   // g_z = 1[z > 0] (g_rp W^T + 2 go b) over g_rp in shared; sum_n g_z
   zero_tile<TM>(acc);
-  block_gemm<T, T, TM>(G_s, HID, Wt, HID, Ws, acc);
+  block_gemm<T, T, TM, true>(G_s, HID, W, HID, Ws, acc);  // W^T
   __syncthreads();  // every thread has read its rows of g_rp
 #pragma unroll
   for (int c = 0; c < TN; ++c) {
@@ -238,7 +284,7 @@ decode_bwd_v4_kernel(const T* __restrict__ pe, const T* __restrict__ dpe,
 
     // g_tz_k = 1[z > 0] (g_rt_k W^T + 2 gto_k b)
     zero_tile<TM>(acc);
-    block_gemm<T, T, TM>(G_s, HID, Wt, HID, Ws, acc);
+    block_gemm<T, T, TM, true>(G_s, HID, W, HID, Ws, acc);  // W^T
     __syncthreads();  // every thread has read its rows of g_rt_k
 #pragma unroll
     for (int c = 0; c < TN; ++c) {
@@ -273,7 +319,7 @@ template <typename T, int TM> size_t shared_bytes(int in_ch) {
 template <typename T, int TM>
 int launch(const void* pe, const void* dpe, const void* cd, const float* g_primal,
            const float* g_tang, const void* w1, const void* w1c, const float* b1,
-           const void* w2f1, const void* w2f1_t, const void* wdf1, const float* rbias,
+           const void* w2f1, const void* wdf1, const float* rbias,
            const float* fw2, const float* w2wo, float* gw1, float* gw1c, float* gb1,
            float* gw2f1, float* gwdf1, float* grbias, float* gfw2, float* gw2wo, float* gwdwo,
            int64_t n, int in_ch, int n_vars, int t_layout, cudaStream_t stream) {
@@ -286,14 +332,14 @@ int launch(const void* pe, const void* dpe, const void* cd, const float* g_prima
   decode_bwd_v4_kernel<T, TM><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(pe), static_cast<const T*>(dpe), static_cast<const T*>(cd), g_primal,
       g_tang, static_cast<const T*>(w1), static_cast<const T*>(w1c), b1,
-      static_cast<const T*>(w2f1), static_cast<const T*>(w2f1_t), static_cast<const T*>(wdf1),
+      static_cast<const T*>(w2f1), static_cast<const T*>(wdf1),
       rbias, fw2, w2wo, gw1, gw1c, gb1, gw2f1, gwdf1, grbias, gfw2, gw2wo, gwdwo, n, in_ch,
       n_vars, t_layout);
   return (int)cudaGetLastError();
 }
 
-// Points per block: 64 in bf16; 32 in f32, whose buffers are twice as large.
-constexpr int TM_BF16 = 8, TM_F32 = 4;
+// Points per block of the float body: 32 (its buffers are twice bf16's).
+constexpr int TM_F32 = 4;
 
 }  // namespace
 
@@ -302,9 +348,13 @@ extern "C" {
 // Hidden width the kernel was built for; shared memory one block needs at this
 // input width.
 int dpn_decode_bwd_v4_hid() { return dpn::HID; }
+// Points a block takes.
+int dpn_decode_bwd_v4_block(int is_bf16) { return is_bf16 ? jvp::NB : WARPS * TM_F32; }
+// Bytes a block adds into the outputs with atomic adds (bwd::atomic_bytes).
+int64_t dpn_decode_bwd_v4_atomic_bytes(int is_bf16, int in_ch) { return bwd::atomic_bytes(is_bf16, in_ch); }
 int dpn_decode_bwd_v4_shared_bytes(int is_bf16, int in_ch) {
-  return (int)(is_bf16 ? shared_bytes<__nv_bfloat16, TM_BF16>(in_ch)
-                       : shared_bytes<float, TM_F32>(in_ch));
+  if (!is_bf16) return (int)shared_bytes<float, TM_F32>(in_ch);
+  return bwd::bwd_valid(in_ch, true) ? (int)bwd::bwd_smem(in_ch, true).total : 1 << 30;
 }
 
 // is_bf16: 1 for __nv_bfloat16 inputs, 0 for float.  t_layout: 0 for g_primal
@@ -313,18 +363,16 @@ int dpn_decode_bwd_v4_shared_bytes(int is_bf16, int in_ch) {
 // cudaGetLastError() after the launch (0 on success).
 int dpn_decode_bwd_v4(int is_bf16, const void* pe, const void* dpe, const void* cd,
                       const float* g_primal, const float* g_tang, const void* w1,
-                      const void* w1c, const float* b1, const void* w2f1, const void* w2f1_t,
-                      const void* wdf1, const float* rbias, const float* fw2, const float* w2wo,
+                      const void* w1c, const float* b1, const void* w2f1, const void* wdf1,
+                      const float* rbias, const float* fw2, const float* w2wo,
                       float* gw1, float* gw1c, float* gb1, float* gw2f1, float* gwdf1,
                       float* grbias, float* gfw2, float* gw2wo, float* gwdwo, int64_t n,
                       int in_ch, int n_vars, int t_layout, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch<__nv_bfloat16, TM_BF16>(pe, dpe, cd, g_primal, g_tang, w1, w1c, b1, w2f1,
-                                          w2f1_t, wdf1, rbias, fw2, w2wo, gw1, gw1c, gb1, gw2f1,
-                                          gwdf1, grbias, gfw2, gw2wo, gwdwo, n, in_ch, n_vars,
-                                          t_layout, s);
-  return launch<float, TM_F32>(pe, dpe, cd, g_primal, g_tang, w1, w1c, b1, w2f1, w2f1_t, wdf1,
+    return launch_tc(pe, dpe, cd, g_primal, g_tang, w1, w1c, b1, w2f1, wdf1, rbias, fw2, w2wo, gw1, gw1c, gb1,
+                     gw2f1, gwdf1, grbias, gfw2, gw2wo, gwdwo, n, in_ch, n_vars, t_layout, s);
+  return launch<float, TM_F32>(pe, dpe, cd, g_primal, g_tang, w1, w1c, b1, w2f1, wdf1,
                                rbias, fw2, w2wo, gw1, gw1c, gb1, gw2f1, gwdf1, grbias, gfw2,
                                gw2wo, gwdwo, n, in_ch, n_vars, t_layout, s);
 }

@@ -1,7 +1,8 @@
 // The bf16 tensor-core body of the collapsed jvp decode, forward, and the stages of it that the
 // backward recomputes: shared by decode_jvp_v4.cu (v4 / v4t: tangent rows from the compact dpe
 // input), decode_jvp_v4s.cu (v4s: tangent rows are lane blocks of the primal row; v6: the same
-// row laid out by direction) and decode_bwd_v4s.cu (the backward of v4s / v6).  The design,
+// row laid out by direction), decode_bwd_tc.cuh (the backward of v4 / v4t and v4s / v6) and
+// decode_jvp_v2.cu (stage 1 is the uncollapsed decode's layer 1).  The design,
 // its shared-memory budget and its rounding are set out in decode_jvp_v4.cu's header; in brief:
 //
 // * 64 points and one variable a block, eight warps.
@@ -61,6 +62,21 @@ template <int ULPS> __device__ __forceinline__ bool near_bf16_tie(float x) {
   return x != 0.0f && abs(low - 0x8000) <= ULPS;
 }
 
+// |x - its nearest bf16 rounding tie| (ties lie halfway between neighbouring bf16 values).
+__device__ __forceinline__ float bf16_tie_distance(float x) {
+  const uint32_t b = __float_as_uint(x);
+  return (float)abs((int)(b & 0xffffu) - 0x8000) * (__uint_as_float(b & 0x7f800000u) * 0x1p-23f);
+}
+
+// The same, or x within `floor` of a tie.  A window in ulps of x misses the flips of small values,
+// whose sums carry the absolute error of their larger terms; where a downstream bf16 rounding
+// magnifies any upstream flip (the uncollapsed v2 chain: a flipped T(p) moves c past a tie of
+// T(c), a flipped T(c) switches r's relu mask), the window also takes an absolute floor, a
+// multiple of the largest |value| of the warp's 32 columns of the row.
+template <int ULPS> __device__ __forceinline__ bool near_bf16_tie(float x, float floor) {
+  return near_bf16_tie<ULPS>(x) || (x != 0.0f && bf16_tie_distance(x) <= floor);
+}
+
 // Where the layer-1 rows of the points lie in global memory (ch = in_ch / 3):
 //   v4   pe [n, in_ch] primal rows; dm = dpe [3, n, ch] tangent rows;
 //   v4s  pe [n, in_ch]; direction k's tangent row is lanes k ch .. k ch + ch - 1 of pe's row;
@@ -105,11 +121,15 @@ __device__ __forceinline__ void primal_rows_async(const RowSource& src, bf16* pe
 // then their count); for up to per_round of them at a time the threads form the products (exact
 // in f32 for bf16 operands) into prods, one row of in_ch + 1 floats an element, and one thread
 // an element adds its row in order, so the block's elements take one chain's time.  A pass takes
-// at most TIE_CAP elements; passes repeat until none is left.  Called by the whole block.
+// at most TIE_CAP elements; passes repeat until none is left.  With W1_COLS, w1_cols holds w1v's
+// columns as rows (column c at w1_cols + c * cols_ld), and z's products read a weight column from
+// contiguous memory, not one 32-byte sector a weight.  Called by the whole block.
+template <bool W1_COLS = false>
 __device__ __forceinline__ void fix_ties(uint32_t (&tie_z)[4], uint64_t (&tie_u)[4], const RowSource& src,
                                          const bf16* __restrict__ w1v, const bf16* __restrict__ w1cv,
                                          const float* __restrict__ b1, int64_t n0, bf16* sets, int* list,
-                                         float* prods, int per_round) {
+                                         float* prods, int per_round, const bf16* __restrict__ w1_cols = nullptr,
+                                         int cols_ld = 0) {
   constexpr int BATCH = 8;  // products a thread loads before it stores any
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int in_ch = src.in_ch, ch = in_ch / 3, ld = in_ch + 1;
@@ -159,8 +179,9 @@ __device__ __forceinline__ void fix_ties(uint32_t (&tie_z)[4], uint64_t (&tie_u)
           p[u] = 0.0f;
           if (i < total && point < src.n && k < (q == 0 ? in_ch : ch)) {
             const bf16 a = q == 0 ? src.primal(point, k) : src.tangent(q - 1, point, k);
-            const bf16* w = (q == 0 ? w1v : w1cv + (size_t)(q - 1) * ch * HID) + col;
-            p[u] = to_f32(a) * to_f32(w[(size_t)k * HID]);
+            const bf16 wk = W1_COLS && q == 0 ? w1_cols[(size_t)col * cols_ld + k]
+                                              : (q == 0 ? w1v : w1cv + (size_t)(q - 1) * ch * HID)[(size_t)k * HID + col];
+            p[u] = to_f32(a) * to_f32(wk);
           }
         }
 #pragma unroll
@@ -229,13 +250,14 @@ __host__ __device__ inline bool row_region_valid(int in_ch, bool with_dpe) {
 // call; the weights stream through per-warp slice rings in the block ring's memory (ring).
 // on_z(mt, nt, h, col, p0, p1) sees p = relu(z) at columns col = 32 w + 8 nt + 2 t and col + 1 of
 // row 16 mt + g + 8 h, and on_u(k, mt, nt, h, col, u0, u1) the masked u_k in f32, both before the
-// bf16 rounding.
-template <class OnZ, class OnU>
+// bf16 rounding.  With Z_FLOOR, tie_z also flags each p within z_tie_floor times the largest |z|
+// of the warp's 32 columns of its row of a tie (the two-argument near_bf16_tie).
+template <bool Z_FLOOR = false, class OnZ, class OnU>
 __device__ __forceinline__ void stage1(const bf16* pe_s, int ldp, const bf16* tan_s, int ldt, int tan_k,
                                        const bf16* __restrict__ w1v, const bf16* __restrict__ w1cv,
                                        const float* __restrict__ b1, int in_ch, unsigned char* ring,
                                        bf16* sets, uint32_t (&mask)[4], uint32_t (&tie_z)[4],
-                                       uint64_t (&tie_u)[4], OnZ on_z, OnU on_u) {
+                                       uint64_t (&tie_u)[4], OnZ on_z, OnU on_u, float z_tie_floor = 0.0f) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t2 = 2 * (lane & 3);
   const int ch = in_ch / 3;
   // stage 1's weights, per warp and without block barriers: the warp's 32 columns of w1, then
@@ -275,6 +297,21 @@ __device__ __forceinline__ void stage1(const bf16* pe_s, int ldp, const bf16* ta
     tc::warp_mma<4, 4, 1, 4>(acc, tc::a_lane(pe_s + j * S1_ROWS, ldp, lane), 16 * ldp * sizeof(bf16),
                              slice_next(), 0);
   __syncthreads();  // pe_s may lie under the row sets
+  float floor_z[4][2] = {};  // z_tie_floor times the largest |z| of the warp's 32 columns of each of the lane's rows
+  if constexpr (Z_FLOOR) {
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float m = 0.0f;
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const int col = 32 * warp + 8 * nt + t2;
+          m = fmaxf(m, fmaxf(fabsf(acc[mt][nt][2 * h] + b1[col]), fabsf(acc[mt][nt][2 * h + 1] + b1[col + 1])));
+        }
+        floor_z[mt][h] = z_tie_floor * mma::quad_max(m);
+      }
+  }
 #pragma unroll
   for (int nt = 0; nt < 4; ++nt) {
     const int col = 32 * warp + 8 * nt + t2;
@@ -287,8 +324,10 @@ __device__ __forceinline__ void stage1(const bf16* pe_s, int ldp, const bf16* ta
         mask[mt] |= (z0 > 0.0f ? 1u : 0u) << (4 * nt + 2 * h);
         mask[mt] |= (z1 > 0.0f ? 1u : 0u) << (4 * nt + 2 * h + 1);
         const float p0 = fmaxf(z0, 0.0f), p1 = fmaxf(z1, 0.0f);
-        tie_z[mt] |= (near_bf16_tie<TIE_ULPS_Z>(p0) ? 1u : 0u) << (4 * nt + 2 * h);
-        tie_z[mt] |= (near_bf16_tie<TIE_ULPS_Z>(p1) ? 1u : 0u) << (4 * nt + 2 * h + 1);
+        const bool tie0 = Z_FLOOR ? near_bf16_tie<TIE_ULPS_Z>(p0, floor_z[mt][h]) : near_bf16_tie<TIE_ULPS_Z>(p0);
+        const bool tie1 = Z_FLOOR ? near_bf16_tie<TIE_ULPS_Z>(p1, floor_z[mt][h]) : near_bf16_tie<TIE_ULPS_Z>(p1);
+        tie_z[mt] |= (tie0 ? 1u : 0u) << (4 * nt + 2 * h);
+        tie_z[mt] |= (tie1 ? 1u : 0u) << (4 * nt + 2 * h + 1);
         on_z(mt, nt, h, col, p0, p1);
         *reinterpret_cast<uint32_t*>(sets + (16 * mt + g + 8 * h) * LDA + col) = mma::pack_bf16x2(p0, p1);
       }

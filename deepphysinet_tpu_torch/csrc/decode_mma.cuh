@@ -1,5 +1,6 @@
 // Shared device code of the decode kernels whose bf16 products run on the tensor cores
-// (decode_jvp_tc.cuh's forward body, decode_bwd_v4s.cu, decode_primal.cu): a warp's tile of a
+// (decode_jvp_tc.cuh's forward body, decode_bwd_tc.cuh's backward body, decode_jvp_v2.cu,
+// decode_primal.cu): a warp's tile of a
 // row-times-weight product by mma.sync m16n8k16 (mma_bf16.cuh), the cp.async copies of the
 // block's point rows and of weight tiles into shared memory, the ring of weight tiles that keeps
 // the next tiles' copies in flight while a tile is multiplied, and the vector atomic add of a

@@ -636,8 +636,8 @@ _LAUNCHERS = {
     SOURCE_JVP_V4S: (("dpn_decode_jvp_v4s", 15),),
     SOURCE_BWD_V4S: (("dpn_decode_bwd_v4s", 21),),
     SOURCE_JVP_V4: (("dpn_decode_jvp_v4", 16), ("dpn_decode_jvp_v5", 16), ("dpn_decode_jvp_v4pe", 16)),
-    SOURCE_BWD_V4: (("dpn_decode_bwd_v4", 23),),
-    SOURCE_JVP_V2: (("dpn_decode_jvp_v2", 20), ("dpn_decode_jvp_v3", 20)),
+    SOURCE_BWD_V4: (("dpn_decode_bwd_v4", 22),),
+    SOURCE_JVP_V2: (("dpn_decode_jvp_v2", 21), ("dpn_decode_jvp_v3", 20)),
 }
 
 
@@ -777,10 +777,8 @@ def fused_decode_jvp_v4s(fw: FusedDecodeWeightsV6, pe_cm: torch.Tensor, cd_pe: t
 fused_decode_jvp_v4s.launches = 0
 
 # order of the backward kernels' weight inputs after the layer-1 pair and of their
-# outputs; the v4 backward also takes w2f1_t, a transposed copy it reads W^T from
-# (the v4s / v6 backward reads W^T from w2f1 itself)
-_BWD_WEIGHTS_V4S = ("b1", "w2f1", "wdf1", "rbias", "fw2", "w2wo")
-_BWD_WEIGHTS = ("b1", "w2f1", "w2f1_t", "wdf1", "rbias", "fw2", "w2wo")
+# outputs (every backward kernel reads W^T from w2f1 itself)
+_BWD_WEIGHTS = ("b1", "w2f1", "wdf1", "rbias", "fw2", "w2wo")
 _BWD_OUTPUTS = ("b1", "w2f1", "wdf1", "rbias", "fw2", "w2wo", "wdwo")
 
 
@@ -810,7 +808,7 @@ def decode_bwd_kernel_v4s(fw: FusedDecodeWeightsV6, pe_cm: torch.Tensor, cd_pe: 
     if n == 0:
         return out
     _launch(name, decode_bwd_kernel_v4s, lib.dpn_decode_bwd_v4s, compute_dtype,
-            [pe_cm, cd_pe, g_primal_t, g_tang_t, w["w1g"], w["w1t"]] + [w[k] for k in _BWD_WEIGHTS_V4S]
+            [pe_cm, cd_pe, g_primal_t, g_tang_t, w["w1g"], w["w1t"]] + [w[k] for k in _BWD_WEIGHTS]
             + [out.w1g, out.w1t] + [getattr(out, k) for k in _BWD_OUTPUTS],
             (n, in_ch, n_vars, 0), pe_cm.device)
     return out
@@ -934,7 +932,6 @@ def _bwd_v4(wrapper, fw: FusedDecodeWeights, pe, dpe, cd_pe, g_primal, g_tang, c
                                 compute_dtype, [("dpe", dpe, (3, n, in_ch // 3), None),
                                                 ("g_primal", g_primal, p_shape, torch.float32),
                                                 ("g_tang", g_tang, t_shape, torch.float32)])
-    w["w2f1_t"] = w["w2f1"].transpose(1, 2).contiguous()
     out = FusedDecodeWeights(*(
         g_primal.sum(1 if t_layout else 0) if k == "obias" else _zeros_f32(t)
         for k, t in zip(fw._fields, fw)))
@@ -1093,7 +1090,7 @@ def decode_bwd_kernel_v6(fw: FusedDecodeWeightsV6, trig: torch.Tensor, cd_pe: to
     if n == 0:
         return out
     _launch(name, decode_bwd_kernel_v6, lib.dpn_decode_bwd_v4s, compute_dtype,
-            [trig, cd_pe, g_primal, g_tang, w["w1g"], w["w1t"]] + [w[k] for k in _BWD_WEIGHTS_V4S]
+            [trig, cd_pe, g_primal, g_tang, w["w1g"], w["w1t"]] + [w[k] for k in _BWD_WEIGHTS]
             + [out.w1g, out.w1t] + [getattr(out, k) for k in _BWD_OUTPUTS],
             (n, in_ch, n_vars, 1), trig.device)
     return out
@@ -1203,6 +1200,14 @@ def _v2_weights(w: DecodeWeights, cd, **tangent_rows) -> dict:
     return {k: t.detach().contiguous() for k, t in out.items()}
 
 
+def _v2_columns(w: DecodeWeights, cd) -> torch.Tensor:
+    """z's and c's weights by column, [V, hid, 2 in_ch + hid] in ``cd``: row c of variable v holds
+    the c-th columns of w1, w2 and wd, one after the other.  The bf16 v2 kernel sums its few values
+    of z and c near a bf16 rounding tie again from them (``csrc/decode_jvp_v2.cu``), where a column
+    of the row-major weight would take one 32-byte sector of memory a value."""
+    return torch.cat([m.detach().to(cd).transpose(1, 2) for m in (w.w1, w.w2, w.wd)], dim=2).contiguous()
+
+
 def fused_decode_jvp(weights: DecodeWeights, pe: torch.Tensor, dpe: torch.Tensor,
                      cd_pe: torch.Tensor, ref: torch.Tensor,
                      compute_dtype=torch.bfloat16) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -1222,6 +1227,7 @@ def fused_decode_jvp(weights: DecodeWeights, pe: torch.Tensor, dpe: torch.Tensor
     n_vars, in_ch, hid = weights.w1.shape
     n = pe.shape[0]
     w = _v2_weights(weights, compute_dtype, w1c=slice_tangent_weights(weights.w1))
+    w["cols"] = _v2_columns(weights, compute_dtype)
     lib = _kernel_checks(name, SOURCE_JVP_V2, hid, in_ch, compute_dtype,
                          [("pe", pe, (n, in_ch), None), ("dpe", dpe, (3, n, in_ch // 3), None),
                           ("cd_pe", cd_pe, (n, in_ch), None), ("ref", ref, (n, n_vars), torch.float32)],

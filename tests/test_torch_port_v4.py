@@ -127,7 +127,7 @@ def test_slice_tangent_weights_and_fusion_match_jax():
     # slice k holds rows k, k+3, ... of w1
     np.testing.assert_array_equal(_np(got.w1c[:, 1]), inp["w"]["w1"][:, 1::3])
     for name in FIELDS:
-        a, b = _np(getattr(got, name)), np.asarray(getattr(want, name))
+        a, b = _np(getattr(got, name)), _np(getattr(want, name))
         assert a.shape == b.shape, name
         np.testing.assert_allclose(a, b, rtol=2e-5, atol=2e-6 * max(np.abs(b).max(), 1e-30),
                                    err_msg=name)
@@ -170,10 +170,13 @@ def _pallas_forward_300(dtype, t_layout):
     return np.asarray(p_k), np.asarray(t_k)
 
 
+# 1, 17, 64, 65, 129: the point-block edges of the port's tensor-core kernels (64 points a
+# block), where chip_smoke.py holds them to these plain versions
+EDGE_SIZES = [300, 3, 1, 17, 64, 65, 129]
+
+
 @LAYOUTS
-# 1, 17, 64, 65, 129: the point-block edges of the port's tensor-core kernel (64 points a
-# block), where chip_smoke.py holds it to this plain version
-@pytest.mark.parametrize("n", [300, 3, 1, 17, 64, 65, 129])
+@pytest.mark.parametrize("n", EDGE_SIZES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_plain_forward_matches_pallas_kernel(dtype, n, t_layout):
     inp = _first_points(_inputs(300), n)
@@ -233,22 +236,35 @@ def test_layouts_are_transposes_of_each_other():
 def _assert_cotangents_close(got, want, tol):
     """Per weight, relative to that weight's own largest cotangent."""
     for name in FIELDS:
-        a, b = _np(getattr(got, name)), np.asarray(getattr(want, name))
+        a, b = _np(getattr(got, name)), _np(getattr(want, name))
         assert a.shape == b.shape, name
         scale = max(np.abs(b).max(), 1e-3)
         np.testing.assert_allclose(a, b, rtol=tol, atol=tol * scale, err_msg=name)
 
 
+@functools.lru_cache(maxsize=None)
+def _pallas_backward_300(dtype, t_layout):
+    """The Pallas backward kernel (interpret mode) on the 300 points of ``_inputs(300)``, traced
+    and compiled once per dtype and layout; called with cotangents that are zero past the first
+    n points it gives the cotangents of those n points (every output is linear in the
+    cotangents, point by point)."""
+    fw_j, pe_j, dpe_j, cd_j = _jax_side(_inputs(300), dtype)
+    j_fn = jdk.decode_bwd_kernel_v4t if t_layout else jdk.decode_bwd_kernel_v4
+    run = jax.jit(functools.partial(j_fn, block_n=BLOCK, interpret=True, compute_dtype=getattr(jnp, dtype)))
+    return lambda g_p, g_t: run(fw_j, pe_j, dpe_j, cd_j, jnp.asarray(g_p), jnp.asarray(g_t))
+
+
 @LAYOUTS
-@pytest.mark.parametrize("n", [300, 3])
+@pytest.mark.parametrize("n", EDGE_SIZES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_plain_backward_matches_pallas_kernel(dtype, n, t_layout):
-    inp = _inputs(n)
+    full = _inputs(300)
+    live = np.arange(300) < n
+    want = _pallas_backward_300(dtype, t_layout)(*_layout(np.where(live, full["g_p"], 0.0).astype(np.float32),
+                                                          np.where(live, full["g_t"], 0.0).astype(np.float32),
+                                                          t_layout))
+    inp = _first_points(full, n)
     g_p, g_t = _layout(inp["g_p"], inp["g_t"], t_layout)
-    fw_j, pe_j, dpe_j, cd_j = _jax_side(inp, dtype)
-    j_fn = jdk.decode_bwd_kernel_v4t if t_layout else jdk.decode_bwd_kernel_v4
-    want = j_fn(fw_j, pe_j, dpe_j, cd_j, jnp.asarray(g_p), jnp.asarray(g_t), block_n=BLOCK,
-                interpret=True, compute_dtype=getattr(jnp, dtype))
     fw_t, pe_t, dpe_t, cd_t = _port_side(inp, dtype)
     t_fn = tdk.decode_bwd_kernel_v4t if t_layout else tdk.decode_bwd_kernel_v4
     before = t_fn.launches
@@ -377,9 +393,9 @@ def cuda_device():
     return torch.device("cuda")
 
 
-# The point-block edges of the forward kernel (64 points a block), the size of a test above
-# and one 145 x 257 frame
-CARD_SIZES = (1, 17, 64, 65, 1000, 37265)
+# The point-block edges of the tensor-core kernels (64 points a block), the size of a test above,
+# the step's larger launch and one 145 x 257 frame (the forward's)
+CARD_SIZES = (1, 17, 64, 65, 129, 1000, 20480, 37265)
 # chip_smoke.py's rule for relu kinks: the points at which a relu argument of the plain version
 # lies within KINK_EPS (1 + the largest argument) of zero, where another summation order may
 # switch a tangent term on or off, are left out of the forward's comparison
@@ -398,7 +414,8 @@ def _near_kink(fw, pe, cd, dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_v4_kernels_match_plain(cuda_device, dtype, t_layout):
     """The two CUDA kernels against their plain versions at the kernels' widths: the forward at
-    CARD_SIZES, its two layouts bit-equal; the backward at 1,000 points."""
+    CARD_SIZES, its two layouts bit-equal; the backward at the same sizes but the frame, the
+    cotangents of the points near a relu kink zero (chip_smoke.py's rule)."""
     rng = np.random.RandomState(11)
     in_ch, hid = 192, 256
     td = getattr(torch, dtype)
@@ -426,8 +443,10 @@ def test_v4_kernels_match_plain(cuda_device, dtype, t_layout):
         p_o, t_o = other(fw, pe, dpe, cd, ref_t.t().contiguous() if t_layout else ref_t, td)
         torch.cuda.synchronize()
         assert fwd.launches == before + 1
-        if not t_layout:  # both var-major from here
-            p, t, p_o, t_o = p.t(), t.transpose(1, 2), p_o.t(), t_o.transpose(1, 2)
+        if t_layout:  # both var-major from here
+            p_o, t_o = p_o.t(), t_o.transpose(1, 2)
+        else:
+            p, t = p.t(), t.transpose(1, 2)
         assert torch.equal(p, p_o) and torch.equal(t, t_o), n  # the layouts give the same bits
         p0, t0 = tdk.decode_jvp_v4_ref(fw, pe, dpe, cd, ref_t, td, t_layout=True)
         keep = ~_near_kink(fw, pe, cd, td)
@@ -436,14 +455,17 @@ def test_v4_kernels_match_plain(cuda_device, dtype, t_layout):
         for k in range(3):
             assert float((t[k] - t0[k]).abs().max()) <= tol * float(t0[k].abs().max()), (n, k)
 
-    n = 1000
-    pe, cd, dpe = pe_all[:n].contiguous(), cd_all[:n].contiguous(), dpe_all[:, :n].contiguous()
-    p_shape, t_shape = ((6, n), (3, 6, n)) if t_layout else ((n, 6), (3, n, 6))
-    g_p, g_t = r(*p_shape, scale=1.0), r(*t_shape, scale=1.0)
     bwd = tdk.decode_bwd_kernel_v4t if t_layout else tdk.decode_bwd_kernel_v4
-    before = bwd.launches
-    g = bwd(fw, pe, dpe, cd, g_p, g_t, td)
-    torch.cuda.synchronize()
-    assert bwd.launches == before + 1
-    _assert_cotangents_close(g, tdk.decode_bwd_v4_ref(fw, pe, dpe, cd, g_p, g_t, td, t_layout),
-                             1e-4 if dtype == "float32" else 2e-3)
+    for n in CARD_SIZES[:-1]:
+        pe, cd, dpe = pe_all[:n].contiguous(), cd_all[:n].contiguous(), dpe_all[:, :n].contiguous()
+        g_p, g_t = r(6, n, scale=1.0), r(3, 6, n, scale=1.0)  # var-major
+        near = _near_kink(fw, pe, cd, td)
+        g_p[:, near], g_t[:, :, near] = 0.0, 0.0
+        if not t_layout:
+            g_p, g_t = g_p.t().contiguous(), g_t.transpose(1, 2).contiguous()
+        before = bwd.launches
+        g = bwd(fw, pe, dpe, cd, g_p, g_t, td)
+        torch.cuda.synchronize()
+        assert bwd.launches == before + 1
+        _assert_cotangents_close(g, tdk.decode_bwd_v4_ref(fw, pe, dpe, cd, g_p, g_t, td, t_layout),
+                                 1e-4 if dtype == "float32" else 2e-3)
