@@ -227,8 +227,10 @@ __device__ __forceinline__ void backward_block(const jvp::RowSource& src, const 
       s_w[nt][1] = fmaf(u1, gto, s_w[nt][1]);
     };
     // direction k's tangent rows: v4's dpe block k, or lanes k ch .. of the primal rows
-    jvp::stage1(pe_s, ldp, with_dpe ? dpe_s : pe_s, with_dpe ? ldd : ldp, with_dpe ? NB * ldd : ch, w1v, w1cv, b1,
-                in_ch, smem + L.ring, sets, mask, tie_z, tie_u, on_z, on_u);
+    // the forward's windows and floors (forward_block), so T(p) and t_k are the ones it stored
+    jvp::stage1<true, true>(pe_s, ldp, with_dpe ? dpe_s : pe_s, with_dpe ? ldd : ldp, with_dpe ? NB * ldd : ch,
+                            w1v, w1cv, b1, in_ch, smem + L.ring, sets, mask, tie_z, tie_u, on_z, on_u,
+                            jvp::TIE_FLOOR_Z, jvp::TIE_FLOOR_U);
 #pragma unroll
     for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
@@ -251,11 +253,9 @@ __device__ __forceinline__ void backward_block(const jvp::RowSource& src, const 
       if ((lane & 3) == 0) mask_s[(16 * mt + g + 8 * h) * WORDS + warp] = word;
     }
 
+  jvp::fix_ties(tie_z, tie_u, src, w1v, w1cv, b1, n0, sets, reinterpret_cast<int*>(smem + L.list), smem + L.ring);
   auto ring = jvp::stage2_ring(smem + L.ring, W, wdf1 + (size_t)v * in_ch * HID, in_ch);
   ring.start();
-  jvp::fix_ties(tie_z, tie_u, src, w1v, w1cv, b1, n0, sets, reinterpret_cast<int*>(smem + L.list),
-                reinterpret_cast<float*>(smem + L.ring + (jvp::NS - 1) * jvp::SLOT_BYTES),
-                jvp::ties_per_round(in_ch));
 
   // ---- recompute stage 2: r's mask; sum_n relu(r) go + sum_k sum_n 1[r > 0] tr_k gto_k; sum_n g_rp ----
   const int pg = warp & 3, half = warp >> 2;

@@ -10,7 +10,8 @@
 //   32 w .. 32 w + 31, streaming its own 32 weight columns in [16, 32] slices through a ring of
 //   five of its own; z's relu mask stays in registers (64 bits a lane); T(p) and t_k go to one
 //   [4 x 64, 256] bf16 array of row sets.
-// * fix_ties: T(p) and t_k near a bf16 rounding tie recomputed in the plain version's order.
+// * fix_ties: T(p) and t_k near a bf16 rounding tie (a window of ulps with an absolute floor)
+//   recomputed in the plain version's order.
 // * Stage 2: one pass over w2f1 for the four row sets, cd . wdf1 into r's accumulator, in four
 //   64-column passes (warp: 16 points of all four row sets x 32 columns), [128, 64] weight
 //   tiles through a block ring of three.
@@ -49,17 +50,30 @@ static_assert(WARPS * S1_SLOTS * S1_BYTES <= NS * SLOT_BYTES, "the warps' stage-
 // r, and a flipped t_k moves a tangent by up to about 5e-4 of its largest (chip_smoke.py's
 // [rounding] reading shows the first: float64 sums in place of cuBLAS's flip about 1,650 T(p)
 // elements of a flagship frame and move some points' tangents past the bound).  So the kernels
-// flag every value whose f32 bits lie within TIE_ULPS_* of a tie (about fifteen elements a
-// block and variable) and recompute its sum in the plain version's order (fix_ties).  z's
-// window is wider: its sum has three times the terms, and its k16 products are added with f32
-// adds (round to nearest), u_k's inside the tensor cores.
+// flag every value whose f32 bits lie within TIE_ULPS_* of a tie and recompute its sum in the
+// plain version's order (fix_ties).  z's window is wider: its sum has three times the terms, and
+// its k16 products are added with f32 adds (round to nearest), u_k's inside the tensor cores.
+// A window in ulps of the value misses the flips of small values, whose sums carry the absolute
+// error of their larger terms, so the windows of v4 / v4t, v4s and v6 (forward_block, and the
+// backward's recompute of stage 1) also take an absolute floor, TIE_FLOOR_* times the largest
+// |value| of the warp's 32 columns of the row.  On an H100, on the flagship weights seeded and
+// after two trainings of six steps, an emulation of the tensor cores' sums puts z and u_k within
+// 20 and 16 x 2^-24 of that value from cuBLAS's, and the windows miss no flip of T(p) or t_k away
+// from a relu kink from a floor of 8 on; the floors are twice that, and flag about 45 and 3 x 38
+// values a block and variable (python -m deepphysinet_tpu_torch.diagnostics.tie_window).
 constexpr int TIE_ULPS_Z = 32;  // z: twelve k16 products at flagship width
 constexpr int TIE_ULPS_U = 8;   // u_k: four
-constexpr int TIE_CAP = 511;    // flagged elements a pass of fix_ties lists
+constexpr float TIE_FLOOR_Z = 16.0f * 0x1p-24f;
+constexpr float TIE_FLOOR_U = 16.0f * 0x1p-24f;
+constexpr int TIE_CAP = 511;    // flagged elements a pass of the staged fix_ties (v2's) lists
 
+// The tests below combine their terms with & and |, not && and ||: stage 1's epilogues test every
+// element of a warp tile, and with the floors the short-circuit forms compiled to branches there
+// that made the v4s forward 0.91 ms at 20,480 points, the bitwise forms 0.76 (an H100 at 700 W,
+// diagnostics/decode_timing.py).
 template <int ULPS> __device__ __forceinline__ bool near_bf16_tie(float x) {
   const int low = (int)(__float_as_uint(x) & 0xffffu);
-  return x != 0.0f && abs(low - 0x8000) <= ULPS;
+  return (x != 0.0f) & (abs(low - 0x8000) <= ULPS);
 }
 
 // |x - its nearest bf16 rounding tie| (ties lie halfway between neighbouring bf16 values).
@@ -74,7 +88,7 @@ __device__ __forceinline__ float bf16_tie_distance(float x) {
 // T(c), a flipped T(c) switches r's relu mask), the window also takes an absolute floor, a
 // multiple of the largest |value| of the warp's 32 columns of the row.
 template <int ULPS> __device__ __forceinline__ bool near_bf16_tie(float x, float floor) {
-  return near_bf16_tie<ULPS>(x) || (x != 0.0f && bf16_tie_distance(x) <= floor);
+  return near_bf16_tie<ULPS>(x) | ((x != 0.0f) & (bf16_tie_distance(x) <= floor));
 }
 
 // Where the layer-1 rows of the points lie in global memory (ch = in_ch / 3):
@@ -88,14 +102,18 @@ struct RowSource {
   int64_t n;
   int in_ch;
 
-  __device__ __forceinline__ bf16 primal(int64_t point, int k) const {
+  // &primal row of the point at lane k: the lanes after k to the end of its block of ch follow it
+  __device__ __forceinline__ const bf16* primal_ptr(int64_t point, int k) const {
     const int ch = in_ch / 3;
-    return pe ? pe[point * in_ch + k] : dm[((int64_t)(k / ch) * n + point) * ch + k % ch];
+    return pe ? pe + point * in_ch + k : dm + ((int64_t)(k / ch) * n + point) * ch + k % ch;
   }
-  __device__ __forceinline__ bf16 tangent(int dir, int64_t point, int j) const {
+  // &tangent row dir of the point at lane j (of ch, contiguous)
+  __device__ __forceinline__ const bf16* tangent_ptr(int dir, int64_t point, int j) const {
     const int ch = in_ch / 3;
-    return dm ? dm[((int64_t)dir * n + point) * ch + j] : pe[point * in_ch + dir * ch + j];
+    return dm ? dm + ((int64_t)dir * n + point) * ch + j : pe + point * in_ch + dir * ch + j;
   }
+  __device__ __forceinline__ bf16 primal(int64_t point, int k) const { return *primal_ptr(point, k); }
+  __device__ __forceinline__ bf16 tangent(int dir, int64_t point, int j) const { return *tangent_ptr(dir, point, j); }
   // the tangent rows are lane blocks of the primal row (v4s and v6), not an input of their own
   __device__ __forceinline__ bool tangents_in_primal() const { return pe == nullptr || dm == nullptr; }
 };
@@ -111,7 +129,125 @@ __device__ __forceinline__ void primal_rows_async(const RowSource& src, bf16* pe
   }
 }
 
-// Stage 1's values near a bf16 tie, recomputed: bit 4 nt + i of tie_z[mt] and bit
+// Element b (bit 4 nt + i) of stage 1's row tile mt of the calling lane, in fix_ties's list form:
+// q (0: z, k + 1: u_k) << 16 | row << 8 | column.
+__device__ __forceinline__ int tie_entry(int q, int mt, int b) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int row = 16 * mt + (lane >> 2) + 8 * ((b >> 1) & 1);
+  const int col = 32 * warp + 8 * (b >> 2) + 2 * (lane & 3) + (b & 1);
+  return q << 16 | row << 8 | col;
+}
+
+// Stage 1's values near a bf16 tie, recomputed (the forwards of v4 / v4t, v4s and v6 and their
+// backwards): bit 4 nt + i of tie_z[mt] and bit 16 k + 4 nt + i of tie_u[mt] flag the lane's
+// accumulator element [mt][nt][i] of stage 1's warp tile (row 16 mt + g + 8 (i >> 1), column
+// 32 warp + 8 nt + 2 t + (i & 1)) of z or u_k.  Each flagged element's sum s = sum_k a[n0 + row, k]
+// w[k, col] (primal row . w1, or tangent row k . w1c_k) is formed again as the plain version forms
+// it, one FMA a term in k order from zero (the product of two bf16 values is exact in f32), and
+// T(relu(s + b1)) or T(s) goes to its row set.  Each warp recomputes its own tile's elements, one
+// lane an element: it lists them in its 32 entries of list ([WARPS x 32]), z's first, then u_k's,
+// up to 32 at a time, so that the lanes of a pass run chains of one length and all their weights
+// lie in the warp's 32 columns.  Those columns come FIX_ROWS rows at a time into the warp's slice
+// of the ring's memory (16-byte cp.async copies, a weight row's 64 bytes by four lanes, all in
+// flight at once), and each lane reads its weights there and its row's values from global memory
+// (8 values a load, issued before the slice's copies); rows at or past n are zeros (s = 0).  The
+// ring must be free: no cp.async group of the thread in flight, stage 2's not started.  Needs
+// in_ch / 3 to be a multiple of FIX_ROWS.  Called by the whole block; ends with a barrier.
+constexpr int FIX_ROWS = 64;                                            // weight rows a slice holds
+constexpr int FIX_SLICE_BYTES = FIX_ROWS * 32 * (int)sizeof(__nv_bfloat16);  // [FIX_ROWS, 32]
+static_assert(WARPS * FIX_SLICE_BYTES <= NS * SLOT_BYTES, "fix_ties's warp slices fit in the ring");
+
+__device__ __forceinline__ void fix_ties(uint32_t (&tie_z)[4], uint64_t (&tie_u)[4], const RowSource& src,
+                                         const bf16* __restrict__ w1v, const bf16* __restrict__ w1cv,
+                                         const float* __restrict__ b1, int64_t n0, bf16* sets, int* list,
+                                         unsigned char* ring) {
+  constexpr unsigned FULL = 0xffffffffu;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, in_ch = src.in_ch, ch = in_ch / 3;
+  int* wl = list + warp * 32;
+  bf16* slice = reinterpret_cast<bf16*>(ring + warp * FIX_SLICE_BYTES);  // rows of the warp's 32 columns
+  for (int kind = 0; kind < 2; ++kind) {  // z's elements, then u_k's
+    while (true) {
+      int mine = 0;
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) mine += kind == 0 ? __popc(tie_z[mt]) : __popcll(tie_u[mt]);
+      int upto = mine;  // the warp's inclusive prefix sum
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int x = __shfl_up_sync(FULL, upto, d);
+        if (lane >= d) upto += x;
+      }
+      const int total = __shfl_sync(FULL, upto, 31);
+      if (total == 0) break;
+      int at = upto - mine;
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        if (kind == 0) {
+          for (uint32_t f = tie_z[mt]; f != 0u && at < 32; f &= f - 1u) {
+            const int b = __ffs(f) - 1;
+            wl[at++] = tie_entry(0, mt, b);
+            tie_z[mt] &= ~(1u << b);
+          }
+        } else {
+          for (uint64_t f = tie_u[mt]; f != 0u && at < 32; f &= f - 1u) {
+            const int b = __ffsll(f) - 1;
+            wl[at++] = tie_entry(1 + (b >> 4), mt, b & 15);
+            tie_u[mt] &= ~(1ull << b);
+          }
+        }
+      }
+      __syncwarp();
+      const bool listed = lane < min(total, 32);
+      const int entry = listed ? wl[lane] : 0;
+      const int q = entry >> 16, row = (entry >> 8) & 0xff, col = entry & 0xff;
+      const int64_t point = n0 + row;
+      // the weights the listed elements read: w1v (z), or w1c_k of each direction k present
+      const unsigned dirs = kind == 0 ? 1u : __reduce_or_sync(FULL, listed ? 1u << (q - 1) : 0u);
+      float s = 0.0f;
+      for (int d = 0; d < 3; ++d) {
+        if (!((dirs >> d) & 1u)) continue;
+        const bf16* w = kind == 0 ? w1v : w1cv + (size_t)d * ch * HID;
+        const bool live = listed && (kind == 0 || q == d + 1) && point < src.n;
+#pragma unroll 1
+        for (int k0 = 0; k0 < (kind == 0 ? in_ch : ch); k0 += FIX_ROWS) {
+          uint4 av[FIX_ROWS / 8];
+          if (live) {
+            const bf16* a = kind == 0 ? src.primal_ptr(point, k0) : src.tangent_ptr(d, point, k0);
+#pragma unroll
+            for (int j = 0; j < FIX_ROWS / 8; ++j) av[j] = *reinterpret_cast<const uint4*>(a + 8 * j);
+          }
+          __syncwarp();  // the slice's last reads are done
+#pragma unroll
+          for (int m = 0; m < FIX_ROWS * 4 / 32; ++m) {  // by cp.async: all of a lane's copies in flight at once
+            const int i = lane + 32 * m;
+            mma::cp_async16(mma::smem_addr(slice + (i >> 2) * 32 + (i & 3) * 8),
+                            w + (size_t)(k0 + (i >> 2)) * HID + 32 * warp + (i & 3) * 8, true);
+          }
+          mma::cp_async_commit();
+          mma::cp_async_wait<0>();
+          __syncwarp();
+          if (live) {
+            const bf16* wc = slice + (col - 32 * warp);
+#pragma unroll
+            for (int j = 0; j < FIX_ROWS / 8; ++j) {
+              const uint32_t x[4] = {av[j].x, av[j].y, av[j].z, av[j].w};
+#pragma unroll
+              for (int h = 0; h < 4; ++h) {
+                s = fmaf(__uint_as_float(x[h] << 16), to_f32(wc[(8 * j + 2 * h) * 32]), s);
+                s = fmaf(__uint_as_float(x[h] & 0xffff0000u), to_f32(wc[(8 * j + 2 * h + 1) * 32]), s);
+              }
+            }
+          }
+        }
+      }
+      if (listed) sets[(q * NB + row) * LDA + col] = __float2bfloat16_rn(q == 0 ? fmaxf(s + b1[col], 0.0f) : s);
+      __syncwarp();  // wl is written again
+    }
+  }
+  __syncthreads();  // the row sets are published
+}
+
+// The staged form of fix_ties, which v2 takes (with W1_COLS): the same sums from the same
+// elements.  Bit 4 nt + i of tie_z[mt] and bit
 // 16 k + 4 nt + i of tie_u[mt] flag the lane's accumulator element [mt][nt][i] of stage 1's warp
 // tile (row 16 mt + g + 8 (i >> 1), column 32 warp + 8 nt + 2 t + (i & 1)) of z or u_k.  Each
 // flagged element's sum s = sum_k a[n0 + row, k] w[k, col] (primal row . w1, or tangent row k .
@@ -251,13 +387,15 @@ __host__ __device__ inline bool row_region_valid(int in_ch, bool with_dpe) {
 // on_z(mt, nt, h, col, p0, p1) sees p = relu(z) at columns col = 32 w + 8 nt + 2 t and col + 1 of
 // row 16 mt + g + 8 h, and on_u(k, mt, nt, h, col, u0, u1) the masked u_k in f32, both before the
 // bf16 rounding.  With Z_FLOOR, tie_z also flags each p within z_tie_floor times the largest |z|
-// of the warp's 32 columns of its row of a tie (the two-argument near_bf16_tie).
-template <bool Z_FLOOR = false, class OnZ, class OnU>
+// of the warp's 32 columns of its row of a tie (the two-argument near_bf16_tie); with U_FLOOR,
+// tie_u each masked u_k within u_tie_floor times the largest |masked u_k| of those columns.
+template <bool Z_FLOOR = false, bool U_FLOOR = false, class OnZ, class OnU>
 __device__ __forceinline__ void stage1(const bf16* pe_s, int ldp, const bf16* tan_s, int ldt, int tan_k,
                                        const bf16* __restrict__ w1v, const bf16* __restrict__ w1cv,
                                        const float* __restrict__ b1, int in_ch, unsigned char* ring,
                                        bf16* sets, uint32_t (&mask)[4], uint32_t (&tie_z)[4],
-                                       uint64_t (&tie_u)[4], OnZ on_z, OnU on_u, float z_tie_floor = 0.0f) {
+                                       uint64_t (&tie_u)[4], OnZ on_z, OnU on_u, float z_tie_floor = 0.0f,
+                                       float u_tie_floor = 0.0f) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t2 = 2 * (lane & 3);
   const int ch = in_ch / 3;
   // stage 1's weights, per warp and without block barriers: the warp's 32 columns of w1, then
@@ -342,6 +480,25 @@ __device__ __forceinline__ void stage1(const bf16* pe_s, int ldp, const bf16* ta
     __syncthreads();  // the tangent rows may lie under t_k's rows
     bf16* t_s = sets + (k + 1) * NB * LDA;
 #pragma unroll
+    for (int mt = 0; mt < 4; ++mt)  // u_k = 1[z > 0] (tan_k . w1c_k)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (!((mask[mt] >> (4 * nt + i)) & 1u)) acc[mt][nt][i] = 0.0f;
+    float floor_u[4][2] = {};  // u_tie_floor times the largest |u_k| of the warp's 32 columns of each row
+    if constexpr (U_FLOOR) {
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float m = 0.0f;
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) m = fmaxf(m, fmaxf(fabsf(acc[mt][nt][2 * h]), fabsf(acc[mt][nt][2 * h + 1])));
+          floor_u[mt][h] = u_tie_floor * mma::quad_max(m);
+        }
+    }
+#pragma unroll
     for (int nt = 0; nt < 4; ++nt) {
       const int col = 32 * warp + 8 * nt + t2;
 #pragma unroll
@@ -349,10 +506,11 @@ __device__ __forceinline__ void stage1(const bf16* pe_s, int ldp, const bf16* ta
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int bit = 4 * nt + 2 * h;
-          const float u0 = (mask[mt] >> bit) & 1u ? acc[mt][nt][2 * h] : 0.0f;
-          const float u1 = (mask[mt] >> (bit + 1)) & 1u ? acc[mt][nt][2 * h + 1] : 0.0f;
-          tie_u[mt] |= (uint64_t)(near_bf16_tie<TIE_ULPS_U>(u0) ? 1u : 0u) << (16 * k + bit);
-          tie_u[mt] |= (uint64_t)(near_bf16_tie<TIE_ULPS_U>(u1) ? 1u : 0u) << (16 * k + bit + 1);
+          const float u0 = acc[mt][nt][2 * h], u1 = acc[mt][nt][2 * h + 1];
+          const bool tie0 = U_FLOOR ? near_bf16_tie<TIE_ULPS_U>(u0, floor_u[mt][h]) : near_bf16_tie<TIE_ULPS_U>(u0);
+          const bool tie1 = U_FLOOR ? near_bf16_tie<TIE_ULPS_U>(u1, floor_u[mt][h]) : near_bf16_tie<TIE_ULPS_U>(u1);
+          tie_u[mt] |= (uint64_t)(tie0 ? 1u : 0u) << (16 * k + bit);
+          tie_u[mt] |= (uint64_t)(tie1 ? 1u : 0u) << (16 * k + bit + 1);
           on_u(k, mt, nt, h, col, u0, u1);
           *reinterpret_cast<uint32_t*>(t_s + (16 * mt + g + 8 * h) * LDA + col) = mma::pack_bf16x2(u0, u1);
         }
@@ -437,7 +595,7 @@ __host__ __device__ inline FwdSmem fwd_smem(int in_ch, bool with_dpe) {
   return s;
 }
 
-static_assert(TIE_CAP + 1 <= 2 * 4 * NB, "fix_ties's list fits in stage 2's partial sums");
+static_assert(TIE_CAP + 1 <= 2 * 4 * NB && WARPS * 32 <= 2 * 4 * NB, "fix_ties's lists fit in stage 2's partial sums");
 
 // The forward of one block (NB points from blockIdx.x, variable blockIdx.y): primal and the three
 // tangents of every point, from src (RowSource) and ref, into primal / tang in the var-major
@@ -490,20 +648,19 @@ __device__ __forceinline__ void forward_block(const RowSource& src, const bf16* 
     };
     const auto on_u = [](int, int, int, int, int, float, float) {};
     // direction k's tangent rows: v4's dpe block k, or lanes k ch .. of the primal rows
-    stage1(pe_s, ldp, with_dpe ? dpe_s : pe_s, with_dpe ? ldd : ldp, with_dpe ? NB * ldd : ch, w1v, w1cv, b1,
-           in_ch, smem + L.ring, sets, mask, tie_z, tie_u, on_z, on_u);
+    stage1<true, true>(pe_s, ldp, with_dpe ? dpe_s : pe_s, with_dpe ? ldd : ldp, with_dpe ? NB * ldd : ch, w1v,
+                       w1cv, b1, in_ch, smem + L.ring, sets, mask, tie_z, tie_u, on_z, on_u, TIE_FLOOR_Z, TIE_FLOOR_U);
     tc::store_row_sums(s, red1 + warp * NB, lane);
   }
   tc::cd_sums(cd_s, ldp, in_ch, wdwo + v * in_ch, NB, redc);
 
-  // stage 2's tiles are in flight from here on (every warp is past its stage-1 slices)
+  // T(p) and t_k near a rounding tie, recomputed in the plain version's order: red2 holds the
+  // lists until stage 2 ends, and the ring's memory the warps' weight slices (every warp is past
+  // its stage-1 slices)
+  fix_ties(tie_z, tie_u, src, w1v, w1cv, b1, n0, sets, reinterpret_cast<int*>(red2), smem + L.ring);
+  // stage 2's tiles are in flight from here on
   auto ring = stage2_ring(smem + L.ring, w2f1v, wdf1v, in_ch);
   ring.start();
-
-  // T(p) and t_k near a rounding tie, recomputed in the plain version's order: red2 holds the
-  // list until stage 2 ends, and the ring's last slot is free until its first tile is taken
-  fix_ties(tie_z, tie_u, src, w1v, w1cv, b1, n0, sets, reinterpret_cast<int*>(red2),
-           reinterpret_cast<float*>(smem + L.ring + (NS - 1) * SLOT_BYTES), ties_per_round(in_ch));
   // sum(t_k * w2wo) from t_k as stored (published by fix_ties's barrier)
   for (int k = 0; k < 3; ++k) {
     const bf16* t_s = sets + (k + 1) * NB * LDA;

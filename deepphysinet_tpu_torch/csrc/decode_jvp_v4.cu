@@ -65,10 +65,10 @@
 //   version's (cuBLAS: one FMA a term, in k order).  z and r take each k16 product into
 //   zeros and add it with an f32 add (warp_mma's RN rows): the tensor cores' own running
 //   sum rounds differently, and z feeds T(p) and both relu masks.  Where z or u_k lies
-//   within TIE_ULPS_Z / TIE_ULPS_U of a bf16 rounding tie, T(p) or t_k is recomputed in the
-//   plain version's order once stage 1 is done (fix_ties); without that, T(p) and t_k flip by
-//   one step at some elements of a flagship frame, and tangents move past chip_smoke.py's
-//   bound.
+//   within TIE_ULPS_Z / TIE_ULPS_U ulps, or TIE_FLOOR_Z / TIE_FLOOR_U of its row's largest
+//   value, of a bf16 rounding tie, T(p) or t_k is recomputed in the plain version's order once
+//   stage 1 is done (fix_ties); without that, T(p) and t_k flip by one step at some elements of
+//   a flagship frame, and tangents move past chip_smoke.py's bound.
 //
 // float (decode_jvp_v4_kernel, the parity configuration; no TF32): the products on the
 // CUDA cores (FMA), the chain of decode_common.cuh's primal_stages and tangent_stage; the

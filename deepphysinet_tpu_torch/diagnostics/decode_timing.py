@@ -1,9 +1,10 @@
 """Median times of the tensor-core decode kernels of the tree it runs in, for comparing two trees
 on one card.
 
-Random weights at flagship width (in_ch 192, hidden 256, six variables), 20,480 points, bf16:
-the v4s and v6 pairs, the v4t forward and backward and the v2 forward, each the median of five
-runs of ten launches (three for the two slowest) by CUDA events.  It imports the port from the
+Random weights at flagship width (in_ch 192, hidden 256, six variables), bf16: the v4s and v6
+pairs, the v4t forward and backward and the v2 forward at 20,480 points, and the two residual-sum
+kernels at 65,536 (the flagship's observation specs), each the median of five runs of ten
+launches (three for the slower ones) by CUDA events.  It imports the port from the
 working directory, so the same file times any tree.  Compare two trees in one call, in turns
 (here the parent's checkout in ``parent/``):
 
@@ -26,11 +27,13 @@ import torch
 
 sys.path.insert(0, os.getcwd())  # the tree to time: its package, not this file's
 
-from deepphysinet_tpu_torch.ops import cuda_build, decode_kernel as dk  # noqa: E402
+from deepphysinet_tpu_torch.config import Config  # noqa: E402
+from deepphysinet_tpu_torch.ops import cuda_build, decode_kernel as dk, residual_kernel as rk  # noqa: E402
 from deepphysinet_tpu_torch.ops.coords import CoordSpec  # noqa: E402
 from deepphysinet_tpu_torch.ops.position_encoding import make_freq_bands, sinecos_pe  # noqa: E402
+from deepphysinet_tpu_torch.train.train_step import step_config_from_cfg  # noqa: E402
 
-IN_CH, HID, N = 192, 256, 20480
+IN_CH, HID, N, RESIDUAL_N = 192, 256, 20480, 65536
 
 
 def median_ms(fn, iters: int = 10) -> float:
@@ -54,7 +57,7 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     dev, bf = torch.device("cuda"), torch.bfloat16
-    cuda_build.build_libraries(dk.SOURCES)
+    cuda_build.build_libraries(list(dk.SOURCES) + [rk.SOURCE])
     rng = np.random.RandomState(11)
 
     def r(*s, scale=0.1):
@@ -79,6 +82,15 @@ def main() -> int:
     w = dk.DecodeWeights(w1=w1, b1=fw.b1, w2=r(6, HID, HID), b2=r(6, HID), wd=r(6, IN_CH, HID), bd=r(6, HID),
                          fh_add=r(6, HID), f1=r(6, HID, HID), g1=r(6, HID), f2=r(6, HID, HID), g2=r(6, HID),
                          wo=r(6, HID), bo=r(6))
+    # the residual sums' points, and the flagship's observation specs
+    coords_r = torch.from_numpy(np.stack([rng.rand(RESIDUAL_N) * 27000 * 256, rng.rand(RESIDUAL_N) * 27000 * 144,
+                                          rng.rand(RESIDUAL_N) * 86400.0], -1).astype(np.float32)).to(dev)
+    cdata_r, cor = r(RESIDUAL_N, 6, scale=0.3), r(RESIDUAL_N, 1, scale=1e-4)
+    pe_r, dpe_r = dk.pe_and_tangents(coords_r, spec, bf)
+    dpe_r, trig_r = dpe_r.contiguous(), dk.trig3_inputs(coords_r, spec, bf).contiguous()
+    cd_r = sinecos_pe(cdata_r, make_freq_bands(16, 4.0)).to(bf).contiguous()
+    specs = step_config_from_cfg(Config.fromfile(os.path.join(os.getcwd(), "configs", "DeepPhysiNet_NCEP_cfg.py"))
+                                 ["config"]).obs_specs
     times = {
         "v4s_fwd": median_ms(lambda: dk.fused_decode_jvp_v4s(fw6, pe_cm, cd, ref_t, bf)),
         "v4s_bwd": median_ms(lambda: dk.decode_bwd_kernel_v4s(fw6, pe_cm, cd, g_p, g_t, bf)),
@@ -87,6 +99,10 @@ def main() -> int:
         "v4t_fwd": median_ms(lambda: dk.fused_decode_jvp_v4t(fw, pe, dpe, cd, ref_t, bf)),
         "v4t_bwd": median_ms(lambda: dk.decode_bwd_kernel_v4t(fw, pe, dpe, cd, g_p, g_t, bf), iters=3),
         "v2": median_ms(lambda: dk.fused_decode_jvp(w, pe, dpe, cd, cdata, bf), iters=3),
+        "resid_v4": median_ms(lambda: rk.fused_residual_sums_v4(fw, pe_r, dpe_r, cd_r, cdata_r, cor, specs,
+                                                                compute_dtype=bf), iters=3),
+        "resid_v6": median_ms(lambda: rk.fused_residual_sums_v6(fw6, trig_r, cd_r, cdata_r, cor, specs,
+                                                                compute_dtype=bf), iters=3),
     }
     label = sys.argv[1] if len(sys.argv) > 1 else "tree"
     print(f"[decode timing] {label} {json.dumps(times)}  ({torch.cuda.get_device_name(0)})", flush=True)

@@ -2,12 +2,14 @@
 
 Counterpart of ``deepphysinet_tpu/ops/residual_kernel.py``: the forward-only
 residual evaluation (MSE criterion, ``mean_norm`` specs) as ONE launch that
-decodes a block of points for all six variables, applies the inverse
-normalization and its clip masks, evaluates the six primitive-equation
-residuals and adds up their squares.  Only six sums leave the kernel; the
-``[3, N, 6]`` tangents of the split path (decode kernel, then assembly in
-PyTorch: ``physics/engine.py::fused_residual_losses`` below its crossover) never
-reach device memory.
+decodes the points for all six variables, applies the inverse normalization and
+its clip masks, evaluates the six primitive-equation residuals and adds up their
+squares; six sums come out.  In bfloat16 the decode is the tensor-core forward
+body, one variable a block, whose outputs meet in a scratch array the wrapper
+allocates (``scratch_bytes``); in float32 a block decodes its points for all six
+variables and keeps them in shared memory.  Either way the split path's
+separate assembly in PyTorch (``physics/engine.py::fused_residual_losses``
+below its crossover) and its launches are saved.
 
 * ``fused_residual_sums_v4`` (:262-336) over the v4 decode's layer 1 and
   ``fused_residual_sums_v6`` (:192-259) over the v6 decode's: both the CUDA
@@ -142,7 +144,16 @@ def _library() -> ctypes.CDLL:
         if argtypes is not None:
             fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    for fn in (lib.dpn_residual_sums_scratch_floats, lib.dpn_residual_sums_tickets):
+        fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int64], ctypes.c_int64
     return lib
+
+
+def scratch_bytes(n: int, compute_dtype=torch.bfloat16) -> int:
+    """Device bytes of a launch's scratch at n points: the partial sums, in bfloat16 also the
+    decode outputs [24, n] (float32), and the tickets."""
+    lib, is_bf16 = _library(), int(compute_dtype == torch.bfloat16)
+    return 4 * (lib.dpn_residual_sums_scratch_floats(is_bf16, n) + lib.dpn_residual_sums_tickets(is_bf16, n))
 
 
 def _params(obs_specs, with_clip: bool, c: PhysicalConstants) -> _ResidualParams:
@@ -197,9 +208,9 @@ def _residual_sums(wrapper, fw, matrices: Tuple[torch.Tensor, torch.Tensor], pe:
     sums = torch.zeros(len(EQUATIONS), dtype=f32, device=pe.device)
     if n == 0:
         return sums
-    blocks = -(-n // lib.dpn_residual_sums_block(is_bf16))
-    partials = torch.empty((blocks, len(EQUATIONS)), dtype=f32, device=pe.device)
-    tickets = torch.zeros(1, dtype=torch.int32, device=pe.device)
+    # the launch's scratch: the blocks' partial sums (and in bfloat16 the decode outputs) and tickets
+    partials = torch.empty(lib.dpn_residual_sums_scratch_floats(is_bf16, n), dtype=f32, device=pe.device)
+    tickets = torch.zeros(lib.dpn_residual_sums_tickets(is_bf16, n), dtype=torch.int32, device=pe.device)
     _launch(name, wrapper, lib.dpn_residual_sums, compute_dtype,
             [pe, pe if dpe is None else dpe, cd_pe, ref_t, f_row] + weights + [partials, tickets, sums],
             (ctypes.byref(prm), n, in_ch, int(v6)), pe.device)

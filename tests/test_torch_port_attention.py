@@ -41,9 +41,13 @@ def _interpret():
     return mock.patch.object(jattn.pl, "pallas_call", functools.partial(jattn.pl.pallas_call, interpret=True))
 
 
-def _inputs(seed, shape, dtype, n=3):
+def _draws(seed, shape, n=3):
     rng = np.random.RandomState(seed)
-    xs = [rng.randn(*shape).astype(np.float32) for _ in range(n)]
+    return [rng.randn(*shape).astype(np.float32) for _ in range(n)]
+
+
+def _inputs(seed, shape, dtype, n=3):
+    xs = _draws(seed, shape, n)
     return ([jnp.asarray(x, getattr(jnp, dtype)) for x in xs],
             [torch.from_numpy(x).to(getattr(torch, dtype)) for x in xs])
 
@@ -276,8 +280,9 @@ def test_attention_kernels_match_plain(cuda_device, dtype, head_dim):
     partial key tile), 287 and 300 (either side of a 256-key block), 1,024 (the single-tile
     kernel's routing limit), 1,025 and 4,096 (the flash kernel's range, a ring of key tiles)."""
     for length in (1, 3, 287, 300, 1024, 1025, 4096):
-        _, (q, k, v) = _inputs(length, (2, length, 8, head_dim), dtype)
-        q, k, v = (t.to(cuda_device) for t in (q, k, v))
+        # the draws of _inputs, without its JAX arrays (the card's machine has no JAX)
+        q, k, v = (torch.from_numpy(x).to(cuda_device, getattr(torch, dtype))
+                   for x in _draws(length, (2, length, 8, head_dim)))
         for wrapper, plain in ((tattn.attention_tile, tattn.attention_tile_ref),
                                (tattn.attention_flash, tattn.attention_flash_ref)):
             before = wrapper.launches

@@ -31,6 +31,7 @@ import jax.numpy as jnp
 from deepphysinet_tpu.models.physics_net import PhysicsNet as JaxPhysicsNet
 from deepphysinet_tpu.ops import encoder_kernel as jek
 
+from deepphysinet_tpu_torch.models.init import init_parameters
 from deepphysinet_tpu_torch.models.physics_net import PhysicsNet
 from deepphysinet_tpu_torch.ops import encoder_kernel as tek
 from deepphysinet_tpu_torch.train.torch_import import state_dict_from_jax
@@ -49,6 +50,18 @@ CASES = {
 }
 
 
+def _case(i, name):
+    """Case ``name`` (the i-th of CASES): its configs, field and forecast hours."""
+    dtype, e_layers, token_num, act, batch = CASES[name]
+    rng = np.random.RandomState(i)
+    meta = dict(enc_in=65, c_out=64, d_model=64, n_heads=4, e_layers=e_layers, activation=act,
+                d_ff=96, learnable_token_num=8)
+    net = dict(in_channels=192, hidden_channels=64, learnable_token_num=16, token_num=token_num)
+    field = (rng.randn(batch, token_num, 65) * 0.5).astype(np.float32)
+    fh = np.full((batch, 1), 0.1, np.float32) + 0.2 * np.arange(batch, dtype=np.float32)[:, None]
+    return meta, net, field, fh
+
+
 @pytest.fixture(scope="module")
 def models():
     """Both packages' models and one field per case, built once; cases whose models differ
@@ -56,13 +69,8 @@ def models():
     float32 either way)."""
     out, inits = {}, {}
     for name, (dtype, e_layers, token_num, act, batch) in CASES.items():
-        rng = np.random.RandomState(len(out))
-        meta = dict(enc_in=65, c_out=64, d_model=64, n_heads=4, e_layers=e_layers, activation=act,
-                    d_ff=96, learnable_token_num=8)
-        net = dict(in_channels=192, hidden_channels=64, learnable_token_num=16, token_num=token_num)
+        meta, net, field, fh = _case(len(out), name)
         jm = JaxPhysicsNet(meta_cfg=meta, net_cfg=net, compute_dtype=getattr(jnp, dtype))
-        field = (rng.randn(batch, token_num, 65) * 0.5).astype(np.float32)
-        fh = np.full((batch, 1), 0.1, np.float32) + 0.2 * np.arange(batch, dtype=np.float32)[:, None]
         key = (e_layers, token_num, act)
         if key not in inits:
             inits[key] = JaxPhysicsNet(meta_cfg=meta, net_cfg=net).init(
@@ -171,10 +179,24 @@ def cuda_device():
     return torch.device("cuda")
 
 
+@pytest.fixture(scope="module")
+def port_models():
+    """The port's model and field of each case, as ``models`` builds them but with the port's own
+    seeded initialisation for the JAX package's (the card's machine has no JAX; the card test
+    holds the port's kernel to the port's plain version, on any weights)."""
+    out = {}
+    for i, (name, (dtype, *_)) in enumerate(CASES.items()):
+        meta, net, field, fh = _case(i, name)
+        tm = PhysicsNet(meta, net, compute_dtype=getattr(torch, dtype), device="cpu")
+        init_parameters(tm, torch.Generator().manual_seed(i))
+        out[name] = dict(tm=tm, field=field, fh=fh, dtype=dtype)
+    return out
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["gelu_f32", "gelu_bf16", "relu_f32"])
-def test_encoder_kernel_matches_plain(models, cuda_device, case):
-    m = models[case]
+def test_encoder_kernel_matches_plain(port_models, cuda_device, case):
+    m = port_models[case]
     tm = copy.deepcopy(m["tm"]).to(cuda_device)
     net = tm.meta_net.model
     field, fh = torch.from_numpy(m["field"]).to(cuda_device), torch.from_numpy(m["fh"]).to(cuda_device)

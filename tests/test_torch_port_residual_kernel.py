@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from deepphysinet_tpu.ops import decode_kernel as jdk
@@ -92,6 +93,64 @@ def test_residual_sums_match_pallas_kernel(world, version, dtype, case):  # noqa
     got = tfn(*tins, _t(f), tspecs, with_clip=with_clip, compute_dtype=getattr(torch, dtype))
     assert tfn.launches == before  # no kernel was launched
     assert tuple(got.shape) == (6,) and got.dtype == torch.float32 and np.isfinite(want).all()
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL[dtype])
+
+
+# 1, 65 and 129: the point-block edges of the CUDA kernel (64 points a block in bfloat16, 32 in
+# float32), where chip_smoke.py and the card test hold it to these plain versions
+EDGE_SIZES = (1, 65, 129)
+
+
+@pytest.fixture(scope="module")
+def edge_world(world):  # noqa: F811
+    """The world's model at max(EDGE_SIZES) seeded points of its window (the world has 96)."""
+    rng = np.random.RandomState(21)
+    n = max(EDGE_SIZES)
+    coords = np.stack([rng.rand(n) * 27000 * 256, rng.rand(n) * 27000 * 144,
+                       rng.randint(0, 25, n) * 3600.0], -1).astype(np.float32)
+    return dict(world, coords=coords, nwp=(rng.randn(n, 6) * 0.1).astype(np.float32),
+                f=(1e-4 * rng.rand(n, 1)).astype(np.float32))
+
+
+@pytest.fixture(scope="module")
+def pallas_point_sums(edge_world):
+    """The Pallas kernels (interpret mode) on each point of ``edge_world`` alone, traced once per
+    version and dtype: a one-point call under ``jax.vmap`` over the points.  Each point's six
+    squared residuals depend on that point alone, so the sums of the first n rows are the
+    kernel's sums over the first n points.  Returns ``get(version, dtype)`` -> [n, 6] float64."""
+    cache = {}
+
+    def get(version, dtype):
+        if (version, dtype) not in cache:
+            jins, _, f = _decode_inputs(edge_world, max(EDGE_SIZES), version)
+            fw, pts = jins[0], (*jins[1:], jnp.asarray(f))
+            # the point axis of each operand: v4 pe, dpe, cd, ref, f; v6 trig, cd, ref, f
+            axes = (0, 1, 0, 0, 0) if version == 4 else (1, 0, 0, 0)
+            jfn = jrk.fused_residual_sums_v4 if version == 4 else jrk.fused_residual_sums_v6
+
+            def one(*p):
+                return jfn(fw, *(jnp.expand_dims(x, a) for x, a in zip(p, axes)), edge_world["jspecs"],
+                           block_n=8, interpret=True, compute_dtype=getattr(jnp, dtype))
+
+            cache[version, dtype] = np.asarray(jax.jit(jax.vmap(one, in_axes=axes))(*pts), np.float64)
+        return cache[version, dtype]
+
+    return get
+
+
+@pytest.mark.parametrize("n", EDGE_SIZES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("version", [4, 6])
+def test_residual_sums_match_pallas_kernel_at_block_edges(edge_world, pallas_point_sums, version, dtype, n):
+    """``fused_residual_sums_v4`` / ``_v6`` on CPU tensors (their plain versions) against the
+    Pallas kernels at the CUDA kernel's point-block edges."""
+    _, tins, f = _decode_inputs(edge_world, n, version)
+    tfn = trk.fused_residual_sums_v6 if version == 6 else trk.fused_residual_sums_v4
+    before = tfn.launches
+    got = tfn(*tins, _t(f), edge_world["tspecs"], compute_dtype=getattr(torch, dtype))
+    assert tfn.launches == before  # no kernel was launched
+    want = pallas_point_sums(version, dtype)[:n].sum(0)
+    assert tuple(got.shape) == (6,) and np.isfinite(want).all()
     np.testing.assert_allclose(got.numpy(), want, rtol=RTOL[dtype])
 
 
@@ -203,15 +262,24 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# The point-block edges of the kernel (64 points a block in bfloat16, 32 in float32) and 1,000
+CARD_SIZES = (1, 17, 64, 65, 129, 1000)
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("version", [4, 6])
-def test_residual_kernel_matches_plain(cuda_device, version):
-    """The CUDA kernel against its plain version at the kernel's widths, twice (bit-equal)."""
+def test_residual_kernel_matches_plain(cuda_device, version, dtype):
+    """The CUDA kernel against its plain version at the kernel's widths and CARD_SIZES, one launch a
+    call, twice (bit-equal).  Bounds: float32 1e-4 per equation (summation order); bfloat16
+    chip_smoke.py's RTOL_RESIDUAL, 2e-3 (the tensor cores' order, recomputed in the plain
+    version's near a bf16 tie)."""
     from tests.test_torch_port_engine import OBS_CFG
     from deepphysinet_tpu_torch.ops.normalization import OBS_NAME_ORDER, norm_specs_from_cfg
 
     rng = np.random.RandomState(12)
-    n, in_ch, hid, two_f = 1000, 192, 256, 64
+    n_max, in_ch, hid, two_f = max(CARD_SIZES), 192, 256, 64
+    td = getattr(torch, dtype)
     specs = tuple(norm_specs_from_cfg(OBS_CFG)[k] for k in OBS_NAME_ORDER)
 
     def r(*s, scale=0.05):
@@ -219,18 +287,22 @@ def test_residual_kernel_matches_plain(cuda_device, version):
 
     shared = dict(b1=r(6, hid), w2f1=r(6, hid, hid), wdf1=r(6, in_ch, hid), rbias=r(6, hid), fw2=r(6, hid),
                   w2wo=r(6, hid), wdwo=r(6, in_ch), obias=r(6))
-    cd, ref, f = r(n, in_ch, scale=1.0), r(n, 6, scale=0.1), r(n, 1, scale=1e-4)
+    cd, ref, f = r(n_max, in_ch, scale=1.0), r(n_max, 6, scale=0.1), r(n_max, 1, scale=1e-4)
     if version == 6:
         fw = tdk.FusedDecodeWeightsV6(w1g=r(6, 3, two_f, hid), w1t=r(6, 3, two_f, hid, scale=1e-6), **shared)
-        args = (fw, r(3, n, two_f, scale=1.0), cd, ref, f, specs)
+        rows = (r(3, n_max, two_f, scale=1.0),)
         fn, plain = trk.fused_residual_sums_v6, trk.residual_sums_v6_ref
     else:
         w1 = r(6, in_ch, hid)
         fw = tdk.FusedDecodeWeights(w1=w1, w1c=tdk.slice_tangent_weights(w1), **shared)
-        args = (fw, r(n, in_ch, scale=1.0), r(3, n, two_f, scale=1e-5), cd, ref, f, specs)
+        rows = (r(n_max, in_ch, scale=1.0), r(3, n_max, two_f, scale=1e-5))
         fn, plain = trk.fused_residual_sums_v4, trk.residual_sums_v4_ref
-    before = fn.launches
-    got, again = fn(*args, compute_dtype=torch.float32), fn(*args, compute_dtype=torch.float32)
-    torch.cuda.synchronize()
-    assert fn.launches == before + 2 and torch.equal(got, again)
-    np.testing.assert_allclose(got.cpu().numpy(), plain(*args, compute_dtype=torch.float32).cpu().numpy(), rtol=1e-4)
+    for n in CARD_SIZES:
+        pts = tuple((x[:n] if x.shape[0] == n_max else x[:, :n]).to(td).contiguous() for x in rows)
+        args = (fw, *pts, cd[:n].to(td).contiguous(), ref[:n].contiguous(), f[:n].contiguous(), specs)
+        before = fn.launches
+        got, again = fn(*args, compute_dtype=td), fn(*args, compute_dtype=td)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 2 and torch.equal(got, again), n
+        np.testing.assert_allclose(got.cpu().numpy(), plain(*args, compute_dtype=td).cpu().numpy(),
+                                   rtol=1e-4 if dtype == "float32" else 2e-3, err_msg=str(n))

@@ -108,7 +108,7 @@ def test_fuse_decode_weights_v6_matches_jax():
     inp = _inputs(4)
     want, got = _jax_side(inp)[0], _port_side(inp)[0]
     for name in FIELDS:
-        a, b = _np(getattr(got, name)), np.asarray(getattr(want, name))
+        a, b = _np(getattr(got, name)), _np(getattr(want, name))
         assert a.shape == b.shape, name
         np.testing.assert_allclose(a, b, rtol=2e-5, atol=2e-6 * max(np.abs(b).max(), 1e-30), err_msg=name)
 
@@ -181,7 +181,7 @@ def test_v6_is_the_v4s_function_in_another_layout():
 def _assert_cotangents_close(got, want, tol):
     """Per weight, relative to that weight's own largest cotangent."""
     for name in FIELDS:
-        a, b = _np(getattr(got, name)), np.asarray(getattr(want, name))
+        a, b = _np(getattr(got, name)), _np(getattr(want, name))
         assert a.shape == b.shape, name
         scale = max(np.abs(b).max(), 1e-3)
         np.testing.assert_allclose(a, b, rtol=tol, atol=tol * scale, err_msg=name)
