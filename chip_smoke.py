@@ -71,16 +71,21 @@ Phases, each of which raises (exit code 1) on failure:
                steps with ``kernel_version=6``, with the launch counts;
 13. v2      -- the v2 and v3 forward kernels (the uncollapsed decode; v3 with the PE
                computed in the kernel) against their plain versions, bf16 and f32, at
-               20,480 (v2) or 37,265 (v3), 1,000 and 3 points, v2 also at the block edges
-               17, 64, 65 and 129; a reading of the plain version's rounding on the v2
-               operands (float64 sums in place of cuBLAS's at each of its six bf16 rounding
-               points), which the bf16 v2 kernel's recomputation near a tie rests on;
+               20,480 (v2; v3 at 37,265 and at 20,480 of the same frame), 1,000, 3 and 1
+               (v3) points and at the block edges 17, 64, 65 and 129, v3 twice (the same
+               bits); a reading of the plain version's rounding on the v2 operands and on
+               v3's channel-major operands of one frame (float64 sums in place of cuBLAS's
+               at each of its six bf16 rounding points), which the bf16 kernels'
+               recomputation near a tie rests on;
                ``FusedDecodeJvpV2`` (kernel forward, plain backward) against autograd of the
                plain forward;
 14. train v2 -- 3 PDE steps with ``kernel_version=2`` (the seeded-state comparisons ran
                in phase 6), with the launch counts;
 15. v4pe, v5 -- the v4pe and v5 forward kernels against their plain versions, bf16 and
-               f32, at 37,265, 1,000 and 3 points; ``fused_kernel_fields(in_kernel_pe=True)``
+               f32, at 37,265, 1,000, 3 and 1 points and at the block edges, v4pe twice (the
+               same bits); the bf16 rows of the PE front ends, bit for bit: the tensor-core
+               bodies' (one sincosf an angle) against the CUDA-core bodies' (sinf, cosf), and
+               their recompute's against their front end's; ``fused_kernel_fields(in_kernel_pe=True)``
                on one frame (the v4pe kernel) against the same call without it (the v4
                kernel on the prepared PE); direct calls of v3 and v5 on one frame;
 16. attention -- the single-tile and flash attention kernels against their plain
@@ -98,14 +103,15 @@ Phases, each of which raises (exit code 1) on failure:
 19. timing  -- by CUDA events, medians, alternating order: each kernel and its
                plain version at the main paths' sizes (the attention kernels beside one
                ``scaled_dot_product_attention`` call and a bound of three terms, the
-               single-tile kernel also at 1,024 tokens; the primal, v4 pair, v4s pair and
-               v2 forward with their points a block, ptxas registers and spills, and
-               their products as batched ``torch.bmm`` calls; the v4 backward also at
+               single-tile kernel also at 1,024 tokens; the primal, v4 pair, v4s pair,
+               v2, v3 and v4pe forward with their points a block, ptxas registers and spills,
+               and their products as batched ``torch.bmm`` calls; the v4 backward also at
                4,096 points; the v4 and v4s / v6 backward's bytes of atomic adds a
                launch; the residual sums with their points a block, ptxas registers and
                spills, scratch bytes and products as batched ``torch.bmm`` calls), and the
                in-kernel residual assembly against the split path at 40,960 to 131,072
-               points; by host
+               points; one frame through ``fused_kernel_fields`` with and without
+               ``in_kernel_pe`` (CUDA events and host clock); by host
                clock around a synchronize: one frame, one training step of each
                kind, one residual sweep, split into their parts, and one encode
                through ``PhysicsNet.encode`` and ``encode_fused``;
@@ -148,7 +154,8 @@ TIMING_POINTS = 20480 + 4096  # the points one PDE step decodes
 RESIDUAL_SIZES = (49152, 65536, 50001, 1) + BLOCK_EDGE_SIZES
 RESIDUAL_MAIN_N, RESIDUAL_SPLIT_N = 65536, 40960
 V2_SIZES = (20480, 1000, 3) + BLOCK_EDGE_SIZES  # the step's larger launch, ragged edges
-PE_SIZES = (GRID_POINTS, 1000, 3)  # one frame, ragged edges
+PE_SIZES = (GRID_POINTS, 1000, 3, 1) + BLOCK_EDGE_SIZES  # one frame, ragged edges
+V3_SIZES = (GRID_POINTS, 20480) + PE_SIZES[1:]  # one frame, v2's larger launch of it, ragged edges
 CROSSOVER_SIZES = (40960, 49152, 65536, 131072)
 
 # The card's published peaks (NVIDIA H100 SXM data sheet): dense bf16 tensor-core
@@ -485,18 +492,20 @@ def vapor_switch_points(engine, scfg, primal, tang, with_clip: bool, eps: float,
 V2_ROUNDING_POINTS = ("T(p)", "T(t_k)", "T(c)", "T(t2_k)", "T(relu r)", "T(tr_k)")
 
 
-def v2_rounding_reading(dk, w, pe, dpe, cd_pe, near, tol_primal: float, tol_tangent: float) -> dict:
+def v2_rounding_reading(dk, w, pe, dpe, cd_pe, near, tol_primal: float, tol_tangent: float, w1k=None) -> dict:
     """The rounding the bf16 tensor-core v2 kernel follows, a reading held to nothing
     (csrc/decode_jvp_v2.cu): for each of the plain version's six bf16 rounding points, the chain
     with the sums that feed that point (alone) taken in float64 in place of cuBLAS's, from the same
     inputs: the elements that then round the other way, and the points whose primal moves past
     ``tol_primal`` (1 + its largest) or a tangent past ``tol_tangent`` of its largest, outside the
     kink set ``near`` [N].  Also whether cuBLAS sums c's two products and r's one add a term in k
-    order.  ``pe`` [N, in_ch], ``dpe`` [3, N, ch], ``cd_pe`` [N, in_ch]; returns
-    {point: (flips, points past)} and {sum: elements where cuBLAS is not that order}."""
+    order.  ``pe`` [N, in_ch], ``dpe`` [3, N, ch], ``cd_pe`` [N, in_ch], ``w1k`` [V, 3, ch, hid] the
+    tangent rows' weights (v2's ``slice_tangent_weights`` of ``w.w1`` when None; v3's are the
+    channel-major ``w.w1`` in three blocks of rows); returns {point: (flips, points past)} and
+    {sum: elements where cuBLAS is not that order}."""
     bf = torch.bfloat16
     with torch.no_grad():
-        w1k = dk.slice_tangent_weights(w.w1)
+        w1k = dk.slice_tangent_weights(w.w1) if w1k is None else w1k
 
         def dot32(x, y):
             return dk.dot_f32(x, y, bf)
@@ -1959,15 +1968,31 @@ def main() -> int:
         w3, coords, nwp, _, _ = frame_points(6.5)
         pe3, cd3, (perm3, perm6) = front_end_operands(coords, nwp, w3.w1.shape[1], dtype)
         w3_cm = w3._replace(w1=w3.w1[:, perm3], wd=w3.wd[:, perm6])
-        for n in PE_SIZES:
+        for n in V3_SIZES:
             near = near_kink_v2(w3_cm, pe3[:n], cd3[:n], dtype)
             c_, x_ = coords[:n].contiguous(), nwp[:n].contiguous()
             p, t = dk.fused_decode_jvp_v3(w3, c_, x_, scfg.coord_spec, dtype)
+            p2, t2 = dk.fused_decode_jvp_v3(w3, c_, x_, scfg.coord_spec, dtype)
             torch.cuda.synchronize()
+            same = torch.equal(p, p2) and torch.equal(t, t2)
             p0, t0_ = dk.decode_jvp_v3_ref(w3, c_, x_, scfg.coord_spec, dtype)
             variant_err[("fused_decode_jvp_v3", dtype, n)], variant_rel[("fused_decode_jvp_v3", dtype, n)] = \
-                point_major_check("v3 forward", dtype, n, p, t, p0, t0_, near)
-            del p0, t0_
+                point_major_check("v3 forward", dtype, n, p, t, p0, t0_, near, f"; two runs bit-equal: {same}")
+            if not same:
+                raise AssertionError(f"two runs of the v3 kernel differ ({dtype}, N={n})")
+            del p0, t0_, p2, t2
+        if dtype == torch.bfloat16:  # the rounding the bf16 v3 kernel follows, on its channel-major operands
+            in_ch_ = w3.w1.shape[1]
+            t3 = dk.pe_front_end(coords, nwp, dcfg.coord_spec, in_ch_)[1].to(dtype)
+            reading, not_seq = v2_rounding_reading(dk, w3_cm, pe3, t3, cd3, near_kink_v2(w3_cm, pe3, cd3, dtype),
+                                                   TOL[dtype], TOL_TANGENT[dtype],
+                                                   w1k=w3_cm.w1.reshape(n_vars, 3, in_ch_ // 3, -1))
+            log(f"[rounding] v3, bf16, {pe3.shape[0]} points (channel-major): cuBLAS's sums of c (T(p) . w2, cd . "
+                f"wd) and r (T(c) . f1) differ from one add a term in k order at "
+                f"{', '.join(str(x) for x in not_seq.values())} elements; with float64 sums in place of cuBLAS's at "
+                "one rounding point, (elements that round the other way, points past the bounds outside the kink "
+                "set): " + ", ".join(f"{q} {v}" for q, v in reading.items()))
+            del t3
         del pe, dpe, cd_pe, pe3, cd3
     torch.cuda.empty_cache()
 
@@ -2036,16 +2061,37 @@ def main() -> int:
             near_pe = near_kink(fw_cm, pe4[:n], fw_cm.w1, cd4[:n], dtype)  # v4pe's own
             c_, x_ = coords[:n].contiguous(), nwp[:n].contiguous()
             p, t = dk.fused_decode_jvp_v4pe(fw, c_, x_, dcfg.coord_spec, dtype)
+            p2, t2 = dk.fused_decode_jvp_v4pe(fw, c_, x_, dcfg.coord_spec, dtype)
             torch.cuda.synchronize()
+            same = torch.equal(p, p2) and torch.equal(t, t2)
             p0, t0_ = dk.decode_jvp_v4pe_ref(fw, c_, x_, dcfg.coord_spec, dtype)
             variant_err[("fused_decode_jvp_v4pe", dtype, n)], variant_rel[("fused_decode_jvp_v4pe", dtype, n)] = \
-                point_major_check("v4pe forward", dtype, n, p, t, p0, t0_, near_pe)
+                point_major_check("v4pe forward", dtype, n, p, t, p0, t0_, near_pe, f"; two runs bit-equal: {same}")
+            if not same:
+                raise AssertionError(f"two runs of the v4pe kernel differ ({dtype}, N={n})")
+            del p2, t2
             p, t = dk.fused_decode_jvp_v5(fw, *ins, ref, dtype)
             torch.cuda.synchronize()
             p0, t0_ = dk.decode_jvp_v5_ref(fw, *ins, ref, dtype)
             variant_err[("fused_decode_jvp_v5", dtype, n)], variant_rel[("fused_decode_jvp_v5", dtype, n)] = \
                 point_major_check("v5 forward", dtype, n, p, t, p0, t0_, near)
             del p0, t0_
+        if dtype == torch.bfloat16:
+            # the rows of the PE front ends, bit for bit: the tensor-core bodies' (one sincosf an angle)
+            # against the CUDA-core bodies' (sinf, cosf), and their recompute's against their front end's
+            for n in (GRID_POINTS, 129):
+                rows_ = {f: dk.pe_front_end_rows(coords[:n].contiguous(), nwp[:n].contiguous(), dcfg.coord_spec,
+                                                 fw.w1.shape[1], f) for f in dk.PE_FRONT_ENDS}
+                torch.cuda.synchronize()
+                other = [int((a != b).sum()) for a, b in zip(rows_["tensor_cores"], rows_["cuda_cores"])]
+                again = [int((a != b).sum()) for a, b in zip(rows_["recompute"][:2], rows_["tensor_cores"][:2])]
+                log(f"[pe rows] N={n}: the tensor-core front end's bf16 rows (one sincosf an angle) against the "
+                    f"CUDA-core front end's (sinf, cosf): pe, tangents, cd differ at {other} of "
+                    f"{[x.numel() for x in rows_['tensor_cores']]} elements; the recompute's pe and tangent rows "
+                    f"against the front end's: {again}")
+                if any(other) or any(again):
+                    raise AssertionError(f"the PE front ends' rows differ: {other}, {again}")
+            del rows_
         del fw, pe, dpe, cd_pe, ref_t
     torch.cuda.empty_cache()
 
@@ -2252,7 +2298,7 @@ def main() -> int:
 
     # the v4 pair in both layouts, at one evaluation frame and at the step's larger launch;
     # the same operations per point as v4s (two_f = in_ch / 3 lanes per tangent direction)
-    v4_ms, v4_bwd_bmm = {}, {}
+    v4_ms, v4_bwd_bmm, v4_fwd_bmm = {}, {}, {}
     frame = frame_inputs(6.5, cd, with_tangents=True)
     for n in (GRID_POINTS, 20480, 4096):
         ins, ref_t, ref_n = v4_case(frame, n)
@@ -2286,7 +2332,7 @@ def main() -> int:
         dpe16 = dpe_.to(torch.bfloat16).expand(n_vars, *dpe_.shape).reshape(3 * n_vars, n, two_f)
         fwd_pairs = [(per_variable(pe_.to(torch.bfloat16)), wt["w1"]), (dpe16, wt["w1c"].reshape(3 * n_vars, two_f, hid)),
                      (rows(hid, 4 * n), wt["w2f1"]), (per_variable(cd_.to(torch.bfloat16)), wt["wdf1"])]
-        v4_bmm = bmm_ms(fwd_pairs)
+        v4_bmm = v4_fwd_bmm[n] = bmm_ms(fwd_pairs)
         log(f"[timing] v4 forward at N={n} {cd}: its products as 4 batched torch.bmm calls (a reading): "
             f"{v4_bmm:.4f} ms ({2e-9 * n_vars * fwd_macs * n / v4_bmm:.2f} TFLOP/s)")
         if n != GRID_POINTS:
@@ -2301,7 +2347,7 @@ def main() -> int:
                 f"{v4_bwd_bmm[n]:.4f} ms ({2e-9 * n_vars * bwd_macs * n / v4_bwd_bmm[n]:.2f} TFLOP/s)")
         del pe_, dpe_, cd_, dpe16, fwd_pairs
     v4_block = dk._jvp_library(dk.SOURCE_JVP_V4).dpn_decode_jvp_v4_block()
-    v4_ptxas = kernel_ptxas(cuda_build.BUILD_LOGS.get(dk.SOURCE_JVP_V4, ""), "decode_jvp_v4_tc"
+    v4_ptxas = kernel_ptxas(cuda_build.BUILD_LOGS.get(dk.SOURCE_JVP_V4, ""), "decode_jvp_v4_tcILb0E"
                             if cd == torch.bfloat16 else "decode_jvp_v4_kernelIfLi0E")
     log(f"[timing] v4 forward {cd}: {v4_block} points and one variable a block, 256 threads; ptxas {v4_ptxas}")
     # the v4 backward's points a block, registers and spills, and atomic adds into global memory
@@ -2374,24 +2420,60 @@ def main() -> int:
                      (rows(hid, 4 * n), w16["f1"]), (rows(hid, 4 * n), w16["f2"])])
     v2_block = dk._jvp_library(dk.SOURCE_JVP_V2).dpn_decode_jvp_v2_block()
     v2_ptxas = kernel_ptxas(cuda_build.BUILD_LOGS.get(dk.SOURCE_JVP_V2, ""),
-                            "decode_jvp_v2_tc" if is_bf16 else "decode_jvp_v2_kernelIfLb0E")
+                            "decode_jvp_v2_tcILb0E" if is_bf16 else "decode_jvp_v2_kernelIfLb0E")
     log(f"[timing] fused_decode_jvp (v2) {cd}: {v2_block} points and one variable a block, 256 threads; ptxas "
         f"{v2_ptxas}; its products as 6 batched torch.bmm calls at N={n} (a reading): {v2_bmm:.4f} ms "
         f"({2e-9 * n_vars * v2_macs * n / v2_bmm:.2f} TFLOP/s)")
     del w16
-    w3, coords, nwp, _, _ = frame_points(6.5)
+    w3, coords, nwp, tokens_f, fh_norm_f = frame_points(6.5)
     spec = dcfg.coord_spec
     time_variant("fused_decode_jvp_v3", GRID_POINTS, lambda: dk.fused_decode_jvp_v3(w3, coords, nwp, spec, cd),
                  lambda: dk.decode_jvp_v3_ref(w3, coords, nwp, spec, cd), v2_macs, (coords, nwp),
                  dk._v2_weights(w3, cd).values())
+    # v3's points a block, registers and spills, and its products (v2's, on the frame's points) as
+    # batched bf16 torch.bmm calls
+    w16 = {k: getattr(w3, k).to(torch.bfloat16) for k in ("w1", "w2", "wd", "f1", "f2")}
+    n = GRID_POINTS
+    v3_bmm = bmm_ms([(rows(in_ch, n), w16["w1"]),
+                     (torch.randn(3 * n_vars, n, two_f, device=dev, dtype=torch.bfloat16),
+                      w16["w1"].reshape(3 * n_vars, two_f, hid)),
+                     (rows(hid, 4 * n), w16["w2"]), (rows(in_ch, n), w16["wd"]),
+                     (rows(hid, 4 * n), w16["f1"]), (rows(hid, 4 * n), w16["f2"])])
+    v3_ptxas = kernel_ptxas(cuda_build.BUILD_LOGS.get(dk.SOURCE_JVP_V2, ""),
+                            "decode_jvp_v2_tcILb1E" if is_bf16 else "decode_jvp_v2_kernelIfLb1E")
+    log(f"[timing] fused_decode_jvp_v3 {cd}: {v2_block} points and one variable a block, 256 threads; ptxas "
+        f"{v3_ptxas}; its products as 6 batched torch.bmm calls at N={n} (a reading): {v3_bmm:.4f} ms "
+        f"({2e-9 * n_vars * v2_macs * n / v3_bmm:.2f} TFLOP/s)")
+    del w16
     fw, pe, dpe, cd_pe, _ = frame_inputs(6.5, cd, with_tangents=True)
     fused_weights = dk._fused_weights(fw, dict(w1=fw.w1), cd).values()
     time_variant("fused_decode_jvp_v4pe", GRID_POINTS, lambda: dk.fused_decode_jvp_v4pe(fw, coords, nwp, spec, cd),
                  lambda: dk.decode_jvp_v4pe_ref(fw, coords, nwp, spec, cd), fwd_macs, (coords, nwp), fused_weights)
+    # v4pe's points a block, registers and spills; its products are the v4 forward's (the reading above)
+    v4pe_ptxas = kernel_ptxas(cuda_build.BUILD_LOGS.get(dk.SOURCE_JVP_V4, ""),
+                              "decode_jvp_v4_tcILb1E" if is_bf16 else "decode_jvp_v4_kernelIfLi2E")
+    log(f"[timing] fused_decode_jvp_v4pe {cd}: {v4_block} points and one variable a block, 256 threads; ptxas "
+        f"{v4pe_ptxas}; its products (the v4 forward's) as 4 batched torch.bmm calls at N={GRID_POINTS} (a "
+        f"reading): {v4_fwd_bmm[GRID_POINTS]:.4f} ms ({2e-9 * n_vars * fwd_macs * GRID_POINTS / v4_fwd_bmm[GRID_POINTS]:.2f} "
+        "TFLOP/s)")
+    # one frame through fused_kernel_fields with and without in_kernel_pe: the v4pe kernel on raw
+    # coordinates against the prepared PE and the v4 kernel; CUDA events and host clock
+    fh_f = torch.tensor([fh_norm_f], device=dev)
+
+    def kernel_fields(pe_in_kernel):
+        return lambda: engine.fused_kernel_fields(model, tokens_f, coords, nwp, fh_f, spec, dcfg.obs_specs, version=4,
+                                                  in_kernel_pe=pe_in_kernel, raw_tangents=True)
+
+    with torch.no_grad():
+        route_ms = alternating_ms(kernel_fields(True), kernel_fields(False), 5)
+        route_host = {k: statistics.median(host_ms(kernel_fields(k)) for _ in range(5)) for k in (True, False)}
+    log(f"[timing] one frame (N={GRID_POINTS}) through fused_kernel_fields {cd}: in_kernel_pe=True {route_ms[0]:.4f} "
+        f"ms, in_kernel_pe=False {route_ms[1]:.4f} ms by CUDA events; {route_host[True]:.3f} and "
+        f"{route_host[False]:.3f} ms by host clock around a synchronize")
     time_variant("fused_decode_jvp_v5", GRID_POINTS, lambda: dk.fused_decode_jvp_v5(fw, pe, dpe, cd_pe, nwp, cd),
                  lambda: dk.decode_jvp_v5_ref(fw, pe, dpe, cd_pe, nwp, cd), fwd_macs, (pe, dpe, cd_pe, nwp),
                  dk._fused_weights(fw, dict(w1=fw.w1, w1c=fw.w1c), cd).values())
-    del w2_, pe, dpe, cd_pe, ref, w3, coords, nwp, fw, fused_weights
+    del w2_, pe, dpe, cd_pe, ref, w3, coords, nwp, fw, fused_weights, tokens_f
     model.train()
     torch.cuda.empty_cache()
 
@@ -2785,8 +2867,11 @@ def main() -> int:
                          launches_train=train2_launches["fused_decode_jvp"],
                          launches_eval=resid_launches["fused_decode_jvp"]),
          "products": tc_products, "points_a_block": v2_block, "ptxas": v2_ptxas, "bmm_ms": v2_bmm},
-        variant_entry("fused_decode_jvp_v4pe", "decode_jvp_v4.cu", 1386, pe_launches["fused_decode_jvp_v4pe"]),
-        variant_entry("fused_decode_jvp_v3", "decode_jvp_v2.cu", 459, direct_launches["fused_decode_jvp_v3"]),
+        {**variant_entry("fused_decode_jvp_v4pe", "decode_jvp_v4.cu", 1386, pe_launches["fused_decode_jvp_v4pe"]),
+         "products": tc_products, "points_a_block": v4_block, "ptxas": v4pe_ptxas,
+         "bmm_ms": v4_fwd_bmm[GRID_POINTS]},
+        {**variant_entry("fused_decode_jvp_v3", "decode_jvp_v2.cu", 459, direct_launches["fused_decode_jvp_v3"]),
+         "products": tc_products, "points_a_block": v2_block, "ptxas": v3_ptxas, "bmm_ms": v3_bmm},
         variant_entry("fused_decode_jvp_v5", "decode_jvp_v4.cu", 1226, direct_launches["fused_decode_jvp_v5"]),
     ]}))
     print(card)

@@ -16,8 +16,12 @@
 //   64-column passes (warp: 16 points of all four row sets x 32 columns), [128, 64] weight
 //   tiles through a block ring of three.
 //
-// The callers differ in where the block's layer-1 rows come from (RowSource, load_rows) and in
-// what their epilogues sum; the stages take the epilogues as callables.
+// The callers differ in where the block's layer-1 rows come from and in what their epilogues sum;
+// the stages take the epilogues as callables.  The rows come from global memory (RowSource: v4 /
+// v4t, v4s, v6, the residual sums, the backwards, v2) or from raw coordinates in the kernel
+// (decode_pe.cuh's PeSource: v4pe, v3), a compile-time choice of forward_block and fix_ties: the
+// front end fills the block's rows, and fix_ties's recompute reads a point's row from global memory
+// or computes it again from the point's coordinates.
 
 #pragma once
 
@@ -65,7 +69,7 @@ constexpr int TIE_ULPS_Z = 32;  // z: twelve k16 products at flagship width
 constexpr int TIE_ULPS_U = 8;   // u_k: four
 constexpr float TIE_FLOOR_Z = 16.0f * 0x1p-24f;
 constexpr float TIE_FLOOR_U = 16.0f * 0x1p-24f;
-constexpr int TIE_CAP = 511;    // flagged elements a pass of the staged fix_ties (v2's) lists
+constexpr int TIE_CAP = 511;    // entries of a block's list of flagged values (v2's fix_group_ties)
 
 // The tests below combine their terms with & and |, not && and ||: stage 1's epilogues test every
 // element of a warp tile, and with the floors the short-circuit forms compiled to branches there
@@ -97,6 +101,7 @@ template <int ULPS> __device__ __forceinline__ bool near_bf16_tie(float x, float
 //   v6   dm = trig [3, n, ch]; the primal row is trig[0, p] | trig[1, p] | trig[2, p] and
 //        direction k's tangent row is trig[k, p].
 struct RowSource {
+  static constexpr bool IN_KERNEL = false;  // the rows lie in global memory (PeSource: computed)
   const bf16* pe;  // nullptr for v6
   const bf16* dm;  // direction-major [3, n, ch]: v4's dpe, v6's trig; nullptr for v4s
   int64_t n;
@@ -112,8 +117,6 @@ struct RowSource {
     const int ch = in_ch / 3;
     return dm ? dm + ((int64_t)dir * n + point) * ch + j : pe + point * in_ch + dir * ch + j;
   }
-  __device__ __forceinline__ bf16 primal(int64_t point, int k) const { return *primal_ptr(point, k); }
-  __device__ __forceinline__ bf16 tangent(int dir, int64_t point, int j) const { return *tangent_ptr(dir, point, j); }
   // the tangent rows are lane blocks of the primal row (v4s and v6), not an input of their own
   __device__ __forceinline__ bool tangents_in_primal() const { return pe == nullptr || dm == nullptr; }
 };
@@ -138,33 +141,45 @@ __device__ __forceinline__ int tie_entry(int q, int mt, int b) {
   return q << 16 | row << 8 | col;
 }
 
-// Stage 1's values near a bf16 tie, recomputed (the forwards of v4 / v4t, v4s and v6 and their
-// backwards): bit 4 nt + i of tie_z[mt] and bit 16 k + 4 nt + i of tie_u[mt] flag the lane's
+// Stage 1's values near a bf16 tie, recomputed (the forwards of v4 / v4t, v4s, v6, v2, v3 and v4pe,
+// and the backwards): bit 4 nt + i of tie_z[mt] and bit 16 k + 4 nt + i of tie_u[mt] flag the lane's
 // accumulator element [mt][nt][i] of stage 1's warp tile (row 16 mt + g + 8 (i >> 1), column
 // 32 warp + 8 nt + 2 t + (i & 1)) of z or u_k.  Each flagged element's sum s = sum_k a[n0 + row, k]
 // w[k, col] (primal row . w1, or tangent row k . w1c_k) is formed again as the plain version forms
 // it, one FMA a term in k order from zero (the product of two bf16 values is exact in f32), and
 // T(relu(s + b1)) or T(s) goes to its row set.  Each warp recomputes its own tile's elements, one
 // lane an element: it lists them in its 32 entries of list ([WARPS x 32]), z's first, then u_k's,
-// up to 32 at a time, so that the lanes of a pass run chains of one length and all their weights
-// lie in the warp's 32 columns.  Those columns come FIX_ROWS rows at a time into the warp's slice
-// of the ring's memory (16-byte cp.async copies, a weight row's 64 bytes by four lanes, all in
-// flight at once), and each lane reads its weights there and its row's values from global memory
-// (8 values a load, issued before the slice's copies); rows at or past n are zeros (s = 0).  The
-// ring must be free: no cp.async group of the thread in flight, stage 2's not started.  Needs
-// in_ch / 3 to be a multiple of FIX_ROWS.  Called by the whole block; ends with a barrier.
+// up to a pass's worth at a time (32; 16 for PeSource), so that the lanes of a pass run chains of
+// one length and all their weights lie in the warp's 32 columns.  Those columns come FIX_ROWS rows
+// at a time into the warp's slice of the ring's memory (16-byte cp.async copies, a weight row's 64
+// bytes by four lanes, all in flight at once), and each lane reads its weights there and its row's
+// values from global memory (RowSource: 8 values a load, issued before the slice's copies) or, for
+// PeSource, from the warp's chunk rows in the ring's memory after the slices, which the warp fills
+// from the points' coordinates while the copies are in flight: a chunk of FIX_ROWS values is one
+// coordinate channel, and lane j computes its angle j (PeSource::chunk_pair) for every listed element
+// that reads the chunk, so a pass costs each lane one sincosf an element and chunk, not 32.  Rows at
+// or past n are zeros (s = 0).  The ring must be free: no cp.async group of the thread in flight,
+// stage 2's not started.  Needs in_ch / 3 to be a multiple of FIX_ROWS (PeSource: equal to it).
+// Called by the whole block; ends with a barrier.
 constexpr int FIX_ROWS = 64;                                            // weight rows a slice holds
 constexpr int FIX_SLICE_BYTES = FIX_ROWS * 32 * (int)sizeof(__nv_bfloat16);  // [FIX_ROWS, 32]
-static_assert(WARPS * FIX_SLICE_BYTES <= NS * SLOT_BYTES, "fix_ties's warp slices fit in the ring");
+constexpr int FIX_PE_PASS = 16;                                          // PeSource: elements a pass
+constexpr int FIX_CHUNK_BYTES = FIX_PE_PASS * FIX_ROWS * (int)sizeof(__nv_bfloat16);  // a warp's chunk rows
+static_assert(WARPS * (FIX_SLICE_BYTES + FIX_CHUNK_BYTES) <= NS * SLOT_BYTES,
+              "fix_ties's warp slices and chunk rows fit in the ring");
 
-__device__ __forceinline__ void fix_ties(uint32_t (&tie_z)[4], uint64_t (&tie_u)[4], const RowSource& src,
+template <class Src>
+__device__ __forceinline__ void fix_ties(uint32_t (&tie_z)[4], uint64_t (&tie_u)[4], const Src& src,
                                          const bf16* __restrict__ w1v, const bf16* __restrict__ w1cv,
                                          const float* __restrict__ b1, int64_t n0, bf16* sets, int* list,
                                          unsigned char* ring) {
   constexpr unsigned FULL = 0xffffffffu;
+  constexpr int PASS = Src::IN_KERNEL ? FIX_PE_PASS : 32;  // elements a pass lists
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, in_ch = src.in_ch, ch = in_ch / 3;
   int* wl = list + warp * 32;
   bf16* slice = reinterpret_cast<bf16*>(ring + warp * FIX_SLICE_BYTES);  // rows of the warp's 32 columns
+  // PeSource: the chunk of each listed element, [PASS, FIX_ROWS]
+  bf16* chunks = reinterpret_cast<bf16*>(ring + WARPS * FIX_SLICE_BYTES + warp * FIX_CHUNK_BYTES);
   for (int kind = 0; kind < 2; ++kind) {  // z's elements, then u_k's
     while (true) {
       int mine = 0;
@@ -182,13 +197,13 @@ __device__ __forceinline__ void fix_ties(uint32_t (&tie_z)[4], uint64_t (&tie_u)
 #pragma unroll
       for (int mt = 0; mt < 4; ++mt) {
         if (kind == 0) {
-          for (uint32_t f = tie_z[mt]; f != 0u && at < 32; f &= f - 1u) {
+          for (uint32_t f = tie_z[mt]; f != 0u && at < PASS; f &= f - 1u) {
             const int b = __ffs(f) - 1;
             wl[at++] = tie_entry(0, mt, b);
             tie_z[mt] &= ~(1u << b);
           }
         } else {
-          for (uint64_t f = tie_u[mt]; f != 0u && at < 32; f &= f - 1u) {
+          for (uint64_t f = tie_u[mt]; f != 0u && at < PASS; f &= f - 1u) {
             const int b = __ffsll(f) - 1;
             wl[at++] = tie_entry(1 + (b >> 4), mt, b & 15);
             tie_u[mt] &= ~(1ull << b);
@@ -196,7 +211,8 @@ __device__ __forceinline__ void fix_ties(uint32_t (&tie_z)[4], uint64_t (&tie_u)
         }
       }
       __syncwarp();
-      const bool listed = lane < min(total, 32);
+      const int n_listed = min(total, PASS);
+      const bool listed = lane < n_listed;
       const int entry = listed ? wl[lane] : 0;
       const int q = entry >> 16, row = (entry >> 8) & 0xff, col = entry & 0xff;
       const int64_t point = n0 + row;
@@ -210,12 +226,14 @@ __device__ __forceinline__ void fix_ties(uint32_t (&tie_z)[4], uint64_t (&tie_u)
 #pragma unroll 1
         for (int k0 = 0; k0 < (kind == 0 ? in_ch : ch); k0 += FIX_ROWS) {
           uint4 av[FIX_ROWS / 8];
-          if (live) {
-            const bf16* a = kind == 0 ? src.primal_ptr(point, k0) : src.tangent_ptr(d, point, k0);
+          if constexpr (!Src::IN_KERNEL) {
+            if (live) {
+              const bf16* a = kind == 0 ? src.primal_ptr(point, k0) : src.tangent_ptr(d, point, k0);
 #pragma unroll
-            for (int j = 0; j < FIX_ROWS / 8; ++j) av[j] = *reinterpret_cast<const uint4*>(a + 8 * j);
+              for (int j = 0; j < FIX_ROWS / 8; ++j) av[j] = *reinterpret_cast<const uint4*>(a + 8 * j);
+            }
           }
-          __syncwarp();  // the slice's last reads are done
+          __syncwarp();  // the slice's (and the chunk rows') last reads are done
 #pragma unroll
           for (int m = 0; m < FIX_ROWS * 4 / 32; ++m) {  // by cp.async: all of a lane's copies in flight at once
             const int i = lane + 32 * m;
@@ -223,6 +241,20 @@ __device__ __forceinline__ void fix_ties(uint32_t (&tie_z)[4], uint64_t (&tie_u)
                             w + (size_t)(k0 + (i >> 2)) * HID + 32 * warp + (i & 3) * 8, true);
           }
           mma::cp_async_commit();
+          if constexpr (Src::IN_KERNEL) {  // the listed elements' chunks, lane j their angle j
+            for (int e = 0; e < n_listed; ++e) {
+              const int ent = wl[e], q_e = ent >> 16;
+              const int64_t point_e = n0 + ((ent >> 8) & 0xff);
+              if ((kind == 0 || q_e == d + 1) && point_e < src.n)
+                src.chunk_pair(kind == 0 ? k0 / ch : d, kind != 0, point_e, lane, chunks + e * FIX_ROWS);
+            }
+            __syncwarp();
+            if (live) {
+#pragma unroll
+              for (int j = 0; j < FIX_ROWS / 8; ++j)
+                av[j] = *reinterpret_cast<const uint4*>(chunks + lane * FIX_ROWS + 8 * j);
+            }
+          }
           mma::cp_async_wait<0>();
           __syncwarp();
           if (live) {
@@ -244,106 +276,6 @@ __device__ __forceinline__ void fix_ties(uint32_t (&tie_z)[4], uint64_t (&tie_u)
     }
   }
   __syncthreads();  // the row sets are published
-}
-
-// The staged form of fix_ties, which v2 takes (with W1_COLS): the same sums from the same
-// elements.  Bit 4 nt + i of tie_z[mt] and bit
-// 16 k + 4 nt + i of tie_u[mt] flag the lane's accumulator element [mt][nt][i] of stage 1's warp
-// tile (row 16 mt + g + 8 (i >> 1), column 32 warp + 8 nt + 2 t + (i & 1)) of z or u_k.  Each
-// flagged element's sum s = sum_k a[n0 + row, k] w[k, col] (primal row . w1, or tangent row k .
-// w1c_k) is formed again as the plain version forms it, one FMA a term in k order from zero, and
-// T(relu(s + b1)) or T(s) goes to its row set.  The rows are read from global memory (src; rows
-// at or past n are zeros).  The block lists its flagged elements in list ([TIE_CAP] entries,
-// then their count); for up to per_round of them at a time the threads form the products (exact
-// in f32 for bf16 operands) into prods, one row of in_ch + 1 floats an element, and one thread
-// an element adds its row in order, so the block's elements take one chain's time.  A pass takes
-// at most TIE_CAP elements; passes repeat until none is left.  With W1_COLS, w1_cols holds w1v's
-// columns as rows (column c at w1_cols + c * cols_ld), and z's products read a weight column from
-// contiguous memory, not one 32-byte sector a weight.  Called by the whole block.
-template <bool W1_COLS = false>
-__device__ __forceinline__ void fix_ties(uint32_t (&tie_z)[4], uint64_t (&tie_u)[4], const RowSource& src,
-                                         const bf16* __restrict__ w1v, const bf16* __restrict__ w1cv,
-                                         const float* __restrict__ b1, int64_t n0, bf16* sets, int* list,
-                                         float* prods, int per_round, const bf16* __restrict__ w1_cols = nullptr,
-                                         int cols_ld = 0) {
-  constexpr int BATCH = 8;  // products a thread loads before it stores any
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int in_ch = src.in_ch, ch = in_ch / 3, ld = in_ch + 1;
-  // element b (bit 4 nt + i) of row tile mt in list form: its q (0: z, k + 1: u_k), row, column
-  const auto entry_of = [&](int q, int mt, int b) {
-    const int row = 16 * mt + (lane >> 2) + 8 * ((b >> 1) & 1);
-    const int col = 32 * warp + 8 * (b >> 2) + 2 * (lane & 3) + (b & 1);
-    return q << 16 | row << 8 | col;
-  };
-  bool any = false;
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt) any |= (tie_z[mt] | tie_u[mt]) != 0u;
-  while (__syncthreads_or(any)) {
-    if (tid == 0) list[TIE_CAP] = 0;
-    __syncthreads();
-    any = false;
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt) {
-      for (uint32_t f = tie_z[mt]; f != 0u; f &= f - 1u) {
-        const int b = __ffs(f) - 1, at = atomicAdd(&list[TIE_CAP], 1);
-        if (at < TIE_CAP) {
-          list[at] = entry_of(0, mt, b);
-          tie_z[mt] &= ~(1u << b);
-        }
-      }
-      for (uint64_t f = tie_u[mt]; f != 0u; f &= f - 1u) {
-        const int b = __ffsll(f) - 1, at = atomicAdd(&list[TIE_CAP], 1);
-        if (at < TIE_CAP) {
-          list[at] = entry_of(1 + (b >> 4), mt, b & 15);
-          tie_u[mt] &= ~(1ull << b);
-        }
-      }
-      any |= (tie_z[mt] | tie_u[mt]) != 0u;
-    }
-    __syncthreads();
-    const int count = min(list[TIE_CAP], TIE_CAP);
-    for (int base = 0; base < count; base += per_round) {
-      const int m = min(per_round, count - base), total = m * in_ch;
-      for (int i0 = tid; i0 < total; i0 += BATCH * THREADS) {
-        float p[BATCH];
-#pragma unroll
-        for (int u = 0; u < BATCH; ++u) {  // element e's product k: a row by w1 or w1c_k
-          const int i = i0 + u * THREADS, e = i / in_ch, k = i - e * in_ch;
-          const int entry = i < total ? list[base + e] : 0;
-          const int q = entry >> 16, col = entry & 0xff;
-          const int64_t point = n0 + ((entry >> 8) & 0xff);
-          p[u] = 0.0f;
-          if (i < total && point < src.n && k < (q == 0 ? in_ch : ch)) {
-            const bf16 a = q == 0 ? src.primal(point, k) : src.tangent(q - 1, point, k);
-            const bf16 wk = W1_COLS && q == 0 ? w1_cols[(size_t)col * cols_ld + k]
-                                              : (q == 0 ? w1v : w1cv + (size_t)(q - 1) * ch * HID)[(size_t)k * HID + col];
-            p[u] = to_f32(a) * to_f32(wk);
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < BATCH; ++u) {
-          const int i = i0 + u * THREADS;
-          if (i < total) prods[i / in_ch * ld + i % in_ch] = p[u];
-        }
-      }
-      __syncthreads();
-      if (tid < m) {
-        const int entry = list[base + tid];
-        const int q = entry >> 16, row = (entry >> 8) & 0xff, col = entry & 0xff;
-        const float* pr = prods + tid * ld;
-        float s = 0.0f;
-#pragma unroll 8
-        for (int k = 0; k < (q == 0 ? in_ch : ch); ++k) s += pr[k];
-        sets[(q * NB + row) * LDA + col] = __float2bfloat16_rn(q == 0 ? fmaxf(s + b1[col], 0.0f) : s);
-      }
-      __syncthreads();
-    }
-  }
-}
-
-// Elements of fix_ties's products buffer a ring slot holds.
-__host__ __device__ constexpr int ties_per_round(int in_ch) {
-  return SLOT_BYTES / (int)(sizeof(float) * (in_ch + 1));
 }
 
 // Byte offsets of the row region at input width in_ch: the four row sets (rows bytes), under
@@ -595,14 +527,16 @@ __host__ __device__ inline FwdSmem fwd_smem(int in_ch, bool with_dpe) {
   return s;
 }
 
-static_assert(TIE_CAP + 1 <= 2 * 4 * NB && WARPS * 32 <= 2 * 4 * NB, "fix_ties's lists fit in stage 2's partial sums");
+static_assert(WARPS * 32 <= 2 * 4 * NB, "fix_ties's lists fit in stage 2's partial sums");
 
 // The forward of one block (NB points from blockIdx.x, variable blockIdx.y): primal and the three
-// tangents of every point, from src (RowSource) and ref, into primal / tang in the var-major
-// ([n_vars, n], [3, n_vars, n]; tl) or point-major layout.  w1v [in_ch, HID] and w1cv [3, ch, HID]
-// are the variable's primal and tangent layer-1 rows.  The layout changes only addresses, so the
-// layouts, and v4s against v6, give the same bits.
-__device__ __forceinline__ void forward_block(const RowSource& src, const bf16* cd, const float* __restrict__ ref,
+// tangents of every point, from src (RowSource, with cd [n, in_ch]; or PeSource, which computes the
+// pe, dpe and cd rows, cd unused) and ref, into primal / tang in the var-major ([n_vars, n],
+// [3, n_vars, n]; tl) or point-major layout.  w1v [in_ch, HID] and w1cv [3, ch, HID] are the
+// variable's primal and tangent layer-1 rows.  The layout changes only addresses, so the layouts,
+// and v4s against v6, give the same bits.
+template <class Src>
+__device__ __forceinline__ void forward_block(const Src& src, const bf16* cd, const float* __restrict__ ref,
                                               const bf16* __restrict__ w1v, const bf16* __restrict__ w1cv,
                                               const float* __restrict__ b1, const bf16* __restrict__ w2f1,
                                               const bf16* __restrict__ wdf1, const float* __restrict__ rbias,
@@ -631,11 +565,16 @@ __device__ __forceinline__ void forward_block(const RowSource& src, const bf16* 
   const bf16* wdf1v = wdf1 + (size_t)v * in_ch * HID;
   b1 += v * HID; rbias += v * HID; fw2 += v * HID; w2wo += v * HID;
 
-  // the block's rows: the first cp.async group of every thread
-  primal_rows_async(src, pe_s, ldp, n0);
-  tc::rows_async(cd_s, ldp, cd, n0, n, NB, in_ch);
-  if (with_dpe)
-    for (int k = 0; k < 3; ++k) tc::rows_async(dpe_s + k * NB * ldd, ldd, src.dm + (size_t)k * n * ch, n0, n, NB, ch);
+  // the block's rows: the first cp.async group of every thread (computed by the front end: an empty
+  // group, and stage 1's first barrier publishes the rows)
+  if constexpr (Src::IN_KERNEL) {
+    src.front(pe_s, ldp, dpe_s, ldd, cd_s, n0, NB);
+  } else {
+    primal_rows_async(src, pe_s, ldp, n0);
+    tc::rows_async(cd_s, ldp, cd, n0, n, NB, in_ch);
+    if (with_dpe)
+      for (int k = 0; k < 3; ++k) tc::rows_async(dpe_s + k * NB * ldd, ldd, src.dm + (size_t)k * n * ch, n0, n, NB, ch);
+  }
   mma::cp_async_commit();
 
   // ---- stage 1, with the per-point sums p . w2wo (p in f32) ----

@@ -36,12 +36,17 @@
 // variables), so blocks are independent; the ragged last block is masked (zero rows in, no
 // stores out).
 //
-// bf16, v2 (decode_jvp_v2_tc, the flagship's type): every product on the tensor cores (mma.sync
-// m16n8k16 through decode_mma.cuh), eight warps.
+// bf16, v2 and v3 (decode_jvp_v2_tc<false> and <true>, the flagship's type): every product on the
+// tensor cores (mma.sync m16n8k16 through decode_mma.cuh), eight warps.
 // * Layer 1 with z's mask, T(p) and t_k is the v4 forward's stage 1 (decode_jvp_tc.cuh, with
-//   jvp::RowSource{pe, dm = dpe}), and fix_ties recomputes in the plain version's order every
-//   T(p) and t_k near a bf16 rounding tie, so the four row sets [T(p); T(t_0..2)] have the v4
-//   forward kernel's bits.
+//   jvp::RowSource{pe, dm = dpe}), and fix_ties (the per-warp form, before the layers' ring starts:
+//   it takes the ring's memory) recomputes in the plain version's order every T(p) and t_k near a
+//   bf16 rounding tie, so the four row sets [T(p); T(t_0..2)] have the v4 forward kernel's bits.
+// * v3's layer-1 rows come from decode_pe.cuh's PeSource: the front end writes the block's
+//   channel-major pe, tangent and cd rows at the body's strides from one sincosf an angle, and
+//   fix_ties computes a flagged value's row again from the point's coordinates, with the same
+//   bits; w1 and wd come channel-major (the wrapper's permutation), the tangent rows of direction
+//   k are rows k*ch:(k+1)*ch of w1, and cols holds the columns of w2 and of the channel-major wd.
 // * Layers 2 to 4 (w2 with cd . wd, f1, f2) each serve the four row sets from one pass over their
 //   weight, but a point group at a time: warp w owns the group's 16 points of all four row sets
 //   and output columns 32 w .. 32 w + 31 (each weight fragment feeds four products, each row
@@ -66,8 +71,8 @@
 //   four rounding points none: T(relu r) feeds only the primal, and r's own sum switches its mask
 //   only within the kink set.  So z and c near a tie are summed again in cuBLAS's order: z by
 //   fix_ties (stage 1), c by fix_group_ties after each point group's products, from the group's rows
-//   and the weights' columns, which the wrapper passes as one transposed copy (cols: w1, w2 and wd
-//   by column).  "Near" is TIE_ULPS ulps of the value, or within TIE_FLOOR times the largest |value|
+//   and the weights' columns, which the wrapper passes as one transposed copy (cols: w2 and wd by
+//   column).  "Near" is TIE_ULPS ulps of the value, or within TIE_FLOOR times the largest |value|
 //   of the warp's 32 columns of the row: an absolute window, since a small value's sum carries the
 //   error of its large terms (a window in ulps alone left hundreds of flips of small T(p) and T(c) a
 //   launch).  The tangents' roundings (T(t_k), T(t2_k), T(tr_k)) switch nothing; their flips move a
@@ -78,13 +83,12 @@
 //   rings lie in it), the head's partial sums (8,192), the list of values of c near a tie and
 //   their sums (2 x 2,048): 228,352 bytes.
 //
-// float, and v3 in both types (decode_jvp_v2_kernel): the products on the CUDA cores (FMA), weights
-// through shared memory in KT-row tiles (decode_common.cuh's block_gemm), the relu masks as bits
-// of the thread's register tile.  The uncollapsed chain needs four row sets of [NB, HID] (p, c,
-// relu r and one tangent's), 256 KB in f32, over a block's 227 KB; every one of them is the
-// operand of exactly one product, so a single [NB, HID] buffer of T holds whichever is next, and
-// shared memory is 96 KB in bf16, 192 KB in f32.  v3 keeps this body in bf16 too: its in-kernel PE
-// builds the rows from raw coordinates (decode_pe.cuh).
+// float, v2 and v3 (decode_jvp_v2_kernel, the parity configuration; no TF32): the products on the
+// CUDA cores (FMA), weights through shared memory in KT-row tiles (decode_common.cuh's block_gemm),
+// the relu masks as bits of the thread's register tile.  The uncollapsed chain needs four row sets
+// of [NB, HID] (p, c, relu r and one tangent's), 256 KB in f32, over a block's 227 KB; every one of
+// them is the operand of exactly one product, so a single [NB, HID] buffer holds whichever is next
+// (192 KB).  v3's rows come from the PE front end of decode_pe.cuh (front_rows).
 
 #include "decode_common.cuh"
 #include "decode_jvp_tc.cuh"
@@ -99,9 +103,9 @@ constexpr int NB = WARPS * TM;   // points per block
 
 // The decode weights of all variables, as the wrapper lays them out: the matrices and wo in
 // T (w1 [V, in_ch, HID], w1c [V, 3, ch, HID] or null, w2 / f1 / f2 [V, HID, HID],
-// wd [V, in_ch, HID], wo [V, HID]), the biases f32 ([V, HID]; bo [V]); for the bf16 v2 body also
-// cols, z's and c's weights by column: [V, HID, cols_ld(in_ch)] bf16, row c of variable v the c-th
-// columns of w1, w2 and wd one after the other (null for v3 and the float body).
+// wd [V, in_ch, HID], wo [V, HID]), the biases f32 ([V, HID]; bo [V]); for the bf16 body also
+// cols, c's weights by column: [V, HID, cols_ld(in_ch)] bf16, row c of variable v the c-th
+// columns of w2 and wd one after the other (the float body does not read it).
 struct V2Weights {
   const void* w1;
   const void* w1c;
@@ -120,20 +124,18 @@ struct V2Weights {
   const void* cols;
 };
 
-// The row length of V2Weights::cols and the offset of w2's columns in a row (w1's come first,
-// wd's after w2's).
-__host__ __device__ constexpr int cols_ld(int in_ch) { return 2 * in_ch + HID; }
-__host__ __device__ constexpr int cols_w2(int in_ch) { return in_ch; }
+// The row length of V2Weights::cols: a column of w2, then one of wd.
+__host__ __device__ constexpr int cols_ld(int in_ch) { return HID + in_ch; }
 
 template <typename T> __device__ __forceinline__ const T* mat(const void* w, size_t offset) {
   return static_cast<const T*>(w) + offset;
 }
 
-// ---- bf16, v2 (PE = false): tensor cores ----------------------------------------------------
+// ---- bf16, v2 (PE = false) and v3 (PE = true): tensor cores ----------------------------------
 //
 // One block: NB = 64 points and ONE variable, eight warps (see the header).  Layer 1 is the v4
 // forward's stage 1 (decode_jvp_tc.cuh, with fix_ties); the three hidden layers run per point
-// group through one ring of [L_ROWS, HID] weight tiles.
+// group through one ring of [L_ROWS, HID] weight tiles.  PE picks the layer-1 rows' source.
 
 using jvp::bf16;
 using jvp::LDA;
@@ -167,9 +169,11 @@ __host__ __device__ inline V2Smem v2_smem(int in_ch) {
 }
 
 // The widths the body takes: the row region's layout, 64-lane tangent blocks, cd . wd's sum no
-// longer than T(p) . w2's (fix_group_ties runs them side by side) and the budget of shared memory.
-__host__ __device__ inline bool v2_tc_valid(int in_ch) {
-  return jvp::row_region_valid(in_ch, true) && in_ch % 192 == 0 && in_ch <= HID && v2_smem(in_ch).total <= 232448;
+// longer than T(p) . w2's (fix_group_ties runs them side by side), the budget of shared memory and,
+// for v3, the PE source's width.
+template <bool PE> __host__ __device__ inline bool v2_tc_valid(int in_ch) {
+  return jvp::row_region_valid(in_ch, true) && in_ch % 192 == 0 && in_ch <= HID && v2_smem(in_ch).total <= 232448 &&
+         (!PE || PeSource::valid(in_ch));
 }
 
 // The owner lane (t = 0) of each of the warp's rows 16 pg + g + 8 h adds the quad's sum of
@@ -226,8 +230,7 @@ __device__ __forceinline__ int fix_group_ties(uint32_t ties, int pg, int v, bf16
 #pragma unroll 4
     for (int i = tid; i < m * vec; i += THREADS) {
       const int e = i / vec, j = i - e * vec;
-      const uint4 x = *reinterpret_cast<const uint4*>(cols + (size_t)(list[base + e] & 0xff) * cols_ld(in_ch) +
-                                                      cols_w2(in_ch) + 8 * j);
+      const uint4 x = *reinterpret_cast<const uint4*>(cols + (size_t)(list[base + e] & 0xff) * cols_ld(in_ch) + 8 * j);
       uint32_t* to = reinterpret_cast<uint32_t*>(column(e) + 8 * j);  // 4-byte aligned: ldc is even
       to[0] = x.x, to[1] = x.y, to[2] = x.z, to[3] = x.w;
     }
@@ -249,6 +252,7 @@ __device__ __forceinline__ int fix_group_ties(uint32_t ties, int pg, int v, bf16
   return count;
 }
 
+template <bool PE>
 __global__ void __launch_bounds__(THREADS, 1)
 decode_jvp_v2_tc(PointInputs in, V2Weights w, float* __restrict__ primal, float* __restrict__ tang, int64_t n,
                  int in_ch, int n_vars) {
@@ -266,9 +270,13 @@ decode_jvp_v2_tc(PointInputs in, V2Weights w, float* __restrict__ primal, float*
   const int v = blockIdx.y;
   const int64_t n0 = (int64_t)blockIdx.x * jvp::NB;
   const int ch = in_ch / 3, ldp = L.rows.ldp, ldd = L.rows.ldd;
-  const jvp::RowSource src{static_cast<const bf16*>(in.pe), static_cast<const bf16*>(in.dpe), n, in_ch};
+  const auto src = [&] {
+    if constexpr (PE) return PeSource{in.coords, in.cdata, in.scales, in.fb, in.fb2, n, in_ch};
+    else return jvp::RowSource{static_cast<const bf16*>(in.pe), static_cast<const bf16*>(in.dpe), n, in_ch};
+  }();
   const bf16* w1v = mat<bf16>(w.w1, (size_t)v * in_ch * HID);
-  const bf16* w1cv = mat<bf16>(w.w1c, (size_t)v * in_ch * HID);
+  // v3: direction k's tangent rows are rows k ch .. (k + 1) ch - 1 of the channel-major w1
+  const bf16* w1cv = PE ? w1v : mat<bf16>(w.w1c, (size_t)v * in_ch * HID);
   const bf16* w2v = mat<bf16>(w.w2, (size_t)v * HID * HID);
   const bf16* wdv = mat<bf16>(w.wd, (size_t)v * in_ch * HID);
   const bf16* f1v = mat<bf16>(w.f1, (size_t)v * HID * HID);
@@ -277,11 +285,16 @@ decode_jvp_v2_tc(PointInputs in, V2Weights w, float* __restrict__ primal, float*
   const bf16* cols = mat<bf16>(w.cols, (size_t)v * HID * cols_ld(in_ch));
   const float* b1 = w.b1 + v * HID;
 
-  // the block's rows: the first cp.async group of every thread
-  jvp::primal_rows_async(src, pe_s, ldp, n0);
-  tc::rows_async(cd_s, ldp, static_cast<const bf16*>(in.cd), n0, n, jvp::NB, in_ch);
-  for (int k = 0; k < 3; ++k)
-    tc::rows_async(dpe_s + k * jvp::NB * ldd, ldd, src.dm + (size_t)k * n * ch, n0, n, jvp::NB, ch);
+  // the block's rows: the first cp.async group of every thread (v3: computed, an empty group, and
+  // stage 1's first barrier publishes the rows)
+  if constexpr (PE) {
+    src.front(pe_s, ldp, dpe_s, ldd, cd_s, n0, jvp::NB);
+  } else {
+    jvp::primal_rows_async(src, pe_s, ldp, n0);
+    tc::rows_async(cd_s, ldp, static_cast<const bf16*>(in.cd), n0, n, jvp::NB, in_ch);
+    for (int k = 0; k < 3; ++k)
+      tc::rows_async(dpe_s + k * jvp::NB * ldd, ldd, src.dm + (size_t)k * n * ch, n0, n, jvp::NB, ch);
+  }
   mma::cp_async_commit();
   for (int i = tid; i < 4 * WARPS * jvp::NB; i += THREADS) red[i] = 0.0f;
 
@@ -309,12 +322,10 @@ decode_jvp_v2_tc(PointInputs in, V2Weights w, float* __restrict__ primal, float*
       }
       tc::tile_async<HID>(reinterpret_cast<bf16*>(slot), LDA, from, HID, L_ROWS);
     });
+    // T(p) and T(t_k) near a rounding tie, recomputed in the plain version's order; fix_ties takes
+    // the ring's memory, so the ring starts after it
+    jvp::fix_ties(tie_z, tie_u, src, w1v, w1cv, b1, n0, sets, list, smem + L.ring);
     ring.start();
-    // T(p) and T(t_k) near a rounding tie, recomputed in the plain version's order: the ring's
-    // last slot is free until its first tile is taken
-    jvp::fix_ties<true>(tie_z, tie_u, src, w1v, w1cv, b1, n0, sets, list,
-                  reinterpret_cast<float*>(smem + L.ring + (jvp::NS - 1) * jvp::SLOT_BYTES),
-                  jvp::ties_per_round(in_ch), cols, cols_ld(in_ch));
     if (tid == 0) list[jvp::TIE_CAP] = 0;  // fix_group_ties counts from zero (published by the ring's barrier)
 
     // ---- layers 2 to 4, one point group of 16 points at a time: warp w owns the group's rows of
@@ -436,18 +447,19 @@ decode_jvp_v2_tc(PointInputs in, V2Weights w, float* __restrict__ primal, float*
   }
 }
 
+template <bool PE>
 int launch_tc(const PointInputs& in, const V2Weights& w, float* primal, float* tang, int64_t n, int in_ch,
               int n_vars, cudaStream_t stream) {
-  if (!v2_tc_valid(in_ch)) return (int)cudaErrorInvalidValue;
+  if (!v2_tc_valid<PE>(in_ch)) return (int)cudaErrorInvalidValue;
   const size_t smem = v2_smem(in_ch).total;
-  cudaError_t err = cudaFuncSetAttribute(decode_jvp_v2_tc, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = cudaFuncSetAttribute(decode_jvp_v2_tc<PE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((n + jvp::NB - 1) / jvp::NB), (unsigned)n_vars);
-  decode_jvp_v2_tc<<<grid, THREADS, smem, stream>>>(in, w, primal, tang, n, in_ch, n_vars);
+  decode_jvp_v2_tc<PE><<<grid, THREADS, smem, stream>>>(in, w, primal, tang, n, in_ch, n_vars);
   return (int)cudaGetLastError();
 }
 
-// ---- float, and v3: CUDA cores ---------------------------------------------------------------
+// ---- float: CUDA cores -----------------------------------------------------------------------
 
 // The block's row of thread (ty, r), column col of the [NB, HID] operand buffer.
 __device__ __forceinline__ int at(int ty, int r, int col) { return (ty * TM + r) * HID + col; }
@@ -654,8 +666,7 @@ template <bool PE>
 int dispatch(int is_bf16, const PointInputs& in, const V2Weights& w, float* primal, float* tang,
              int64_t n, int in_ch, int n_vars, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16 && !PE) return launch_tc(in, w, primal, tang, n, in_ch, n_vars, s);
-  if (is_bf16) return launch<__nv_bfloat16, PE>(in, w, primal, tang, n, in_ch, n_vars, s);
+  if (is_bf16) return launch_tc<PE>(in, w, primal, tang, n, in_ch, n_vars, s);
   return launch<float, PE>(in, w, primal, tang, n, in_ch, n_vars, s);
 }
 
@@ -663,19 +674,19 @@ int dispatch(int is_bf16, const PointInputs& in, const V2Weights& w, float* prim
 
 extern "C" {
 
-// Hidden width the kernels were built for; shared memory one block needs at this input width.
+// Hidden width the kernels were built for; shared memory one block needs at this input width (bf16:
+// the tensor-core body of v2 and v3; v3 takes in_ch 192 only).
 int dpn_decode_jvp_v2_hid() { return dpn::HID; }
 int dpn_decode_jvp_v2_shared_bytes(int is_bf16, int in_ch) {
   if (!is_bf16) return (int)shared_bytes<float>(in_ch);
-  const size_t tc_bytes = v2_tc_valid(in_ch) ? v2_smem(in_ch).total : (size_t)1 << 30;
-  return (int)tc::max_of(tc_bytes, shared_bytes<__nv_bfloat16>(in_ch));
+  return v2_tc_valid<false>(in_ch) ? (int)v2_smem(in_ch).total : 1 << 30;
 }
 // Points a block takes, every body.
 int dpn_decode_jvp_v2_block() { return NB; }
 
 // v2.  is_bf16: 1 for __nv_bfloat16 inputs, 0 for float.  pe and cd [n, in_ch], dpe
-// [3, n, in_ch / 3] of T, ref [n, n_vars] f32; cols [n_vars, HID, 2 in_ch + HID] of T, the
-// columns of w1, w2 and wd (V2Weights; the float body does not read it); primal [n, n_vars] and tang
+// [3, n, in_ch / 3] of T, ref [n, n_vars] f32; cols [n_vars, HID, HID + in_ch] of T, the
+// columns of w2 and wd (V2Weights; the float body does not read it); primal [n, n_vars] and tang
 // [3, n, n_vars] are written in full.  flag must be 0.  Returns cudaGetLastError() after the launch.
 int dpn_decode_jvp_v2(int is_bf16, const void* pe, const void* dpe, const void* cd,
                       const float* ref, const void* w1, const void* w1c, const float* b1,
@@ -690,17 +701,18 @@ int dpn_decode_jvp_v2(int is_bf16, const void* pe, const void* dpe, const void* 
 }
 
 // v3.  coords [n, 3] and cdata [n, 6] f32 (cdata is also the reference value), scales [3],
-// fb [in_ch / 6], fb2 [in_ch / 12] f32; w1 and wd with their rows channel-major; n_vars is 6.
+// fb [in_ch / 6], fb2 [in_ch / 12] f32; w1 and wd with their rows channel-major, cols as v2's
+// from them (the float body does not read it); n_vars is 6.
 int dpn_decode_jvp_v3(int is_bf16, const float* coords, const float* cdata,
                       const float* scales, const float* fb, const float* fb2, const void* w1,
                       const float* b1, const void* w2, const float* b2, const void* wd,
                       const float* bd, const float* fh, const void* f1, const float* g1,
-                      const void* f2, const float* g2, const void* wo, const float* bo,
+                      const void* f2, const float* g2, const void* wo, const float* bo, const void* cols,
                       float* primal, float* tang, int64_t n, int in_ch, int n_vars, int flag,
                       void* stream) {
   if (flag != 0) return (int)cudaErrorInvalidValue;
   const PointInputs in{nullptr, nullptr, nullptr, cdata, coords, cdata, scales, fb, fb2};
-  const V2Weights w{w1, nullptr, b1, w2, b2, wd, bd, fh, f1, g1, f2, g2, wo, bo, nullptr};
+  const V2Weights w{w1, nullptr, b1, w2, b2, wd, bd, fh, f1, g1, f2, g2, wo, bo, cols};
   return dispatch<true>(is_bf16, in, w, primal, tang, n, in_ch, n_vars, stream);
 }
 

@@ -30,7 +30,7 @@
 // rows in, no stores out).  The layout flag changes only the addresses of the ref load
 // and the output stores, so the two layouts give the same bits.
 //
-// bf16 (decode_jvp_v4_tc, the flagship's type): the products on the tensor cores
+// bf16 (decode_jvp_v4_tc<false>, the flagship's type): the products on the tensor cores
 // (mma.sync m16n8k16 through decode_mma.cuh; the body is decode_jvp_tc.cuh, which the v4s / v6
 // forward and backward share), in the TPU kernel's two stages
 // (_v4_stage1 / _v4_stage2, decode_kernel.py:583-606, :554-580).  Eight warps.
@@ -74,19 +74,26 @@
 // CUDA cores (FMA), the chain of decode_common.cuh's primal_stages and tangent_stage; the
 // compact tangent rows are loaded over the block's pe rows once r is done.
 //
-// Two more TPU kernels are compile-time variants of decode_jvp_v4_kernel ([N, 6] outputs,
-// CUDA-core products in both types):
+// Two more TPU kernels are compile-time variants ([N, 6] outputs):
+// * v4pe, _decode_kernel_v4pe (fused_decode_jvp_v4pe, :1249-1407): raw coordinates
+//   [N, 3] and conditioning values [N, 6] in; the block's channel-major pe, cd and tangent
+//   rows are computed in the kernel (decode_pe.cuh; the wrapper permutes w1, wdf1 and wdwo
+//   to that order), so direction k's tangent rows are rows k*ch:(k+1)*ch of w1 and no w1c
+//   is read: the channel-major w1 [V, in_ch, HID] seen as [V, 3, ch, HID] is the tangent
+//   weight, passed as w1c.  That saves the 1,150 bytes a point of prepared inputs.  bf16:
+//   the tensor-core body above (decode_jvp_v4_tc<true>) with decode_pe.cuh's PeSource as
+//   its row source: the front end writes the block's rows at the body's strides from one
+//   sincosf an angle (12,288 a block of a variable at in_ch 192, where the CUDA-core front
+//   end took 36,864 sinf / cosf), and fix_ties computes a flagged value's row again from the
+//   point's coordinates (a chunk of 64 values a coordinate channel, one sincosf a lane: three
+//   chunks for z, one for u_k), with the same windows and floors as v4.  float:
+//   decode_jvp_v4_kernel with the PE front end of front_rows.
 // * v5, _decode_kernel_v5 (fused_decode_jvp_v5, decode_kernel.py:1117-1247): the same
 //   function with r summed as T(p) . w2f1 + (cd . wdf1 + rbias) (:1149, :1156), so
-//   cd . wdf1 gets an accumulator of its own (primal_stages<SPLIT>).  The TPU kernel
-//   stacks the six variables' layer-1 products by column into one wide product to cut
-//   op dispatch; that changes no sum and is not carried over.
-// * v4pe, _decode_kernel_v4pe (fused_decode_jvp_v4pe, :1249-1407): raw coordinates
-//   [N, 3] and conditioning values [N, 6] in; decode_pe.cuh computes the block's
-//   channel-major pe, cd and tangent rows in the kernel (the wrapper permutes w1, wdf1
-//   and wdwo to that order), so direction k's tangent rows are rows k*ch:(k+1)*ch of
-//   w1 and no w1c is read.  That adds some 37,000 sinf / cosf per block of a variable
-//   to 26 M multiply-adds, and saves the 1,150 bytes a point of prepared inputs.
+//   cd . wdf1 gets an accumulator of its own (primal_stages<SPLIT>); CUDA-core products in
+//   both types (decode_jvp_v4_kernel).  The TPU kernel stacks the six variables' layer-1
+//   products by column into one wide product to cut op dispatch; that changes no sum and
+//   is not carried over.
 
 #include "decode_common.cuh"
 #include "decode_jvp_tc.cuh"
@@ -104,6 +111,8 @@ enum Variant { kV4 = 0, kV5 = 1, kV4pe = 2 };
 
 // ---- bf16: tensor cores (decode_jvp_tc.cuh) ------------------------------------------
 
+// PE: v4pe's rows from raw coordinates (decode_pe.cuh's PeSource), else v4's from pe, dpe and cd.
+template <bool PE>
 __global__ void __launch_bounds__(THREADS, 1)
 decode_jvp_v4_tc(PointInputs in, const jvp::bf16* __restrict__ w1, const jvp::bf16* __restrict__ w1c,
                  const float* __restrict__ b1, const jvp::bf16* __restrict__ w2f1,
@@ -113,29 +122,37 @@ decode_jvp_v4_tc(PointInputs in, const jvp::bf16* __restrict__ w1, const jvp::bf
                  float* __restrict__ primal, float* __restrict__ tang, int64_t n, int in_ch,
                  int n_vars, int t_layout) {
   const int v = blockIdx.y;
-  const jvp::RowSource src{static_cast<const jvp::bf16*>(in.pe), static_cast<const jvp::bf16*>(in.dpe), n, in_ch};
+  const auto src = [&] {
+    if constexpr (PE) return PeSource{in.coords, in.cdata, in.scales, in.fb, in.fb2, n, in_ch};
+    else return jvp::RowSource{static_cast<const jvp::bf16*>(in.pe), static_cast<const jvp::bf16*>(in.dpe), n, in_ch};
+  }();
   jvp::forward_block(src, static_cast<const jvp::bf16*>(in.cd), in.ref, w1 + (size_t)v * in_ch * HID,
                      w1c + (size_t)v * in_ch * HID, b1, w2f1, wdf1, rbias, fw2, w2wo, wdwo, obias, primal, tang,
                      n_vars, t_layout != 0);
 }
 
+template <bool PE> bool tc_valid(int in_ch) {
+  return jvp::row_region_valid(in_ch, true) && (!PE || PeSource::valid(in_ch));
+}
+
+template <bool PE>
 int launch_tc(const PointInputs& in, const void* w1, const void* w1c, const float* b1,
               const void* w2f1, const void* wdf1, const float* rbias, const float* fw2,
               const float* w2wo, const float* wdwo, const float* obias, float* primal, float* tang,
               int64_t n, int in_ch, int n_vars, int t_layout, cudaStream_t stream) {
-  if (!jvp::row_region_valid(in_ch, true)) return (int)cudaErrorInvalidValue;
+  if (!tc_valid<PE>(in_ch)) return (int)cudaErrorInvalidValue;
   const size_t smem = jvp::fwd_smem(in_ch, true).total;
-  cudaError_t err = cudaFuncSetAttribute(decode_jvp_v4_tc, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaError_t err = cudaFuncSetAttribute(decode_jvp_v4_tc<PE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((n + NB - 1) / NB), (unsigned)n_vars);
-  decode_jvp_v4_tc<<<grid, THREADS, smem, stream>>>(
+  decode_jvp_v4_tc<PE><<<grid, THREADS, smem, stream>>>(
       in, static_cast<const jvp::bf16*>(w1), static_cast<const jvp::bf16*>(w1c), b1,
       static_cast<const jvp::bf16*>(w2f1), static_cast<const jvp::bf16*>(wdf1), rbias, fw2, w2wo, wdwo, obias, primal, tang, n, in_ch, n_vars, t_layout);
   return (int)cudaGetLastError();
 }
 
-// ---- float, and the v5 / v4pe variants: CUDA cores -----------------------------------
+// ---- float, and v5 in both types: CUDA cores --------------------------------------------
 
 template <typename T, int VARIANT>
 __global__ void __launch_bounds__(THREADS, 1)
@@ -228,16 +245,58 @@ int dispatch(int is_bf16, const PointInputs& in, const void* w1, const void* w1c
              const float* w2wo, const float* wdwo, const float* obias, float* primal, float* tang,
              int64_t n, int in_ch, int n_vars, int t_layout, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if constexpr (VARIANT == kV4) {
+  if constexpr (VARIANT == kV5) {
     if (is_bf16)
-      return launch_tc(in, w1, w1c, b1, w2f1, wdf1, rbias, fw2, w2wo, wdwo, obias, primal, tang, n,
-                       in_ch, n_vars, t_layout, s);
+      return launch<__nv_bfloat16, kV5>(in, w1, w1c, b1, w2f1, wdf1, rbias, fw2, w2wo, wdwo, obias, primal,
+                                        tang, n, in_ch, n_vars, t_layout, s);
   } else if (is_bf16) {
-    return launch<__nv_bfloat16, VARIANT>(in, w1, w1c, b1, w2f1, wdf1, rbias, fw2, w2wo, wdwo,
-                                          obias, primal, tang, n, in_ch, n_vars, t_layout, s);
+    return launch_tc<VARIANT == kV4pe>(in, w1, w1c, b1, w2f1, wdf1, rbias, fw2, w2wo, wdwo, obias, primal,
+                                       tang, n, in_ch, n_vars, t_layout, s);
   }
   return launch<float, VARIANT>(in, w1, w1c, b1, w2f1, wdf1, rbias, fw2, w2wo, wdwo, obias, primal,
                                 tang, n, in_ch, n_vars, t_layout, s);
+}
+
+// ---- the PE front ends' rows, for holding them to each other on the card -------------------
+//
+// One block of NB points writes the rows of one front end to pe [n, in_ch], dpe [3, n, ch] and
+// cd [n, in_ch] bf16: mode 0 PeSource::front (the tensor-core bodies'), mode 1 front_rows and
+// front_tangent_rows (one sinf or cosf a value) rounded to bf16, mode 2 PeSource::chunk_pair
+// (fix_ties's recompute of a point's row) for pe and the tangent rows, with mode 0's cd.
+__global__ void __launch_bounds__(THREADS, 1)
+pe_rows_kernel(PointInputs in, int mode, __nv_bfloat16* pe, __nv_bfloat16* dpe, __nv_bfloat16* cd, int64_t n,
+               int in_ch) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  using bf16 = __nv_bfloat16;
+  const int ch = in_ch / 3;
+  bf16* pe_s = reinterpret_cast<bf16*>(smem);  // [NB, in_ch]
+  bf16* dpe_s = pe_s + NB * in_ch;              // [3, NB, ch]
+  bf16* cd_s = dpe_s + NB * in_ch;              // [NB, in_ch]
+  const int64_t n0 = (int64_t)blockIdx.x * NB;
+  const PeSource src{in.coords, in.cdata, in.scales, in.fb, in.fb2, n, in_ch};
+  if (mode == 1) {
+    front_rows<bf16, true>(in, pe_s, cd_s, n0, n, NB, in_ch);
+    front_tangent_rows<bf16, true>(in, dpe_s, n0, n, NB, in_ch);
+  } else {
+    src.front(pe_s, in_ch, dpe_s, ch, cd_s, n0, NB);
+  }
+  __syncthreads();
+  if (mode == 2) {
+    for (int i = threadIdx.x; i < NB * 6 * PeSource::F; i += THREADS) {  // a point's three pe chunks, its tangent rows
+      const int row = i / (6 * PeSource::F), q = i / PeSource::F % 6, j = i % PeSource::F;
+      if (n0 + row >= n) continue;
+      src.chunk_pair(q % 3, q >= 3, n0 + row, j, q < 3 ? pe_s + row * in_ch + q * ch : dpe_s + ((q - 3) * NB + row) * ch);
+    }
+    __syncthreads();
+  }
+  for (int i = threadIdx.x; i < NB * in_ch; i += THREADS) {
+    const int row = i / in_ch, col = i - row * in_ch;
+    if (n0 + row >= n) continue;
+    pe[(n0 + row) * in_ch + col] = pe_s[i];
+    cd[(n0 + row) * in_ch + col] = cd_s[i];
+    const int k = col / ch;
+    dpe[((int64_t)k * n + n0 + row) * ch + col - k * ch] = dpe_s[(k * NB + row) * ch + col - k * ch];
+  }
 }
 
 PointInputs prepared(const void* pe, const void* dpe, const void* cd, const float* ref) {
@@ -249,13 +308,13 @@ PointInputs prepared(const void* pe, const void* dpe, const void* cd, const floa
 extern "C" {
 
 // Hidden width the kernel was built for; shared memory one block needs at this
-// input width, the most of any variant (bf16: the tensor-core body of v4 and the
-// CUDA-core body of v5 / v4pe).
+// input width, the most of any variant (bf16: the tensor-core body of v4 and v4pe, which
+// takes in_ch 192 only, and the CUDA-core body of v5).
 int dpn_decode_jvp_v4_hid() { return dpn::HID; }
 int dpn_decode_jvp_v4_block() { return NB; }  // points a block takes, every body and variant
 int dpn_decode_jvp_v4_shared_bytes(int is_bf16, int in_ch) {
   if (!is_bf16) return (int)shared_bytes<float>(in_ch);
-  const size_t tc_bytes = jvp::row_region_valid(in_ch, true) ? jvp::fwd_smem(in_ch, true).total : (size_t)1 << 30;
+  const size_t tc_bytes = tc_valid<false>(in_ch) ? jvp::fwd_smem(in_ch, true).total : (size_t)1 << 30;
   return (int)tc::max_of(tc_bytes, shared_bytes<__nv_bfloat16>(in_ch));
 }
 
@@ -284,7 +343,7 @@ int dpn_decode_jvp_v5(int is_bf16, const void* pe, const void* dpe, const void* 
 
 // v4pe: coords [n, 3] and cdata [n, 6] f32 (cdata is also the reference value),
 // scales [3], fb [in_ch / 6], fb2 [in_ch / 12] f32; w1 [n_vars, in_ch, HID], wdf1 and
-// wdwo with their rows channel-major; n_vars is 6.
+// wdwo with their rows channel-major; n_vars is 6.  bf16 takes in_ch 192 (PeSource).
 int dpn_decode_jvp_v4pe(int is_bf16, const float* coords, const float* cdata,
                         const float* scales, const float* fb, const float* fb2, const void* w1,
                         const float* b1, const void* w2f1, const void* wdf1, const float* rbias,
@@ -292,8 +351,26 @@ int dpn_decode_jvp_v4pe(int is_bf16, const float* coords, const float* cdata,
                         const float* obias, float* primal, float* tang, int64_t n, int in_ch,
                         int n_vars, int t_layout, void* stream) {
   const PointInputs in{nullptr, nullptr, nullptr, cdata, coords, cdata, scales, fb, fb2};
-  return dispatch<kV4pe>(is_bf16, in, w1, nullptr, b1, w2f1, wdf1, rbias, fw2, w2wo, wdwo, obias,
+  // the channel-major w1 [n_vars, 3, ch, HID] is the tangent weight w1c
+  return dispatch<kV4pe>(is_bf16, in, w1, w1, b1, w2f1, wdf1, rbias, fw2, w2wo, wdwo, obias,
                          primal, tang, n, in_ch, n_vars, t_layout, stream);
+}
+
+// The rows of one PE front end (pe_rows_kernel's mode 0, 1 or 2) for coords [n, 3], cdata [n, 6],
+// scales, fb and fb2 as dpn_decode_jvp_v4pe takes them, into pe [n, in_ch], dpe [3, n, in_ch / 3]
+// and cd [n, in_ch] bf16.  in_ch 192.  Returns cudaGetLastError() after the launch.
+int dpn_decode_pe_rows(const float* coords, const float* cdata, const float* scales, const float* fb,
+                       const float* fb2, void* pe, void* dpe, void* cd, int64_t n, int in_ch, int mode,
+                       void* stream) {
+  if (!PeSource::valid(in_ch) || mode < 0 || mode > 2) return (int)cudaErrorInvalidValue;
+  const PointInputs in{nullptr, nullptr, nullptr, cdata, coords, cdata, scales, fb, fb2};
+  const size_t smem = 3 * (size_t)NB * in_ch * sizeof(__nv_bfloat16);
+  cudaError_t err = cudaFuncSetAttribute(pe_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  pe_rows_kernel<<<(unsigned)((n + NB - 1) / NB), THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      in, mode, static_cast<__nv_bfloat16*>(pe), static_cast<__nv_bfloat16*>(dpe), static_cast<__nv_bfloat16*>(cd),
+      n, in_ch);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

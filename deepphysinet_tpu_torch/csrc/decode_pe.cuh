@@ -11,8 +11,19 @@
 //   tangent k [n, j]     = (cos(a) * fb[j]) * scales[k] for j < F,
 //                          ((-sin(a)) * fb[j - F]) * scales[k] after, a = cn[n, k] * fb[.];
 //   cd[n, c*2F2 + j]     = sin / cos of cdata[n, c] * fb2[.] likewise, c < 6.
-// Each product is rounded to f32 once, in the TPU kernel's order; sinf and cosf are the
-// precise ones (no fast math); the values are then rounded to T, the operand's type.
+// Each product is rounded to f32 once, in the TPU kernel's order; sin and cos are the precise
+// ones (no fast math); the values are then rounded to T, the operand's type.
+//
+// Two front ends compute these rows:
+// * front_rows / front_tangent_rows (the float CUDA-core bodies and the prepared inputs of both
+//   types): one sinf or cosf a value, rows of [nb, in_ch] and [3, nb, ch] unpadded;
+// * PeSource (the bf16 tensor-core bodies, decode_jvp_tc.cuh's forward_block and fix_ties,
+//   decode_jvp_v2.cu's v3): one sincosf an angle, whose sine and cosine give the pe pair and
+//   the tangent pair of the angle (192 a point at in_ch 192, where the first front end takes
+//   576), as bf16 rows at the tensor-core bodies' strides; and, for the recompute of values near
+//   a rounding tie, a chunk of one point's row again from its coordinates, by the same
+//   expressions, so the bits agree (chip_smoke.py holds both front ends' rows and the
+//   recompute's to each other, bit for bit, through dpn_decode_pe_rows).
 
 #pragma once
 
@@ -96,5 +107,83 @@ __device__ __forceinline__ void front_tangent_rows(const PointInputs& in, T* d_s
     }
   }
 }
+
+// The in-kernel PE as the layer-1 row source of the bf16 tensor-core bodies (v4pe's forward,
+// v3's layer 1): coords [n, 3] and cdata [n, 6] f32, scales [3], fb [F], fb2 [F2].  It takes
+// in_ch = 192 (F = 32, ch = 64: a point's chunk of 64 values of fix_ties is one coordinate
+// channel, the sines of 32 angles and then their cosines; valid).
+struct PeSource {
+  static constexpr bool IN_KERNEL = true;
+  const float* coords;
+  const float* cdata;
+  const float* scales;
+  const float* fb;
+  const float* fb2;
+  int64_t n;
+  int in_ch;
+
+  static constexpr int F = 32;  // coordinate frequencies
+  __host__ __device__ static bool valid(int in_ch) { return in_ch == 6 * F; }
+  __device__ __forceinline__ bool tangents_in_primal() const { return false; }
+
+  // sin and cos of coordinate c of the point at frequency f: (x * s_c) * fb[f], each product
+  // rounded once
+  __device__ __forceinline__ void coord_trig(int64_t point, int c, int f, float& s, float& co) const {
+    sincosf(__fmul_rn(__fmul_rn(coords[point * 3 + c], scales[c]), fb[f]), &s, &co);
+  }
+  // direction c's tangent pair of frequency f from the angle's sine and cosine
+  __device__ __forceinline__ float2 tangent_pair(int c, int f, float s, float co) const {
+    return make_float2(__fmul_rn(__fmul_rn(co, fb[f]), scales[c]), __fmul_rn(__fmul_rn(-s, fb[f]), scales[c]));
+  }
+
+  // The block's rows n0 .. n0 + nb - 1: pe into pe_s (row stride ldp), direction k's tangent
+  // rows into dpe_s + k nb ldd (row stride ldd), cd into cd_s (row stride ldp), bf16; rows at or
+  // past n are zeros.  Each thread takes two neighbouring frequencies of a channel and stores
+  // bf16 pairs.  Plain stores: the caller's next barrier publishes them.
+  __device__ __forceinline__ void front(__nv_bfloat16* pe_s, int ldp, __nv_bfloat16* dpe_s, int ldd,
+                                        __nv_bfloat16* cd_s, int64_t n0, int nb) const {
+    constexpr int F2 = F / 2;
+    for (int i = threadIdx.x; i < nb * 3 * (F / 2); i += blockDim.x) {
+      const int row = i / (3 * (F / 2)), q = i - row * (3 * (F / 2)), c = q / (F / 2), f = 2 * (q % (F / 2));
+      float s[2] = {0.0f, 0.0f}, co[2] = {0.0f, 0.0f};
+      float2 t[2] = {make_float2(0.0f, 0.0f), make_float2(0.0f, 0.0f)};
+      if (n0 + row < n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          coord_trig(n0 + row, c, f + e, s[e], co[e]);
+          t[e] = tangent_pair(c, f + e, s[e], co[e]);
+        }
+      }
+      __nv_bfloat16* p = pe_s + row * ldp + c * 2 * F + f;
+      __nv_bfloat16* d = dpe_s + (c * nb + row) * ldd + f;
+      *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(s[0], s[1]);
+      *reinterpret_cast<__nv_bfloat162*>(p + F) = __floats2bfloat162_rn(co[0], co[1]);
+      *reinterpret_cast<__nv_bfloat162*>(d) = __floats2bfloat162_rn(t[0].x, t[1].x);
+      *reinterpret_cast<__nv_bfloat162*>(d + F) = __floats2bfloat162_rn(t[0].y, t[1].y);
+    }
+    for (int i = threadIdx.x; i < nb * 6 * (F2 / 2); i += blockDim.x) {
+      const int row = i / (6 * (F2 / 2)), q = i - row * (6 * (F2 / 2)), c = q / (F2 / 2), f = 2 * (q % (F2 / 2));
+      float s[2] = {0.0f, 0.0f}, co[2] = {0.0f, 0.0f};
+      if (n0 + row < n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) sincosf(__fmul_rn(cdata[(n0 + row) * 6 + c], fb2[f + e]), &s[e], &co[e]);
+      }
+      __nv_bfloat16* p = cd_s + row * ldp + c * 2 * F2 + f;
+      *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(s[0], s[1]);
+      *reinterpret_cast<__nv_bfloat162*>(p + F2) = __floats2bfloat162_rn(co[0], co[1]);
+    }
+  }
+
+  // Values j and j + F of fix_ties's chunk of a point's row, by front's expressions from one
+  // sincosf: coordinate channel c of the primal row (tangent false; the chunk at k0 = 64 c) or
+  // direction c's tangent row (tangent true), into chunk[j] and chunk[j + F].  j < F, point < n.
+  __device__ __forceinline__ void chunk_pair(int c, bool tangent, int64_t point, int j, __nv_bfloat16* chunk) const {
+    float s, co;
+    coord_trig(point, c, j, s, co);
+    const float2 t = tangent_pair(c, j, s, co);
+    chunk[j] = __float2bfloat16_rn(tangent ? t.x : s);
+    chunk[j + F] = __float2bfloat16_rn(tangent ? t.y : co);
+  }
+};
 
 }  // namespace dpn

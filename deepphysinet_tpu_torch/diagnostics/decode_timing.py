@@ -2,9 +2,10 @@
 on one card.
 
 Random weights at flagship width (in_ch 192, hidden 256, six variables), bf16: the v4s and v6
-pairs, the v4t forward and backward and the v2 forward at 20,480 points, and the two residual-sum
-kernels at 65,536 (the flagship's observation specs), each the median of five runs of ten
-launches (three for the slower ones) by CUDA events.  It imports the port from the
+pairs, the v4t forward and backward and the v2 forward at 20,480 points, the two residual-sum
+kernels at 65,536 (the flagship's observation specs), and the two in-kernel-PE forwards, v3 and
+v4pe, at one frame's 37,265 points, each the median of five runs of ten launches (three for the
+slower ones) by CUDA events.  It imports the port from the
 working directory, so the same file times any tree.  Compare two trees in one call, in turns
 (here the parent's checkout in ``parent/``):
 
@@ -33,7 +34,7 @@ from deepphysinet_tpu_torch.ops.coords import CoordSpec  # noqa: E402
 from deepphysinet_tpu_torch.ops.position_encoding import make_freq_bands, sinecos_pe  # noqa: E402
 from deepphysinet_tpu_torch.train.train_step import step_config_from_cfg  # noqa: E402
 
-IN_CH, HID, N, RESIDUAL_N = 192, 256, 20480, 65536
+IN_CH, HID, N, RESIDUAL_N, FRAME_N = 192, 256, 20480, 65536, 145 * 257
 
 
 def median_ms(fn, iters: int = 10) -> float:
@@ -89,6 +90,10 @@ def main() -> int:
     pe_r, dpe_r = dk.pe_and_tangents(coords_r, spec, bf)
     dpe_r, trig_r = dpe_r.contiguous(), dk.trig3_inputs(coords_r, spec, bf).contiguous()
     cd_r = sinecos_pe(cdata_r, make_freq_bands(16, 4.0)).to(bf).contiguous()
+    # the in-kernel-PE forwards' raw points: one frame's worth
+    coords_f = torch.from_numpy(np.stack([rng.rand(FRAME_N) * 27000 * 256, rng.rand(FRAME_N) * 27000 * 144,
+                                          rng.rand(FRAME_N) * 86400.0], -1).astype(np.float32)).to(dev)
+    cdata_f = r(FRAME_N, 6, scale=0.3)
     specs = step_config_from_cfg(Config.fromfile(os.path.join(os.getcwd(), "configs", "DeepPhysiNet_NCEP_cfg.py"))
                                  ["config"]).obs_specs
     times = {
@@ -103,6 +108,8 @@ def main() -> int:
                                                                 compute_dtype=bf), iters=3),
         "resid_v6": median_ms(lambda: rk.fused_residual_sums_v6(fw6, trig_r, cd_r, cdata_r, cor, specs,
                                                                 compute_dtype=bf), iters=3),
+        "v3": median_ms(lambda: dk.fused_decode_jvp_v3(w, coords_f, cdata_f, spec, bf), iters=3),
+        "v4pe": median_ms(lambda: dk.fused_decode_jvp_v4pe(fw, coords_f, cdata_f, spec, bf)),
     }
     label = sys.argv[1] if len(sys.argv) > 1 else "tree"
     print(f"[decode timing] {label} {json.dumps(times)}  ({torch.cuda.get_device_name(0)})", flush=True)

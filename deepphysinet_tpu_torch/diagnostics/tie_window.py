@@ -16,7 +16,10 @@ window flags a block of 64 points and variable and the differing ones it misses:
   phase 7), and the v4s forward's (v6 has the same values in another layout) on the batch's
   20,480 margin points, the windows of ``csrc/decode_jvp_tc.cuh`` (``TIE_ULPS_Z``,
   ``TIE_ULPS_U``, ``TIE_FLOOR_Z``, ``TIE_FLOOR_U``: ``KERNEL_FLOORS``);
-* the v2 forward's z (T(p)) and c (T(c)) on the margin points (``csrc/decode_jvp_v2.cu``).
+* the v2 forward's z (T(p)) and c (T(c)) on the margin points (``csrc/decode_jvp_v2.cu``);
+* the v4pe forward's z and u_k, and the v3 forward's c, on the frame's channel-major operands
+  (the in-kernel PE rounded to bf16, with the channel-major weights): v4pe takes v4's windows and
+  floors, v3 v2's (v3's z is v4pe's, the same operands and weights).
 
 First with the seeded flagship weights, then with the weights of each of ``--trainings``
 trainings of six steps from them (three data-only, three PDE, as ``chip_smoke.py``'s phase 6
@@ -35,7 +38,8 @@ import torch
 
 TIE_ULPS = {"z": 32, "u": 8, "c": 32}  # csrc/decode_jvp_tc.cuh, csrc/decode_jvp_v2.cu
 FLOORS = (0, 4, 8, 16, 20, 24, 32)  # in units of 2^-24 times the largest |value| of the warp's 32 columns
-KERNEL_FLOORS = {"z": 16, "u": 16}  # TIE_FLOOR_Z, TIE_FLOOR_U of csrc/decode_jvp_tc.cuh (v2: z 20, c 20)
+KERNEL_FLOORS = {"z": 16, "u": 16, "c": 20}  # TIE_FLOOR_Z, TIE_FLOOR_U of csrc/decode_jvp_tc.cuh; v2 / v3's
+# TIE_FLOOR of csrc/decode_jvp_v2.cu for c (z there takes 20, so a count of 0 at 16 holds it too)
 EPS = 2.0 ** -24
 
 
@@ -97,6 +101,25 @@ def layer1_reading(label, x, w1, b1, tangents, missed):
         torch.cuda.empty_cache()
 
 
+def c_reading(label, w, pe, cd, missed, with_z=True):
+    """The v2 chain's z (T(p); with ``with_z``) and c = ((T(p) . w2 + b2) + (cd . wd + bd)) + fh
+    (T(c)), emulated against cuBLAS, c from cuBLAS's T(p) as the plain version has it."""
+    from deepphysinet_tpu_torch.ops.precision import dot_f32
+
+    bf = torch.bfloat16
+    blocks = w.w1.shape[0] * pe.shape[0] / 64
+    z_seq = dot_f32(pe, w.w1, bf) + w.b1[:, None, :]
+    if with_z:
+        window_reading(f"{label} z (T(p))", emulated(pe, w.w1) + w.b1[:, None, :], z_seq, torch.relu, blocks,
+                       TIE_ULPS["z"], missed["z"])
+    p = torch.relu(z_seq).to(bf).float()  # cuBLAS's T(p): c's inputs as the plain version has them
+    del z_seq
+    c_tc = ((emulated(p, w.w2) + w.b2[:, None, :]) + (emulated(cd, w.wd) + w.bd[:, None, :])) + w.fh_add[:, None, :]
+    c_seq = ((dot_f32(p, w.w2, bf) + w.b2[:, None, :]) + (dot_f32(cd, w.wd, bf) + w.bd[:, None, :])
+             + w.fh_add[:, None, :])
+    window_reading(f"{label} c (T(c))", c_tc, c_seq, lambda x: x, blocks, TIE_ULPS["c"], missed["c"])
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--trainings", type=int, default=2, help="trainings of six steps from the seeded weights")
@@ -109,7 +132,6 @@ def main() -> int:
     from deepphysinet_tpu_torch.data.window import synthetic_batch, synthetic_window
     from deepphysinet_tpu_torch.inference import runner
     from deepphysinet_tpu_torch.ops import decode_kernel as dk
-    from deepphysinet_tpu_torch.ops.precision import dot_f32
     from deepphysinet_tpu_torch.physics import engine
     from deepphysinet_tpu_torch.train import train_step as ts
 
@@ -135,7 +157,16 @@ def main() -> int:
             fw = dk.fuse_decode_weights(w)
             layer1_reading(f"{label}, v4 frame", pe.to(bf), fw.w1, fw.b1,
                            [(dpe[k].to(bf), fw.w1c[:, k]) for k in range(3)], missed)
-            del w, pe, dpe, fw
+            del pe, dpe, fw
+            # the v4pe and v3 forwards on the same frame: the in-kernel PE and the channel-major weights
+            in_ch = w.w1.shape[1]
+            ch = in_ch // 3
+            pe_cm, t_cm, cd_cm = (x.to(bf) for x in dk.pe_front_end(*frame, spec, in_ch))
+            w3 = dk._v3_weights(w)
+            layer1_reading(f"{label}, v4pe and v3 frame (channel-major)", pe_cm, w3.w1, w3.b1,
+                           [(t_cm[k], w3.w1[:, k * ch:(k + 1) * ch]) for k in range(3)], missed)
+            c_reading(f"{label}, v3 frame (channel-major)", w3, pe_cm, cd_cm, missed, with_z=False)
+            del w, w3, pe_cm, t_cm, cd_cm
             # the v4s forward and the v2 forward on the margin points
             fh = (batch.forecast_h / scfg.forecast_time_period)[:, None]
             tokens = model.encode(batch.field, fh)[0]
@@ -149,17 +180,7 @@ def main() -> int:
                            [(pe_cm[:, k * ch:(k + 1) * ch], fw6.w1t[:, k]) for k in range(3)], missed)
             del fw6, pe_cm
             w, pe, _, cd = engine._kernel_inputs(model, tokens, coords, m.nwp[0, :n], fh[0], spec)
-            pe, cd = pe.to(bf), cd.to(bf)
-            blocks = w.w1.shape[0] * n / 64
-            z_seq = dot_f32(pe, w.w1, bf) + w.b1[:, None, :]
-            window_reading(f"{label}, v2 margin z (T(p))", emulated(pe, w.w1) + w.b1[:, None, :], z_seq,
-                           torch.relu, blocks, TIE_ULPS["z"], missed["z"])
-            p = torch.relu(z_seq).to(bf).float()  # cuBLAS's T(p): c's inputs as the plain version has them
-            c_tc = ((emulated(p, w.w2) + w.b2[:, None, :]) + (emulated(cd, w.wd) + w.bd[:, None, :])) + w.fh_add[:, None, :]
-            c_seq = ((dot_f32(p, w.w2, bf) + w.b2[:, None, :]) + (dot_f32(cd, w.wd, bf) + w.bd[:, None, :])
-                     + w.fh_add[:, None, :])
-            window_reading(f"{label}, v2 margin c (T(c))", c_tc, c_seq, lambda x: x, blocks, TIE_ULPS["c"],
-                           missed["c"])
+            c_reading(f"{label}, v2 margin", w, pe.to(bf), cd.to(bf), missed)
         torch.cuda.empty_cache()
 
     def seeded():
@@ -177,7 +198,7 @@ def main() -> int:
         read(f"training {i}", state.model)
     print("[tie window] missed flips over all operand sets, per floor: " + "; ".join(
         f"{k}: " + ", ".join(f"{g}: {v}" for g, v in d.items()) for k, d in missed.items()), flush=True)
-    print("[tie window] at the floors of csrc/decode_jvp_tc.cuh (" + ", ".join(
+    print("[tie window] at the kernels' floors (" + ", ".join(
         f"{k} {g}" for k, g in KERNEL_FLOORS.items()) + "), missed flips over all operand sets: " + ", ".join(
         f"{k} {missed[k][g]}" for k, g in KERNEL_FLOORS.items()), flush=True)
     return 0

@@ -53,6 +53,8 @@ inference path and the flagship training step run:
   function with one sum in another order: ``fused_decode_jvp_v4pe`` and
   ``fused_decode_jvp_v5``, compile-time variants of ``csrc/decode_jvp_v4.cu``
   (plain versions ``decode_jvp_v4pe_ref`` and ``decode_jvp_v5_ref``).
+  ``pe_front_end_rows`` returns the bf16 rows of the kernels' PE front ends, so that
+  the card can hold them to each other bit for bit.
 
 Every wrapper picks by device: a CUDA tensor launches the kernel or raises, a
 CPU tensor takes the plain version.  Each wrapper counts its launches in its
@@ -637,7 +639,7 @@ _LAUNCHERS = {
     SOURCE_BWD_V4S: (("dpn_decode_bwd_v4s", 21),),
     SOURCE_JVP_V4: (("dpn_decode_jvp_v4", 16), ("dpn_decode_jvp_v5", 16), ("dpn_decode_jvp_v4pe", 16)),
     SOURCE_BWD_V4: (("dpn_decode_bwd_v4", 22),),
-    SOURCE_JVP_V2: (("dpn_decode_jvp_v2", 21), ("dpn_decode_jvp_v3", 20)),
+    SOURCE_JVP_V2: (("dpn_decode_jvp_v2", 21), ("dpn_decode_jvp_v3", 21)),
 }
 
 
@@ -657,6 +659,9 @@ def _jvp_library(source: str) -> ctypes.CDLL:
         fn = getattr(lib, _LAUNCHERS[source][0][0] + suffix)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    if source == SOURCE_JVP_V4:
+        lib.dpn_decode_pe_rows.argtypes = [vp] * 8 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int, vp]
+        lib.dpn_decode_pe_rows.restype = ctypes.c_int
     return lib
 
 
@@ -1201,11 +1206,11 @@ def _v2_weights(w: DecodeWeights, cd, **tangent_rows) -> dict:
 
 
 def _v2_columns(w: DecodeWeights, cd) -> torch.Tensor:
-    """z's and c's weights by column, [V, hid, 2 in_ch + hid] in ``cd``: row c of variable v holds
-    the c-th columns of w1, w2 and wd, one after the other.  The bf16 v2 kernel sums its few values
-    of z and c near a bf16 rounding tie again from them (``csrc/decode_jvp_v2.cu``), where a column
-    of the row-major weight would take one 32-byte sector of memory a value."""
-    return torch.cat([m.detach().to(cd).transpose(1, 2) for m in (w.w1, w.w2, w.wd)], dim=2).contiguous()
+    """c's weights by column, [V, hid, hid + in_ch] in ``cd``: row c of variable v holds the c-th
+    columns of w2 and wd, one after the other.  The bf16 v2 and v3 kernels sum their few values of
+    c near a bf16 rounding tie again from them (``csrc/decode_jvp_v2.cu``), where a column of the
+    row-major weight would take one 32-byte sector of memory a value."""
+    return torch.cat([m.detach().to(cd).transpose(1, 2) for m in (w.w2, w.wd)], dim=2).contiguous()
 
 
 def fused_decode_jvp(weights: DecodeWeights, pe: torch.Tensor, dpe: torch.Tensor,
@@ -1335,6 +1340,13 @@ def _pe_point_rows(coords: torch.Tensor, coord_data: torch.Tensor, coord_spec, i
             ("fb", fb, (in_ch // 6,), f32), ("fb2", fb2, (in_ch // 12,), f32)]
 
 
+def _v3_weights(w: DecodeWeights) -> DecodeWeights:
+    """``w1`` and ``wd`` with their input rows in the front end's channel-major order (the v3
+    wrapper's gathers, :428-432)."""
+    in_ch, dev = w.w1.shape[1], w.w1.device
+    return w._replace(w1=w.w1[:, _perm(in_ch, 3, dev)], wd=w.wd[:, _perm(in_ch, 6, dev)])
+
+
 def decode_jvp_v3_ref(weights: DecodeWeights, coords: torch.Tensor, coord_data: torch.Tensor,
                       coord_spec, compute_dtype=torch.bfloat16) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the v3 kernel (``_decode_kernel_v3``, :315-400):
@@ -1346,11 +1358,17 @@ def decode_jvp_v3_ref(weights: DecodeWeights, coords: torch.Tensor, coord_data: 
     n_vars, in_ch, hid = weights.w1.shape
     _check_pe_front_end("fused_decode_jvp_v3", n_vars, in_ch, coord_spec)
     pe_cm, t_cm, cd_cm = pe_front_end(coords, coord_data, coord_spec, in_ch)
-    w1 = weights.w1[:, _perm(in_ch, 3, coords.device)]
-    l1 = _Layer1(pe_cm, w1, (t_cm[0], t_cm[1], t_cm[2]), w1.reshape(n_vars, 3, in_ch // 3, hid))
-    o, to = _v2_chain_ref(l1, weights, cd_cm, weights.wd[:, _perm(in_ch, 6, coords.device)],
-                          coord_data.float().t(), compute_dtype, round_wo=True)
+    w = _v3_weights(weights)
+    l1 = _Layer1(pe_cm, w.w1, (t_cm[0], t_cm[1], t_cm[2]), w.w1.reshape(n_vars, 3, in_ch // 3, hid))
+    o, to = _v2_chain_ref(l1, w, cd_cm, w.wd, coord_data.float().t(), compute_dtype, round_wo=True)
     return o.t(), to.transpose(1, 2)
+
+
+def _v3_kernel_weights(w: DecodeWeights, cd) -> dict:
+    """The decode weights as the v3 kernel reads them, in launch order: v2's (``_v2_weights``, no
+    tangent rows) of the channel-major weights, then ``cols``, ``_v2_columns`` of the same."""
+    w_cm = _v3_weights(w)
+    return {**_v2_weights(w_cm, cd), "cols": _v2_columns(w_cm, cd)}
 
 
 def fused_decode_jvp_v3(weights: DecodeWeights, coords: torch.Tensor, coord_data: torch.Tensor,
@@ -1358,8 +1376,9 @@ def fused_decode_jvp_v3(weights: DecodeWeights, coords: torch.Tensor, coord_data
     """Primal [N, 6] and tangents [3, N, 6] (float32) of the v2 decode with the PE computed in
     the kernel: raw coordinates [N, 3] (physical x, y, t) and conditioning values [N, 6] in.
     The CUDA kernel on GPU tensors (``csrc/decode_jvp_v2.cu`` with the PE front end of
-    ``csrc/decode_pe.cuh``); CPU tensors take ``decode_jvp_v3_ref``.
-    ``fused_decode_jvp_v3.launches`` counts kernel launches."""
+    ``csrc/decode_pe.cuh``; in bf16 the v2 tensor-core body, which also reads c's weights by
+    column, ``_v2_columns`` of the channel-major weights); CPU tensors take
+    ``decode_jvp_v3_ref``.  ``fused_decode_jvp_v3.launches`` counts kernel launches."""
     name = "fused_decode_jvp_v3"
     n_vars, in_ch, hid = weights.w1.shape
     _check_pe_front_end(name, n_vars, in_ch, coord_spec)
@@ -1368,8 +1387,7 @@ def fused_decode_jvp_v3(weights: DecodeWeights, coords: torch.Tensor, coord_data
     if coords.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {coords.device}")
     dev, n = coords.device, coords.shape[0]
-    w = _v2_weights(weights._replace(w1=weights.w1[:, _perm(in_ch, 3, dev)],
-                                     wd=weights.wd[:, _perm(in_ch, 6, dev)]), compute_dtype)
+    w = _v3_kernel_weights(weights, compute_dtype)
     rows = _pe_point_rows(coords, coord_data, coord_spec, in_ch)
     lib = _kernel_checks(name, SOURCE_JVP_V2, hid, in_ch, compute_dtype, rows, w.values())
     primal = torch.empty((n, n_vars), dtype=torch.float32, device=dev)
@@ -1422,8 +1440,8 @@ def fused_decode_jvp_v4pe(fw: FusedDecodeWeights, coords: torch.Tensor, coord_da
     """Primal [N, 6] and tangents [3, N, 6] (float32) of the v4 decode with the PE computed in
     the kernel: raw coordinates [N, 3] and conditioning values [N, 6] in.  The CUDA kernel on
     GPU tensors (``csrc/decode_jvp_v4.cu``, in-kernel PE variant); CPU tensors take
-    ``decode_jvp_v4pe_ref``.  Forward only.  ``fused_decode_jvp_v4pe.launches`` counts
-    kernel launches."""
+    ``decode_jvp_v4pe_ref``.  In bf16 the kernel is the v4 tensor-core body with the PE
+    front end.  Forward only.  ``fused_decode_jvp_v4pe.launches`` counts kernel launches."""
     name = "fused_decode_jvp_v4pe"
     n_vars, in_ch, hid = fw.w1.shape
     _check_pe_front_end(name, n_vars, in_ch, coord_spec)
@@ -1446,6 +1464,37 @@ def fused_decode_jvp_v4pe(fw: FusedDecodeWeights, coords: torch.Tensor, coord_da
 
 
 fused_decode_jvp_v4pe.launches = 0
+
+PE_FRONT_ENDS = ("tensor_cores", "cuda_cores", "recompute")
+
+
+def pe_front_end_rows(coords: torch.Tensor, coord_data: torch.Tensor, coord_spec, in_ch: int,
+                      front_end: str) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The bf16 rows ``(pe_cm [N, in_ch], tangents [3, N, in_ch/3], cd_cm [N, in_ch])`` that one
+    of the kernels' PE front ends builds on the card (``csrc/decode_jvp_v4.cu``,
+    ``dpn_decode_pe_rows``): ``"tensor_cores"`` the front end of the bf16 tensor-core bodies of
+    v3 and v4pe (one ``sincosf`` an angle), ``"cuda_cores"`` that of the CUDA-core bodies (one
+    ``sinf`` or ``cosf`` a value) rounded to bf16, ``"recompute"`` the rows that those bodies'
+    recompute of values near a rounding tie computes again from a point's coordinates (pe and
+    the tangents; cd is the first front end's).  A check, not a step of any path: CUDA tensors
+    only, in_ch 192."""
+    if front_end not in PE_FRONT_ENDS:
+        raise ValueError(f"pe_front_end_rows: front end {front_end!r} is none of {PE_FRONT_ENDS}")
+    if coords.device.type != "cuda":
+        raise ValueError(f"pe_front_end_rows: the front ends run on the card; got {coords.device}")
+    rows = _pe_point_rows(coords, coord_data, coord_spec, in_ch)
+    lib = _jvp_library(SOURCE_JVP_V4)
+    n, dev, bf = coords.shape[0], coords.device, torch.bfloat16
+    out = (torch.empty((n, in_ch), dtype=bf, device=dev), torch.empty((3, n, in_ch // 3), dtype=bf, device=dev),
+           torch.empty((n, in_ch), dtype=bf, device=dev))
+    if n == 0:
+        return out
+    with torch.cuda.device(dev):
+        err = lib.dpn_decode_pe_rows(*(r[1].data_ptr() for r in rows), *(t.data_ptr() for t in out), n, in_ch,
+                                     PE_FRONT_ENDS.index(front_end), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"pe_front_end_rows: CUDA error {err} at launch")
+    return out
 
 
 def decode_jvp_v5_ref(fw: FusedDecodeWeights, pe: torch.Tensor, dpe: torch.Tensor,

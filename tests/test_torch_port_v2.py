@@ -267,14 +267,25 @@ def test_pe_front_end_is_the_v3_kernels_pe():
         np.testing.assert_allclose(_np(a), b, rtol=0, atol=4e-6 * np.abs(b).max(), err_msg=name)
 
 
-@pytest.mark.parametrize("n", [64, 50])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_v3_plain_forward_matches_pallas_kernel(dtype, n):
-    inp = _inputs(n)
-    jw = _jax_side(inp)[0]
-    p_k, t_k = jdk.fused_decode_jvp_v3(jw, jnp.asarray(inp["coords"]), jnp.asarray(inp["cdata"]),
+@functools.lru_cache(maxsize=None)
+def _pallas_v3_forward(dtype):
+    """The v3 Pallas kernel (interpret mode) on the V2_POINTS points of ``_inputs(V2_POINTS)``, once
+    per dtype; a case at n points reads the first n."""
+    inp = _inputs(V2_POINTS)
+    p_k, t_k = jdk.fused_decode_jvp_v3(_jax_side(inp)[0], jnp.asarray(inp["coords"]), jnp.asarray(inp["cdata"]),
                                        JaxCoordSpec(**SPEC), block_n=BLOCK, interpret=True,
                                        compute_dtype=getattr(jnp, dtype))
+    return np.asarray(p_k), np.asarray(t_k)
+
+
+# n = 50 is ragged against the Pallas block of 32; 1, 17, 64, 65 and 129 are the point-block edges of
+# the port's tensor-core kernel
+@pytest.mark.parametrize("n", [64, 50, 1, 17, 65, 129])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_v3_plain_forward_matches_pallas_kernel(dtype, n):
+    p_k, t_k = _pallas_v3_forward(dtype)
+    p_k, t_k = p_k[:n], t_k[:, :n]
+    inp = _first_points(_inputs(V2_POINTS), n)
     w = _port_side(inp)[0]
     before = tdk.fused_decode_jvp_v3.launches
     p, t = tdk.fused_decode_jvp_v3(w, _t(inp["coords"]), _t(inp["cdata"]), CoordSpec(**SPEC),
@@ -282,6 +293,26 @@ def test_v3_plain_forward_matches_pallas_kernel(dtype, n):
     assert tdk.fused_decode_jvp_v3.launches == before
     assert tuple(p.shape) == (n, NV) and tuple(t.shape) == (3, n, NV)
     _assert_outputs_close(p, t, p_k, t_k)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_v3_kernel_weights_are_the_channel_major_weights_and_their_columns(dtype):
+    """What the v3 kernel reads: v2's weights with ``w1`` and ``wd`` in the channel-major order of
+    the JAX wrapper (:428-432), and ``cols``, whose row c of variable v holds the c-th columns of
+    ``w2`` and of the channel-major ``wd``, one after the other."""
+    inp = _inputs(8)
+    td = getattr(torch, dtype)
+    w = _port_side(inp)[0]
+    got = tdk._v3_kernel_weights(w, td)
+    assert list(got) == ["w1"] + list(FIELDS[1:]) + ["cols"]
+    w1_cm, wd_cm = (inp["w"][k][:, jdk.channel_major_perm(IN_CH, c)] for k, c in (("w1", 3), ("wd", 6)))
+    np.testing.assert_array_equal(_np(got["w1"]), _np(_t(w1_cm).to(td)))
+    np.testing.assert_array_equal(_np(got["wd"]), _np(_t(wd_cm).to(td)))
+    cols = np.concatenate([m.transpose(0, 2, 1) for m in (inp["w"]["w2"], wd_cm)], axis=2)
+    assert tuple(got["cols"].shape) == (NV, HID, HID + IN_CH) and got["cols"].dtype == td
+    assert got["cols"].is_contiguous()
+    np.testing.assert_array_equal(_np(got["cols"]), _np(_t(cols).to(td)))
+    np.testing.assert_array_equal(_np(got["cols"]), _np(tdk._v2_columns(tdk._v3_weights(w), td)))
 
 
 def test_v3_is_v2_behind_the_front_end():
@@ -375,9 +406,9 @@ def _card_weights(dev, rng, in_ch=192, hid=256):
                              g1=r(6, hid), f2=r(6, hid, hid), g2=r(6, hid), wo=r(6, hid), bo=r(6))
 
 
-# The point-block edges of the v2 kernel (64 points a block), the size of the test's first form
-# and the step's larger launch
-CARD_SIZES = (1, 17, 64, 65, 129, 1000, 20480)
+# The point-block edges of the v2 and v3 kernels (64 points a block), the size of the test's first
+# form, the step's larger launch and one 145 x 257 frame
+CARD_SIZES = (1, 17, 64, 65, 129, 1000, 20480, 37265)
 # chip_smoke.py's rule for relu kinks: the points at which a relu argument (z or r) of the plain
 # version lies within KINK_EPS (1 + the largest argument) of zero, where another summation order may
 # switch a tangent term on or off, are left out of the comparison
@@ -402,7 +433,8 @@ def _near_kink(w, pe, cd_pe, dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_v2_and_v3_kernels_match_plain(cuda_device, dtype):
     """The two CUDA kernels against their plain versions at the kernels' widths and CARD_SIZES,
-    with the bounds of chip_smoke.py, the points near a relu kink left out."""
+    with the bounds of chip_smoke.py, the points near a relu kink left out; two runs of each
+    kernel give the same bits."""
     rng = np.random.RandomState(12)
     n_max, td = max(CARD_SIZES), getattr(torch, dtype)
     w = _card_weights(cuda_device, rng)
@@ -417,10 +449,13 @@ def test_v2_and_v3_kernels_match_plain(cuda_device, dtype):
         pe, dpe = tdk.pe_and_tangents(coords, spec, td)
         cd_pe = sinecos_pe(cdata, make_freq_bands(16, 4.0)).to(td)
         before = tdk.fused_decode_jvp.launches, tdk.fused_decode_jvp_v3.launches
-        outs = {"v2": tdk.fused_decode_jvp(w, pe, dpe, cd_pe, cdata, td),
-                "v3": tdk.fused_decode_jvp_v3(w, coords, cdata, spec, td)}
+        runs = [{"v2": tdk.fused_decode_jvp(w, pe, dpe, cd_pe, cdata, td),
+                 "v3": tdk.fused_decode_jvp_v3(w, coords, cdata, spec, td)} for _ in range(2)]
         torch.cuda.synchronize()
-        assert (tdk.fused_decode_jvp.launches, tdk.fused_decode_jvp_v3.launches) == (before[0] + 1, before[1] + 1)
+        assert (tdk.fused_decode_jvp.launches, tdk.fused_decode_jvp_v3.launches) == (before[0] + 2, before[1] + 2)
+        outs = runs[0]
+        for k, (p, t) in outs.items():
+            assert torch.equal(p, runs[1][k][0]) and torch.equal(t, runs[1][k][1]), (k, n)
         plain = {"v2": tdk.decode_jvp_v2_ref(w, pe, dpe, cd_pe, cdata, td),
                  "v3": tdk.decode_jvp_v3_ref(w, coords, cdata, spec, td)}
         # the kink points from the operands each plain version computes: v3's channel-major PE in f32

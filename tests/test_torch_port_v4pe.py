@@ -17,6 +17,8 @@ rounded to the compute dtype; v5: the masked tangents rounded once), so what is 
 float32 summation order and, in bfloat16, a flipped rounding of an operand.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -35,7 +37,7 @@ from deepphysinet_tpu_torch.ops.position_encoding import make_freq_bands, sineco
 from deepphysinet_tpu_torch.physics import engine as tengine
 
 from tests.test_torch_port_engine import _j_args, _t_args, world  # noqa: F401
-from tests.test_torch_port_v2 import NV, _assert_outputs_close, _inputs, _np, _t
+from tests.test_torch_port_v2 import V2_POINTS, NV, _amax, _assert_outputs_close, _first_points, _inputs, _np, _t
 
 # One PyTorch thread per test process: the suite runs in several worker processes at once,
 # and a thread pool in each would oversubscribe the cores (it about doubled these files' time).
@@ -67,15 +69,27 @@ def _v4_inputs(inp, dtype="float32"):
 
 # ---- v4pe ---------------------------------------------------------------------------------
 
-@pytest.mark.parametrize("n", [64, 50])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_v4pe_plain_forward_matches_pallas_kernel(dtype, n):
-    """n = 50 is ragged against the Pallas block of 32."""
-    inp = _inputs(n, seed=5)
-    jfw, tfw = _fused(inp)
-    p_k, t_k = jdk.fused_decode_jvp_v4pe(jfw, jnp.asarray(inp["coords"]), jnp.asarray(inp["cdata"]),
+@functools.lru_cache(maxsize=None)
+def _pallas_v4pe_forward(dtype):
+    """The v4pe Pallas kernel (interpret mode) on the V2_POINTS points of ``_inputs(V2_POINTS, seed=5)``,
+    once per dtype: each point's outputs depend on its own inputs only, so a case at n points reads
+    the first n of them."""
+    inp = _inputs(V2_POINTS, seed=5)
+    p_k, t_k = jdk.fused_decode_jvp_v4pe(_fused(inp)[0], jnp.asarray(inp["coords"]), jnp.asarray(inp["cdata"]),
                                          JaxCoordSpec(**SPEC), block_n=BLOCK, interpret=True,
                                          compute_dtype=getattr(jnp, dtype))
+    return np.asarray(p_k), np.asarray(t_k)
+
+
+# n = 50 is ragged against the Pallas block of 32; 1, 17, 64, 65 and 129 are the point-block edges of
+# the port's tensor-core kernel (64 points a block)
+@pytest.mark.parametrize("n", [64, 50, 1, 17, 65, 129])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_v4pe_plain_forward_matches_pallas_kernel(dtype, n):
+    p_k, t_k = _pallas_v4pe_forward(dtype)
+    p_k, t_k = p_k[:n], t_k[:, :n]
+    inp = _first_points(_inputs(V2_POINTS, seed=5), n)
+    _, tfw = _fused(inp)
     before = tdk.fused_decode_jvp_v4pe.launches
     p, t = tdk.fused_decode_jvp_v4pe(tfw, _t(inp["coords"]), _t(inp["cdata"]), CoordSpec(**SPEC),
                                      getattr(torch, dtype))
@@ -202,30 +216,53 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_v4pe_and_v5_kernels_match_plain(cuda_device, dtype):
-    """The two CUDA variants against their plain versions at the kernels' widths, with the
-    bounds of chip_smoke.py; and the v4 kernel, which shares their source, still the v4
-    function."""
-    from tests.test_torch_port_v2 import _card_weights
+    """The two CUDA variants against their plain versions at the kernels' widths and the sizes
+    of ``CARD_SIZES``, with the bounds of chip_smoke.py and its rule for the points near a relu
+    kink (each variant's own operands: v4pe's channel-major PE in float32); two runs of each
+    kernel give the same bits; and the v4 kernel, which shares their source, still the v4
+    function.  In bfloat16 also the rows of the kernels' PE front ends, bit for bit: the
+    tensor-core bodies' (one sincosf an angle) against the CUDA-core bodies' (sinf, cosf), and
+    their recompute's against their front end's."""
+    from tests.test_torch_port_v2 import CARD_SIZES, _card_weights
+    from tests.test_torch_port_v4 import _near_kink
 
     rng = np.random.RandomState(13)
-    n, td = 1000, getattr(torch, dtype)
+    n_max, td = max(CARD_SIZES), getattr(torch, dtype)
     fw = tdk.fuse_decode_weights(_card_weights(cuda_device, rng))
+    fw_cm = tdk._channel_major(fw)
     spec = CoordSpec(lon_size=257, lat_size=145, dx=27000.0, dy=27000.0, pred_t_span=86400.0)
-    coords = torch.from_numpy(np.stack([rng.rand(n) * 27000 * 256, rng.rand(n) * 27000 * 144,
-                                        rng.rand(n) * 86400.0], -1).astype(np.float32)).to(cuda_device)
-    cdata = torch.from_numpy((rng.randn(n, 6) * 0.3).astype(np.float32)).to(cuda_device)
-    pe, dpe = tdk.pe_and_tangents(coords, spec, td)
-    cd_pe = sinecos_pe(cdata, make_freq_bands(16, 4.0)).to(td)
-    outs = {"v4pe": tdk.fused_decode_jvp_v4pe(fw, coords, cdata, spec, td),
-            "v5": tdk.fused_decode_jvp_v5(fw, pe, dpe, cd_pe, cdata, td),
-            "v4": tdk.fused_decode_jvp_v4(fw, pe, dpe, cd_pe, cdata, td)}
-    torch.cuda.synchronize()
-    plain = {"v4pe": tdk.decode_jvp_v4pe_ref(fw, coords, cdata, spec, td),
-             "v5": tdk.decode_jvp_v5_ref(fw, pe, dpe, cd_pe, cdata, td),
-             "v4": tdk.decode_jvp_v4_ref(fw, pe, dpe, cd_pe, cdata, td)}
+    coords_all = torch.from_numpy(np.stack([rng.rand(n_max) * 27000 * 256, rng.rand(n_max) * 27000 * 144,
+                                            rng.rand(n_max) * 86400.0], -1).astype(np.float32)).to(cuda_device)
+    cdata_all = torch.from_numpy((rng.randn(n_max, 6) * 0.3).astype(np.float32)).to(cuda_device)
     tol = 1e-5 if dtype == "float32" else 1e-3
-    for k, (p, t) in outs.items():
-        p0, t0 = plain[k]
-        assert float((p - p0).abs().max()) <= tol * (1.0 + float(p0.abs().max())), k
-        for d in range(3):
-            assert float((t[d] - t0[d]).abs().max()) <= 10 * tol * float(t0[d].abs().max()), k
+    for n in CARD_SIZES:
+        coords, cdata = coords_all[:n].contiguous(), cdata_all[:n].contiguous()
+        pe, dpe = tdk.pe_and_tangents(coords, spec, td)
+        cd_pe = sinecos_pe(cdata, make_freq_bands(16, 4.0)).to(td)
+        before = tdk.fused_decode_jvp_v4pe.launches, tdk.fused_decode_jvp_v5.launches
+        runs = [{"v4pe": tdk.fused_decode_jvp_v4pe(fw, coords, cdata, spec, td),
+                 "v5": tdk.fused_decode_jvp_v5(fw, pe, dpe, cd_pe, cdata, td),
+                 "v4": tdk.fused_decode_jvp_v4(fw, pe, dpe, cd_pe, cdata, td)} for _ in range(2)]
+        torch.cuda.synchronize()
+        assert (tdk.fused_decode_jvp_v4pe.launches, tdk.fused_decode_jvp_v5.launches) == (before[0] + 2,
+                                                                                         before[1] + 2)
+        plain = {"v4pe": tdk.decode_jvp_v4pe_ref(fw, coords, cdata, spec, td),
+                 "v5": tdk.decode_jvp_v5_ref(fw, pe, dpe, cd_pe, cdata, td),
+                 "v4": tdk.decode_jvp_v4_ref(fw, pe, dpe, cd_pe, cdata, td)}
+        pe_cm, _, cd_cm = tdk.pe_front_end(coords, cdata, spec, 192)
+        near_cm, near = _near_kink(fw_cm, pe_cm.to(td), cd_cm.to(td), td), _near_kink(fw, pe, cd_pe, td)
+        for k, (p, t) in runs[0].items():
+            assert torch.equal(p, runs[1][k][0]) and torch.equal(t, runs[1][k][1]), (k, n)
+            p0, t0 = plain[k]
+            keep = ~(near_cm if k == "v4pe" else near)
+            p, t, p0, t0 = p[keep], t[:, keep], p0[keep], t0[:, keep]
+            assert _amax(p - p0) <= tol * (1.0 + _amax(p0)), (k, n)
+            for d in range(3):
+                assert _amax(t[d] - t0[d]) <= 10 * tol * _amax(t0[d]), (k, n)
+        if dtype == "bfloat16":
+            rows = {f: tdk.pe_front_end_rows(coords, cdata, spec, 192, f) for f in tdk.PE_FRONT_ENDS}
+            torch.cuda.synchronize()
+            for a, b in zip(rows["tensor_cores"], rows["cuda_cores"]):
+                assert torch.equal(a, b), n
+            for a, b in zip(rows["recompute"][:2], rows["tensor_cores"][:2]):
+                assert torch.equal(a, b), n
