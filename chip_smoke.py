@@ -73,21 +73,22 @@ Phases, each of which raises (exit code 1) on failure:
                computed in the kernel) against their plain versions, bf16 and f32, at
                20,480 (v2; v3 at 37,265 and at 20,480 of the same frame), 1,000, 3 and 1
                (v3) points and at the block edges 17, 64, 65 and 129, v3 twice (the same
-               bits); a reading of the plain version's rounding on the v2 operands and on
-               v3's channel-major operands of one frame (float64 sums in place of cuBLAS's
-               at each of its six bf16 rounding points), which the bf16 kernels'
-               recomputation near a tie rests on;
-               ``FusedDecodeJvpV2`` (kernel forward, plain backward) against autograd of the
-               plain forward;
+               bits), each kernel's rows at a smaller size the same bits as the first n
+               of its largest call; a reading of the plain version's rounding on the v2
+               operands and on v3's channel-major operands of one frame (float64 sums in
+               place of cuBLAS's at each of its six bf16 rounding points), which the bf16
+               kernels' recomputation near a tie rests on; ``FusedDecodeJvpV2`` (kernel
+               forward, plain backward) against autograd of the plain forward;
 14. train v2 -- 3 PDE steps with ``kernel_version=2`` (the seeded-state comparisons ran
                in phase 6), with the launch counts;
 15. v4pe, v5 -- the v4pe and v5 forward kernels against their plain versions, bf16 and
                f32, at 37,265, 1,000, 3 and 1 points and at the block edges, v4pe twice (the
-               same bits); the bf16 rows of the PE front ends, bit for bit: the tensor-core
-               bodies' (one sincosf an angle) against the CUDA-core bodies' (sinf, cosf), and
-               their recompute's against their front end's; ``fused_kernel_fields(in_kernel_pe=True)``
-               on one frame (the v4pe kernel) against the same call without it (the v4
-               kernel on the prepared PE); direct calls of v3 and v5 on one frame;
+               same bits), the rows at a smaller size as in phase 13; the bf16 rows of the
+               PE front ends, bit for bit: the tensor-core bodies' (one sincosf an angle)
+               against the CUDA-core bodies' (sinf, cosf), and their recompute's against
+               their front end's; ``fused_kernel_fields(in_kernel_pe=True)`` on one frame
+               (the v4pe kernel) against the same call without it (the v4 kernel on the
+               prepared PE); direct calls of v3 and v5 on one frame;
 16. attention -- the single-tile and flash attention kernels against their plain
                versions, bf16 and f32, at B = 1, 8 heads of 32 and 3 to 4,096 tokens,
                and 8 heads of 16 and of 64 at 287 and 1,025 tokens, each with its
@@ -378,6 +379,11 @@ TOL_PATH_FIELDS = 2e-2
 def bf16_step(x: torch.Tensor) -> float:
     """The spacing of bfloat16 numbers at the largest |x|."""
     return float(2.0 ** (np.floor(np.log2(float(x.abs().max()))) - 7))
+
+
+def amax(x: torch.Tensor) -> float:
+    """max |x|, 0 for no element (every point left out near a kink)."""
+    return float(x.abs().max()) if x.numel() else 0.0
 
 
 def log(msg: str) -> None:
@@ -1108,22 +1114,22 @@ def main() -> int:
         of what each tolerance is stated in)."""
         ok = p.shape == (n_vars, n) and t.shape == (3, n_vars, n) and bool(
             torch.isfinite(p).all() and torch.isfinite(t).all())
-        if keep is not None:
+        if keep is not None:  # where keep leaves no point (N = 1 near a kink) there is nothing to compare
             p, t, p0, t0_ = p[:, keep], t[:, :, keep], p0[:, keep], t0_[:, :, keep]
-        e_p, s_p = float((p - p0).abs().max()), float(p0.abs().max())
+        e_p, s_p = amax(p - p0), amax(p0)
         lim_p = TOL[dtype] * (1.0 + s_p)
         ok = ok and e_p <= lim_p
         e_t = []
         for k in range(3):
-            e, s_ = float((t[k] - t0_[k]).abs().max()), float(t0_[k].abs().max())
-            e_t.append(e / s_)
+            e, s_ = amax(t[k] - t0_[k]), amax(t0_[k])
+            e_t.append(e / s_ if s_ else e)
             ok = ok and e <= TOL_TANGENT[dtype] * s_
         log(f"[{what}] {str(dtype):15s} N={n:6d}: primal max|kernel-plain| {e_p:.3e} (max|plain| "
             f"{s_p:.3f}, bound {lim_p:.3e}); tangents x, y, t relative to their largest: "
             + ", ".join(f"{e:.2e}" for e in e_t) + f" (bound {TOL_TANGENT[dtype]:.0e}){extra}")
         if not ok:
             raise AssertionError(f"{what} kernel disagrees with its plain version ({dtype}, N={n})")
-        return max(e_p, float((t - t0_).abs().max())), max(e_p / (1.0 + s_p), *e_t)
+        return max(e_p, amax(t - t0_)), max(e_p / (1.0 + s_p), *e_t)
 
     def backward_check(what, dtype, n, got, want, again, extra=""):
         """Hold a backward kernel's cotangents to its plain version's, per weight; ``again`` is
@@ -1940,14 +1946,29 @@ def main() -> int:
             raise AssertionError(f"{what} checks: {int(near.sum())} of {n} points near a relu's kink ({dtype})")
         return f"; {int(near.sum())} of {n} points near a relu's kink left out"
 
-    def point_major_check(what, dtype, n, p, t, p0, t0_, near, extra=""):
-        """``forward_check`` on [N, 6] / [3, N, 6] outputs, the points near a kink left out."""
-        return forward_check(what, dtype, n, p.t(), t.transpose(1, 2), p0.t(), t0_.transpose(1, 2),
-                             kink_note(near, n, what, dtype) + extra, keep=~near)
+    def point_major_check(what, dtype, n, p, t, p0, t0_, near, extra="", firsts=None):
+        """``forward_check`` on [N, 6] / [3, N, 6] outputs, the points near a kink left out.  With
+        ``firsts`` (what -> the kernel's outputs at the loop's first and largest size, on inputs of
+        which this call's are the first n), the outputs are also held to that call's first n rows
+        bit for bit: a point's result does not hang on the points after it, and this holds the
+        block edges where the kink rule leaves no point to compare (N = 1)."""
+        same = True
+        if firsts is not None and what in firsts:
+            p1, t1 = firsts[what]
+            same = torch.equal(p, p1[:n]) and torch.equal(t, t1[:, :n])
+            extra += f"; the first {n} rows of the N={p1.shape[0]} call bit-equal: {same}"
+        elif firsts is not None:
+            firsts[what] = (p, t)
+        out = forward_check(what, dtype, n, p.t(), t.transpose(1, 2), p0.t(), t0_.transpose(1, 2),
+                            kink_note(near, n, what, dtype) + extra, keep=~near)
+        if not same:
+            raise AssertionError(f"{what} kernel's rows at N={n} differ from the larger call's ({dtype})")
+        return out
 
     model.eval()
     variant_err, variant_rel = {}, {}  # (name, dtype, n) -> as forward_check returns
     for dtype in (torch.bfloat16, torch.float32):
+        firsts = {}  # each kernel's outputs at its loop's first, largest size: see point_major_check
         w2_, pe, dpe, cd_pe, ref = v2_inputs(V2_SIZES[0], dtype)
         for n in V2_SIZES:
             ins = (pe[:n].contiguous(), dpe[:, :n].contiguous(), cd_pe[:n].contiguous(), ref[:n].contiguous())
@@ -1956,7 +1977,7 @@ def main() -> int:
             torch.cuda.synchronize()
             p0, t0_ = dk.decode_jvp_v2_ref(w2_, *ins, dtype)
             variant_err[("fused_decode_jvp", dtype, n)], variant_rel[("fused_decode_jvp", dtype, n)] = \
-                point_major_check("v2 forward", dtype, n, p, t, p0, t0_, near)
+                point_major_check("v2 forward", dtype, n, p, t, p0, t0_, near, firsts=firsts)
             del p0, t0_
         if dtype == torch.bfloat16:  # the rounding the bf16 v2 kernel follows, on the step's larger launch
             reading, not_seq = v2_rounding_reading(dk, w2_, pe, dpe, cd_pe, near_kink_v2(w2_, pe, cd_pe, dtype),
@@ -1977,7 +1998,8 @@ def main() -> int:
             same = torch.equal(p, p2) and torch.equal(t, t2)
             p0, t0_ = dk.decode_jvp_v3_ref(w3, c_, x_, scfg.coord_spec, dtype)
             variant_err[("fused_decode_jvp_v3", dtype, n)], variant_rel[("fused_decode_jvp_v3", dtype, n)] = \
-                point_major_check("v3 forward", dtype, n, p, t, p0, t0_, near, f"; two runs bit-equal: {same}")
+                point_major_check("v3 forward", dtype, n, p, t, p0, t0_, near, f"; two runs bit-equal: {same}",
+                                  firsts=firsts)
             if not same:
                 raise AssertionError(f"two runs of the v3 kernel differ ({dtype}, N={n})")
             del p0, t0_, p2, t2
@@ -2050,6 +2072,7 @@ def main() -> int:
     # ---- 15. the v4pe and v5 kernels; the in_kernel_pe route; direct calls of v3 and v5 ---------
     model.eval()
     for dtype in (torch.bfloat16, torch.float32):
+        firsts = {}
         fw, pe, dpe, cd_pe, ref_t = frame_inputs(6.5, dtype, with_tangents=True)
         _, coords, nwp, _, _ = frame_points(6.5)
         pe4, cd4, (perm3, perm6) = front_end_operands(coords, nwp, fw.w1.shape[1], dtype)
@@ -2066,7 +2089,8 @@ def main() -> int:
             same = torch.equal(p, p2) and torch.equal(t, t2)
             p0, t0_ = dk.decode_jvp_v4pe_ref(fw, c_, x_, dcfg.coord_spec, dtype)
             variant_err[("fused_decode_jvp_v4pe", dtype, n)], variant_rel[("fused_decode_jvp_v4pe", dtype, n)] = \
-                point_major_check("v4pe forward", dtype, n, p, t, p0, t0_, near_pe, f"; two runs bit-equal: {same}")
+                point_major_check("v4pe forward", dtype, n, p, t, p0, t0_, near_pe, f"; two runs bit-equal: {same}",
+                                  firsts=firsts)
             if not same:
                 raise AssertionError(f"two runs of the v4pe kernel differ ({dtype}, N={n})")
             del p2, t2
@@ -2074,7 +2098,7 @@ def main() -> int:
             torch.cuda.synchronize()
             p0, t0_ = dk.decode_jvp_v5_ref(fw, *ins, ref, dtype)
             variant_err[("fused_decode_jvp_v5", dtype, n)], variant_rel[("fused_decode_jvp_v5", dtype, n)] = \
-                point_major_check("v5 forward", dtype, n, p, t, p0, t0_, near)
+                point_major_check("v5 forward", dtype, n, p, t, p0, t0_, near, firsts=firsts)
             del p0, t0_
         if dtype == torch.bfloat16:
             # the rows of the PE front ends, bit for bit: the tensor-core bodies' (one sincosf an angle)
