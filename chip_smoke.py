@@ -8,7 +8,8 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases, each of which raises (exit code 1) on failure:
 
 1. build    -- compile the nine sources under ``deepphysinet_tpu_torch/csrc/`` with
-               nvcc, all at once, and log registers, spills and shared memory;
+               nvcc, all at once (and four timing variants of the encoder's), and log
+               registers, spills and shared memory;
 2. primal   -- the primal decode kernel against its plain PyTorch version on the
                card, at 37,265 (one 145 x 257 frame), 1,000 and 3 points and at the
                point-block edges 17, 64, 65 and 129, bf16 and f32;
@@ -95,7 +96,9 @@ Phases, each of which raises (exit code 1) on failure:
                launch shape; ``FusedAttention`` with either kernel's forward against
                autograd of the plain forward, with the launch counts;
 17. encoder -- the fused encoder kernel against its plain version at flagship width,
-               bf16 and f32; ``encode_fused`` (two batch items, two launches) against
+               bf16 (the tensor-core body) and f32 (the CUDA-core body), at 287 tokens and
+               at 1, 15, 16, 17 and 33 (the bf16 body's 16-row groups and 32-query
+               attention units); ``encode_fused`` (two batch items, two launches) against
                ``PhysicsNet.encode``;
 18. paths   -- ``predict_grid`` with ``attn_impl='pallas'`` and ``'flash'`` against the
                default model on the same weights; one PDE step's loss and gradients
@@ -111,7 +114,10 @@ Phases, each of which raises (exit code 1) on failure:
                launch; the residual sums with their points a block, ptxas registers and
                spills, scratch bytes and products as batched ``torch.bmm`` calls), and the
                in-kernel residual assembly against the split path at 40,960 to 131,072
-               points; one frame through ``fused_kernel_fields`` with and without
+               points; the fused encoder kernel on the device alone and, in bf16, by stage
+               (builds without one stage's units, DPN_ENCODER_SKIP); v5's ptxas and its
+               products (the v4 forward's) as batched ``torch.bmm`` calls; one frame
+               through ``fused_kernel_fields`` with and without
                ``in_kernel_pe`` (CUDA events and host clock); by host
                clock around a synchronize: one frame, one training step of each
                kind, one residual sweep, split into their parts, and one encode
@@ -618,6 +624,11 @@ def without_partial_atomics(cuda_build, source: str) -> ctypes.CDLL:
     return ctypes.CDLL(so)
 
 
+# the encoder kernel's checks at the flagship's 287 tokens and at short lengths across the bf16 body's
+# units (16-row groups, 32-query attention units)
+ENC_SHORT_LENGTHS = (1, 15, 16, 17, 33)
+
+
 def sm_clock_mhz() -> float:
     """The SM clock the card can reach (nvidia-smi clocks.max.sm), MHz."""
     out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
@@ -733,17 +744,25 @@ def encoder_phase(dev, model, field, fh_norm: float, reset_launch_counts) -> dic
         x = net.enc_embedding(fields, fh, net.learnable_token)[0]
     out = {"errs": {}}
     for dtype in (torch.bfloat16, torch.float32):
-        before = ek.fused_encoder_forward.launches
-        got = ek.fused_encoder_forward(w, x, act, dtype)
-        torch.cuda.synchronize()
-        want = ek.fused_encoder_forward_ref(w, x, act, dtype)
-        err, mean_steps, ok = encoder_close(got, want, dtype)
-        out["errs"][dtype] = err
-        log(f"[encoder] fused encoder kernel {str(dtype):15s} L={x.shape[0]}: max|kernel-plain| {err:.3e} (max|plain| "
-            f"{float(want.abs().max()):.3f}), mean {mean_steps:.3f} bf16 steps of the largest (bounds: f32 "
-            f"{TOL_ENC_F32:.0e} x (1 + max); bf16 {TOL_ENC_BF16_STEPS} steps, mean {TOL_ENC_BF16_MEAN} step)")
-        if not (ok and got.shape == want.shape and ek.fused_encoder_forward.launches == before + 1):
-            raise AssertionError(f"the fused encoder kernel disagrees with its plain version ({dtype})")
+        for n in (x.shape[0],) + ENC_SHORT_LENGTHS:
+            xn = x[:n].contiguous()
+            route = ek.kernel_route(ek.cast_encoder_weights(w, dtype), n, dtype)
+            before = ek.fused_encoder_forward.launches
+            got = ek.fused_encoder_forward(w, xn, act, dtype)
+            torch.cuda.synchronize()
+            want = ek.fused_encoder_forward_ref(w, xn, act, dtype)
+            err, mean_steps, ok = encoder_close(got, want, dtype)
+            if n == x.shape[0]:
+                out["errs"][dtype] = err
+            log(f"[encoder] fused encoder kernel {str(dtype):15s} L={n:3d}: "
+                + (f"tensor cores, heads padded to {route}" if route else "CUDA cores")
+                + f"; max|kernel-plain| {err:.3e} (max|plain| {float(want.abs().max()):.3f}), mean {mean_steps:.3f} "
+                f"bf16 steps of the largest (bounds: f32 {TOL_ENC_F32:.0e} x (1 + max); bf16 {TOL_ENC_BF16_STEPS} "
+                f"steps, mean {TOL_ENC_BF16_MEAN} step)")
+            # bf16 takes the tensor-core body at the flagship's widths, float32 the CUDA-core body
+            if not (ok and got.shape == want.shape and bool(torch.isfinite(got).all())
+                    and ek.fused_encoder_forward.launches == before + 1 and bool(route) == (dtype == torch.bfloat16)):
+                raise AssertionError(f"the fused encoder kernel disagrees with its plain version ({dtype}, L={n})")
     reset_launch_counts()
     tokens = ek.encode_fused(model, fields, fh)
     torch.cuda.synchronize()
@@ -872,12 +891,15 @@ def paths_phase(dev, cfg, cd, window, dcfg, scfg, field, batch, launch_counts, r
     return launches
 
 
-def attention_and_encoder_timing(dev, cd, model, field, fh_norm: float) -> dict:
+def attention_and_encoder_timing(dev, cd, model, field, fh_norm: float, stage_builds: dict) -> dict:
     """CUDA-event times of the attention kernels (and one scaled_dot_product_attention call, the
     library yardstick the port never calls) and of the fused encoder kernel, each beside its plain
-    version; PhysicsNet.encode against encode_fused by host clock and CUDA events."""
+    version, the encoder also on the device alone and (bf16) by stage, from the builds of
+    ``encoder_stages.start_builds``; PhysicsNet.encode against encode_fused by host clock and CUDA
+    events."""
     import torch.nn.functional as F
 
+    from deepphysinet_tpu_torch.diagnostics import encoder_stages as es
     from deepphysinet_tpu_torch.ops import attention as at
     from deepphysinet_tpu_torch.ops import encoder_kernel as ek
 
@@ -910,16 +932,30 @@ def attention_and_encoder_timing(dev, cd, model, field, fh_norm: float) -> dict:
     fh = torch.tensor([[fh_norm]], device=dev)
     with torch.no_grad():
         x = net.enc_embedding(field.float(), fh, net.learnable_token)[0]
-    k_ms, p_ms, times = alternating_ms(lambda: ek.fused_encoder_forward(w, x, act, cd),
+    # the bf16 kernel's packed weight tiles, made once as encode_fused makes them for a batch
+    packed = ek.pack_encoder_weights(w) if cd == torch.bfloat16 else None
+    k_ms, p_ms, times = alternating_ms(lambda: ek.fused_encoder_forward(w, x, act, cd, packed),
                                        lambda: ek.fused_encoder_forward_ref(w, x, act, cd), 10)
     n_l, n_h, d, e = w.wq.shape
     length, f, c = x.shape[0], w.w1.shape[-1], w.wproj.shape[-1]
     flops = 2.0 * length * (n_l * (3 * d * n_h * e + 2 * length * n_h * e + n_h * e * d + 2 * d * f) + d * c)
     b_ = bound(flops, tensor_bytes(x, *w) + 4 * length * c)
-    out["encoder"] = dict(ms=k_ms, plain=p_ms, bound=b_)
-    log(f"[timing] fused encoder kernel at L={length} {cd}: kernel {k_ms:.4f} ms ({flops / k_ms / 1e9:.3f} "
-        f"TFLOP/s), plain {p_ms:.4f} ms, bound {b_[0]:.5f} ms ({b_[1]}, {flops / 1e9:.3f} GFLOP, "
-        f"{tensor_bytes(x, *w) / 1e6:.2f} MB in); runs kernel {[round(t, 4) for t in times['kernel']]}")
+    dev_ms = device_ms(lambda: ek.fused_encoder_forward(w, x, act, cd, packed), 20)
+    # the stages by difference: each variant drops one stage's units (every barrier kept), timed on
+    # the device alone in turns with the kernel itself (diagnostics/encoder_stages.py)
+    runs, stage_ms = {}, {}
+    if cd == torch.bfloat16:
+        libs = es.load_builds(stage_builds, ek, ek._library())
+        runs, stage_ms = es.stage_split(ek, libs, lambda: ek.fused_encoder_forward(w, x, act, cd, packed))
+    out["encoder"] = dict(ms=k_ms, plain=p_ms, bound=b_, device_ms=dev_ms, stage_ms=stage_ms)
+    log(f"[timing] fused encoder kernel at L={length} {cd}: kernel {k_ms:.4f} ms a call, {dev_ms:.4f} ms on the "
+        f"device alone ({flops / dev_ms / 1e9:.3f} TFLOP/s), plain {p_ms:.4f} ms, bound {b_[0]:.5f} ms ({b_[1]}, "
+        f"{flops / 1e9:.3f} GFLOP, {tensor_bytes(x, *w) / 1e6:.2f} MB in); runs kernel "
+        f"{[round(t, 4) for t in times['kernel']]}")
+    if stage_ms:
+        log(f"[timing] fused encoder kernel at L={length} {cd}, on the device alone: the full kernel "
+            f"{[round(t, 4) for t in runs['kernel']]} ms; by difference from builds without a stage's units: "
+            + "; ".join(f"{name} {ms:.4f} ms" for name, ms in stage_ms.items()))
 
     def encode():
         with torch.no_grad():
@@ -943,6 +979,7 @@ def main() -> int:
         return 1
     from deepphysinet_tpu_torch.config import Config
     from deepphysinet_tpu_torch.data.window import synthetic_batch, synthetic_window
+    from deepphysinet_tpu_torch.diagnostics import encoder_stages
     from deepphysinet_tpu_torch.eval import common as eval_common
     from deepphysinet_tpu_torch.eval.residuals import evaluate_residuals, residual_field_maps
     from deepphysinet_tpu_torch.eval.rmse import evaluate_rmse_fullgrid
@@ -967,6 +1004,7 @@ def main() -> int:
     # ---- 1. build ------------------------------------------------------------
     sources = dk.SOURCES + (rk.SOURCE, at.SOURCE, ek.SOURCE)
     t0 = time.perf_counter()
+    enc_stage_builds = encoder_stages.start_builds(cuda_build, ek.SOURCE)  # read in the timing phase
     cuda_build.build_libraries(sources)
     dk._library()
     for source in dk.SOURCES[1:]:
@@ -2371,7 +2409,7 @@ def main() -> int:
                 f"{v4_bwd_bmm[n]:.4f} ms ({2e-9 * n_vars * bwd_macs * n / v4_bwd_bmm[n]:.2f} TFLOP/s)")
         del pe_, dpe_, cd_, dpe16, fwd_pairs
     v4_block = dk._jvp_library(dk.SOURCE_JVP_V4).dpn_decode_jvp_v4_block()
-    v4_ptxas = kernel_ptxas(cuda_build.BUILD_LOGS.get(dk.SOURCE_JVP_V4, ""), "decode_jvp_v4_tcILb0E"
+    v4_ptxas = kernel_ptxas(cuda_build.BUILD_LOGS.get(dk.SOURCE_JVP_V4, ""), "decode_jvp_v4_tcILi0E"
                             if cd == torch.bfloat16 else "decode_jvp_v4_kernelIfLi0E")
     log(f"[timing] v4 forward {cd}: {v4_block} points and one variable a block, 256 threads; ptxas {v4_ptxas}")
     # the v4 backward's points a block, registers and spills, and atomic adds into global memory
@@ -2475,7 +2513,7 @@ def main() -> int:
                  lambda: dk.decode_jvp_v4pe_ref(fw, coords, nwp, spec, cd), fwd_macs, (coords, nwp), fused_weights)
     # v4pe's points a block, registers and spills; its products are the v4 forward's (the reading above)
     v4pe_ptxas = kernel_ptxas(cuda_build.BUILD_LOGS.get(dk.SOURCE_JVP_V4, ""),
-                              "decode_jvp_v4_tcILb1E" if is_bf16 else "decode_jvp_v4_kernelIfLi2E")
+                              "decode_jvp_v4_tcILi2E" if is_bf16 else "decode_jvp_v4_kernelIfLi2E")
     log(f"[timing] fused_decode_jvp_v4pe {cd}: {v4_block} points and one variable a block, 256 threads; ptxas "
         f"{v4pe_ptxas}; its products (the v4 forward's) as 4 batched torch.bmm calls at N={GRID_POINTS} (a "
         f"reading): {v4_fwd_bmm[GRID_POINTS]:.4f} ms ({2e-9 * n_vars * fwd_macs * GRID_POINTS / v4_fwd_bmm[GRID_POINTS]:.2f} "
@@ -2497,6 +2535,12 @@ def main() -> int:
     time_variant("fused_decode_jvp_v5", GRID_POINTS, lambda: dk.fused_decode_jvp_v5(fw, pe, dpe, cd_pe, nwp, cd),
                  lambda: dk.decode_jvp_v5_ref(fw, pe, dpe, cd_pe, nwp, cd), fwd_macs, (pe, dpe, cd_pe, nwp),
                  dk._fused_weights(fw, dict(w1=fw.w1, w1c=fw.w1c), cd).values())
+    # v5's points a block, registers and spills; its products are the v4 forward's (the reading above)
+    v5_ptxas = kernel_ptxas(cuda_build.BUILD_LOGS.get(dk.SOURCE_JVP_V4, ""),
+                            "decode_jvp_v4_tcILi1E" if is_bf16 else "decode_jvp_v4_kernelIfLi1E")
+    log(f"[timing] fused_decode_jvp_v5 {cd}: {v4_block} points and one variable a block, 256 threads; ptxas "
+        f"{v5_ptxas}; its products (the v4 forward's) as 4 batched torch.bmm calls at N={GRID_POINTS} (a "
+        f"reading): {v4_fwd_bmm[GRID_POINTS]:.4f} ms")
     del w2_, pe, dpe, cd_pe, ref, w3, coords, nwp, fw, fused_weights, tokens_f
     model.train()
     torch.cuda.empty_cache()
@@ -2711,7 +2755,8 @@ def main() -> int:
             ", ".join(f"{k} {v:.3f} ms" for k, v in parts.items()) + f"; sum {sum(parts.values()):.3f} ms")
     log(f"[timing] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
-    enc_timing = attention_and_encoder_timing(dev, cd, model, field, window.forecast_h / dcfg.forecast_time_period)
+    enc_timing = attention_and_encoder_timing(dev, cd, model, field, window.forecast_h / dcfg.forecast_time_period,
+                                              enc_stage_builds)
 
     # ---- 20. profile (only with --profile): the device's busy share and its largest kernels ----
     if "--profile" in sys.argv[1:]:
@@ -2883,7 +2928,9 @@ def main() -> int:
          "replaces": "deepphysinet_tpu/ops/encoder_kernel.py:132", "launches": enc["launches"],
          "max_abs_err": enc["errs"][cd], "tokens": 287, "ms": enc_timing["encoder"]["ms"],
          "plain_ms": enc_timing["encoder"]["plain"], "bound_ms": enc_timing["encoder"]["bound"][0],
-         "bound_by": enc_timing["encoder"]["bound"][1], "library_ms": None},
+         "bound_by": enc_timing["encoder"]["bound"][1], "library_ms": None,
+         "products": tc_products, "device_ms": enc_timing["encoder"]["device_ms"],
+         "stage_ms": enc_timing["encoder"]["stage_ms"]},
         # the four decode variants: v2 on its training and residual paths, v4pe on the in_kernel_pe
         # route, v3 and v5 on their own entry points (one direct call each)
         {**variant_entry("fused_decode_jvp", "decode_jvp_v2.cu", 270,
@@ -2896,7 +2943,9 @@ def main() -> int:
          "bmm_ms": v4_fwd_bmm[GRID_POINTS]},
         {**variant_entry("fused_decode_jvp_v3", "decode_jvp_v2.cu", 459, direct_launches["fused_decode_jvp_v3"]),
          "products": tc_products, "points_a_block": v2_block, "ptxas": v3_ptxas, "bmm_ms": v3_bmm},
-        variant_entry("fused_decode_jvp_v5", "decode_jvp_v4.cu", 1226, direct_launches["fused_decode_jvp_v5"]),
+        {**variant_entry("fused_decode_jvp_v5", "decode_jvp_v4.cu", 1226, direct_launches["fused_decode_jvp_v5"]),
+         "products": tc_products, "points_a_block": v4_block, "ptxas": v5_ptxas,
+         "bmm_ms": v4_fwd_bmm[GRID_POINTS]},
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

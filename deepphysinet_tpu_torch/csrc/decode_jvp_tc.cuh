@@ -12,9 +12,9 @@
 //   [4 x 64, 256] bf16 array of row sets.
 // * fix_ties: T(p) and t_k near a bf16 rounding tie (a window of ulps with an absolute floor)
 //   recomputed in the plain version's order.
-// * Stage 2: one pass over w2f1 for the four row sets, cd . wdf1 into r's accumulator, in four
-//   64-column passes (warp: 16 points of all four row sets x 32 columns), [128, 64] weight
-//   tiles through a block ring of three.
+// * Stage 2: one pass over w2f1 for the four row sets, cd . wdf1 into r's accumulator (v5: into
+//   one of its own, a compile-time switch), in four 64-column passes (warp: 16 points of all four
+//   row sets x 32 columns), [128, 64] weight tiles through a block ring of three.
 //
 // The callers differ in where the block's layer-1 rows come from and in what their epilogues sum;
 // the stages take the epilogues as callables.  The rows come from global memory (RowSource: v4 /
@@ -477,9 +477,12 @@ __device__ __forceinline__ auto stage2_ring(unsigned char* ring, const bf16* __r
 // 64-column passes: warp w owns points 16 (w & 3) .. + 15 of the four row sets (acc[s]) and
 // columns 32 (w >> 2) .. + 31 of the pass.  epi(c, acc) after pass c: acc[s][nt][i] is row
 // 16 (w & 3) + g + 8 (i >> 1) of set s at column 64 c + 32 (w >> 2) + 8 nt + 2 t + (i & 1),
-// r without rbias for s = 0.  The sets and cd_s (stride ldp) must be published (a barrier).
-template <class Ring, class Epi>
-__device__ __forceinline__ void stage2(Ring& ring, const bf16* sets, const bf16* cd_s, int ldp, int in_ch, Epi epi) {
+// r without rbias for s = 0.  With SPLIT_R (v5) cd . wdf1 goes into an accumulator of its own,
+// live only over the pass's wdf1 tiles, and set 0 reaches epi as r = T(p) . w2f1 + (cd . wdf1 +
+// rbias), rbias [HID] included.  The sets and cd_s (stride ldp) must be published (a barrier).
+template <bool SPLIT_R = false, class Ring, class Epi>
+__device__ __forceinline__ void stage2(Ring& ring, const bf16* sets, const bf16* cd_s, int ldp, int in_ch, Epi epi,
+                                       const float* __restrict__ rbias = nullptr) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, pg = warp & 3, half = warp >> 2;
   const int nd = (in_ch + S2_ROWS - 1) / S2_ROWS;
   constexpr uint32_t S2_K16 = 16 * ld_of(S2_COLS) * sizeof(bf16);
@@ -493,12 +496,22 @@ __device__ __forceinline__ void stage2(Ring& ring, const bf16* sets, const bf16*
       tc::warp_mma<4, 4, 4, 1>(acc, a, NB * LDA * sizeof(bf16), b, S2_K16);
       tc::warp_mma<4, 4, 4, 1>(acc, a + 64 * sizeof(bf16), NB * LDA * sizeof(bf16), b + 4 * S2_K16, S2_K16);
     }
-    for (int j = 0; j < nd; ++j) {  // + cd . wdf1, into r's accumulator
+    float acc_cd[1][4][4];  // SPLIT_R: cd . wdf1 of set 0
+    if constexpr (SPLIT_R) tc::zero_acc(acc_cd);
+    for (int j = 0; j < nd; ++j) {  // + cd . wdf1, into r's accumulator (SPLIT_R: its own)
       const uint32_t b = tc::b_lane(ring.next() + 32 * half, ld_of(S2_COLS), lane);
       const uint32_t a = tc::a_lane(cd_s + 16 * pg * ldp + j * S2_ROWS, ldp, lane);
       const int k16 = min(S2_ROWS, in_ch - j * S2_ROWS) / 16;
       for (int q = 0; q < k16; q += 4)
-        tc::warp_mma<1, 4, 4, 1>(acc, a + q * 32, 0, b + q * S2_K16, S2_K16);
+        tc::warp_mma<1, 4, 4, 1>(SPLIT_R ? acc_cd : acc, a + q * 32, 0, b + q * S2_K16, S2_K16);
+    }
+    if constexpr (SPLIT_R) {
+      const int t2 = 2 * (lane & 3);
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          acc[0][nt][i] += acc_cd[0][nt][i] + rbias[c * S2_COLS + 32 * half + 8 * nt + t2 + (i & 1)];
     }
     epi(c, acc);
   }
@@ -534,8 +547,8 @@ static_assert(WARPS * 32 <= 2 * 4 * NB, "fix_ties's lists fit in stage 2's parti
 // pe, dpe and cd rows, cd unused) and ref, into primal / tang in the var-major ([n_vars, n],
 // [3, n_vars, n]; tl) or point-major layout.  w1v [in_ch, HID] and w1cv [3, ch, HID] are the
 // variable's primal and tangent layer-1 rows.  The layout changes only addresses, so the layouts,
-// and v4s against v6, give the same bits.
-template <class Src>
+// and v4s against v6, give the same bits.  SPLIT_R: r summed as v5 sums it (stage2).
+template <bool SPLIT_R = false, class Src>
 __device__ __forceinline__ void forward_block(const Src& src, const bf16* cd, const float* __restrict__ ref,
                                               const bf16* __restrict__ w1v, const bf16* __restrict__ w1cv,
                                               const float* __restrict__ b1, const bf16* __restrict__ w2f1,
@@ -623,16 +636,16 @@ __device__ __forceinline__ void forward_block(const Src& src, const bf16* cd, co
   // ---- stage 2, with the per-point sums relu(r) . fw2 and 1[r > 0] (t_k . w2f1) . fw2 ----
   const int pg = warp & 3, half = warp >> 2;
   float s_r[2] = {0.0f, 0.0f}, s_t[3][2] = {};
-  stage2(ring, sets, cd_s, ldp, in_ch, [&](int c, float (&acc)[4][4][4]) {
+  stage2<SPLIT_R>(ring, sets, cd_s, ldp, in_ch, [&](int c, float (&acc)[4][4][4]) {
 #pragma unroll
     for (int nt = 0; nt < 4; ++nt) {
       const int col = c * S2_COLS + 32 * half + 8 * nt + t2;
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const float rb = rbias[col + e], f = fw2[col + e];
+        const float rb = SPLIT_R ? 0.0f : rbias[col + e], f = fw2[col + e];  // SPLIT_R: in acc[0]
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const float rv = acc[0][nt][2 * h + e] + rb;
+          const float rv = SPLIT_R ? acc[0][nt][2 * h + e] : acc[0][nt][2 * h + e] + rb;
           s_r[h] = fmaf(fmaxf(rv, 0.0f), f, s_r[h]);
           if (rv > 0.0f) {
 #pragma unroll
@@ -641,7 +654,7 @@ __device__ __forceinline__ void forward_block(const Src& src, const bf16* cd, co
         }
       }
     }
-  });
+  }, rbias);
   {
     float sr[1][2] = {{s_r[0], s_r[1]}};
     tc::store_row_sums(sr, red2 + (half * 4) * NB + 16 * pg, lane);

@@ -90,10 +90,15 @@
 //   decode_jvp_v4_kernel with the PE front end of front_rows.
 // * v5, _decode_kernel_v5 (fused_decode_jvp_v5, decode_kernel.py:1117-1247): the same
 //   function with r summed as T(p) . w2f1 + (cd . wdf1 + rbias) (:1149, :1156), so
-//   cd . wdf1 gets an accumulator of its own (primal_stages<SPLIT>); CUDA-core products in
-//   both types (decode_jvp_v4_kernel).  The TPU kernel stacks the six variables' layer-1
-//   products by column into one wide product to cut op dispatch; that changes no sum and
-//   is not carried over.
+//   cd . wdf1 gets an accumulator of its own.  bf16: the tensor-core body above
+//   (decode_jvp_v4_tc<kV5>) with forward_block's SPLIT_R switch: stage 2 sums row set 0's
+//   cd . wdf1 k16 products into a [16 x 32] accumulator of its own, live only over a pass's
+//   wdf1 tiles (when the four row sets' fragments are no longer held), and adds acc + (cd +
+//   rbias) before the epilogue; 255 registers and no spill, as v4 (ptxas on an H100 build).
+//   Its z and u_k are v4's, so fix_ties and its floors apply unchanged.  float:
+//   decode_jvp_v4_kernel with primal_stages<SPLIT>.  The TPU kernel stacks the six variables'
+//   layer-1 products by column into one wide product to cut op dispatch; that changes no sum
+//   and is not carried over.
 
 #include "decode_common.cuh"
 #include "decode_jvp_tc.cuh"
@@ -111,8 +116,9 @@ enum Variant { kV4 = 0, kV5 = 1, kV4pe = 2 };
 
 // ---- bf16: tensor cores (decode_jvp_tc.cuh) ------------------------------------------
 
-// PE: v4pe's rows from raw coordinates (decode_pe.cuh's PeSource), else v4's from pe, dpe and cd.
-template <bool PE>
+// kV4pe: the rows from raw coordinates (decode_pe.cuh's PeSource), else from pe, dpe and cd;
+// kV5: r summed as v5 sums it (forward_block's SPLIT_R).  Both compile-time switches of the body.
+template <int VARIANT>
 __global__ void __launch_bounds__(THREADS, 1)
 decode_jvp_v4_tc(PointInputs in, const jvp::bf16* __restrict__ w1, const jvp::bf16* __restrict__ w1c,
                  const float* __restrict__ b1, const jvp::bf16* __restrict__ w2f1,
@@ -121,12 +127,13 @@ decode_jvp_v4_tc(PointInputs in, const jvp::bf16* __restrict__ w1, const jvp::bf
                  const float* __restrict__ wdwo, const float* __restrict__ obias,
                  float* __restrict__ primal, float* __restrict__ tang, int64_t n, int in_ch,
                  int n_vars, int t_layout) {
+  constexpr bool PE = VARIANT == kV4pe;
   const int v = blockIdx.y;
   const auto src = [&] {
     if constexpr (PE) return PeSource{in.coords, in.cdata, in.scales, in.fb, in.fb2, n, in_ch};
     else return jvp::RowSource{static_cast<const jvp::bf16*>(in.pe), static_cast<const jvp::bf16*>(in.dpe), n, in_ch};
   }();
-  jvp::forward_block(src, static_cast<const jvp::bf16*>(in.cd), in.ref, w1 + (size_t)v * in_ch * HID,
+  jvp::forward_block<VARIANT == kV5>(src, static_cast<const jvp::bf16*>(in.cd), in.ref, w1 + (size_t)v * in_ch * HID,
                      w1c + (size_t)v * in_ch * HID, b1, w2f1, wdf1, rbias, fw2, w2wo, wdwo, obias, primal, tang,
                      n_vars, t_layout != 0);
 }
@@ -135,24 +142,24 @@ template <bool PE> bool tc_valid(int in_ch) {
   return jvp::row_region_valid(in_ch, true) && (!PE || PeSource::valid(in_ch));
 }
 
-template <bool PE>
+template <int VARIANT>
 int launch_tc(const PointInputs& in, const void* w1, const void* w1c, const float* b1,
               const void* w2f1, const void* wdf1, const float* rbias, const float* fw2,
               const float* w2wo, const float* wdwo, const float* obias, float* primal, float* tang,
               int64_t n, int in_ch, int n_vars, int t_layout, cudaStream_t stream) {
-  if (!tc_valid<PE>(in_ch)) return (int)cudaErrorInvalidValue;
+  if (!tc_valid<VARIANT == kV4pe>(in_ch)) return (int)cudaErrorInvalidValue;
   const size_t smem = jvp::fwd_smem(in_ch, true).total;
-  cudaError_t err = cudaFuncSetAttribute(decode_jvp_v4_tc<PE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaError_t err = cudaFuncSetAttribute(decode_jvp_v4_tc<VARIANT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((n + NB - 1) / NB), (unsigned)n_vars);
-  decode_jvp_v4_tc<PE><<<grid, THREADS, smem, stream>>>(
+  decode_jvp_v4_tc<VARIANT><<<grid, THREADS, smem, stream>>>(
       in, static_cast<const jvp::bf16*>(w1), static_cast<const jvp::bf16*>(w1c), b1,
       static_cast<const jvp::bf16*>(w2f1), static_cast<const jvp::bf16*>(wdf1), rbias, fw2, w2wo, wdwo, obias, primal, tang, n, in_ch, n_vars, t_layout);
   return (int)cudaGetLastError();
 }
 
-// ---- float, and v5 in both types: CUDA cores --------------------------------------------
+// ---- float: CUDA cores ------------------------------------------------------------------
 
 template <typename T, int VARIANT>
 __global__ void __launch_bounds__(THREADS, 1)
@@ -245,14 +252,9 @@ int dispatch(int is_bf16, const PointInputs& in, const void* w1, const void* w1c
              const float* w2wo, const float* wdwo, const float* obias, float* primal, float* tang,
              int64_t n, int in_ch, int n_vars, int t_layout, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if constexpr (VARIANT == kV5) {
-    if (is_bf16)
-      return launch<__nv_bfloat16, kV5>(in, w1, w1c, b1, w2f1, wdf1, rbias, fw2, w2wo, wdwo, obias, primal,
-                                        tang, n, in_ch, n_vars, t_layout, s);
-  } else if (is_bf16) {
-    return launch_tc<VARIANT == kV4pe>(in, w1, w1c, b1, w2f1, wdf1, rbias, fw2, w2wo, wdwo, obias, primal,
-                                       tang, n, in_ch, n_vars, t_layout, s);
-  }
+  if (is_bf16)
+    return launch_tc<VARIANT>(in, w1, w1c, b1, w2f1, wdf1, rbias, fw2, w2wo, wdwo, obias, primal, tang, n, in_ch,
+                              n_vars, t_layout, s);
   return launch<float, VARIANT>(in, w1, w1c, b1, w2f1, wdf1, rbias, fw2, w2wo, wdwo, obias, primal,
                                 tang, n, in_ch, n_vars, t_layout, s);
 }
@@ -308,14 +310,12 @@ PointInputs prepared(const void* pe, const void* dpe, const void* cd, const floa
 extern "C" {
 
 // Hidden width the kernel was built for; shared memory one block needs at this
-// input width, the most of any variant (bf16: the tensor-core body of v4 and v4pe, which
-// takes in_ch 192 only, and the CUDA-core body of v5).
+// input width (bf16: the tensor-core body of every variant; v4pe takes in_ch 192 only).
 int dpn_decode_jvp_v4_hid() { return dpn::HID; }
 int dpn_decode_jvp_v4_block() { return NB; }  // points a block takes, every body and variant
 int dpn_decode_jvp_v4_shared_bytes(int is_bf16, int in_ch) {
   if (!is_bf16) return (int)shared_bytes<float>(in_ch);
-  const size_t tc_bytes = tc_valid<false>(in_ch) ? jvp::fwd_smem(in_ch, true).total : (size_t)1 << 30;
-  return (int)tc::max_of(tc_bytes, shared_bytes<__nv_bfloat16>(in_ch));
+  return tc_valid<false>(in_ch) ? (int)jvp::fwd_smem(in_ch, true).total : 1 << 30;
 }
 
 // is_bf16: 1 for __nv_bfloat16 inputs, 0 for float.  t_layout: 0 for ref and

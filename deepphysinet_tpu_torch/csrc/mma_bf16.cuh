@@ -51,6 +51,15 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t add
                : "r"(addr));
 }
 
+// Two 8 x 8 bf16 matrices, each transposed: lanes 0-7 give matrix 0's row addresses, lanes 8-15
+// matrix 1's (the other lanes' are not read).  From k rows 0-15 of a [K, N] weight at one n8
+// column tile: the B fragment (b0, b1) of that tile.
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
+}
+
 // 16 bytes global -> shared, asynchronously (L2 only).  With valid false nothing is read
 // and the 16 bytes are zeros; src must still be a mapped address.
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {

@@ -3,21 +3,24 @@ on one card.
 
 Random weights at flagship width (in_ch 192, hidden 256, six variables), bf16: the v4s and v6
 pairs, the v4t forward and backward and the v2 forward at 20,480 points, the two residual-sum
-kernels at 65,536 (the flagship's observation specs), and the two in-kernel-PE forwards, v3 and
-v4pe, at one frame's 37,265 points, each the median of five runs of ten launches (three for the
+kernels at 65,536 (the flagship's observation specs), and the forwards that take one frame, v3,
+v4pe and v5, at its 37,265 points, each the median of five runs of ten launches (three for the
 slower ones) by CUDA events.  It imports the port from the
 working directory, so the same file times any tree.  Compare two trees in one call, in turns
 (here the parent's checkout in ``parent/``):
 
-    (cd parent && python3 ../deepphysinet_tpu_torch/diagnostics/decode_timing.py parent)
-    python3 deepphysinet_tpu_torch/diagnostics/decode_timing.py change
+    (cd parent && python3 ../deepphysinet_tpu_torch/diagnostics/decode_timing.py parent --outputs /tmp/p.pt)
+    python3 deepphysinet_tpu_torch/diagnostics/decode_timing.py change --against /tmp/p.pt
     python3 deepphysinet_tpu_torch/diagnostics/decode_timing.py change
     (cd parent && python3 ../deepphysinet_tpu_torch/diagnostics/decode_timing.py parent)
 
-Each prints one line: ``[decode timing] LABEL {kernel: ms, ...}``.
+Each prints one line: ``[decode timing] LABEL {kernel: ms, ...}``.  ``--outputs FILE`` saves each
+kernel's outputs of its first launch; ``--against FILE`` prints, for each kernel in both, whether
+this tree's outputs are bit-equal to the saved ones.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import statistics
@@ -37,9 +40,21 @@ from deepphysinet_tpu_torch.train.train_step import step_config_from_cfg  # noqa
 IN_CH, HID, N, RESIDUAL_N, FRAME_N = 192, 256, 20480, 65536, 145 * 257
 
 
-def median_ms(fn, iters: int = 10) -> float:
-    fn()
+OUTPUTS = {}  # kernel -> the outputs of its first launch (on the host)
+
+
+def _tensors(out):
+    """The tensors of a wrapper's result, in order (tuples and named tuples flattened)."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    return [t for x in (out or ()) for t in _tensors(x)] if isinstance(out, (tuple, list)) else []
+
+
+def median_ms(fn, iters: int = 10, name: str = "") -> float:
+    out = fn()
     torch.cuda.synchronize()
+    if name:
+        OUTPUTS[name] = [t.cpu() for t in _tensors(out)]
     runs = []
     for _ in range(5):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -53,6 +68,11 @@ def median_ms(fn, iters: int = 10) -> float:
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("label", nargs="?", default="tree")
+    ap.add_argument("--outputs", help="save each kernel's outputs to this file")
+    ap.add_argument("--against", help="hold each kernel's outputs to those saved in this file, bit for bit")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("decode_timing: CUDA is not available", file=sys.stderr)
         return 1
@@ -94,25 +114,35 @@ def main() -> int:
     coords_f = torch.from_numpy(np.stack([rng.rand(FRAME_N) * 27000 * 256, rng.rand(FRAME_N) * 27000 * 144,
                                           rng.rand(FRAME_N) * 86400.0], -1).astype(np.float32)).to(dev)
     cdata_f = r(FRAME_N, 6, scale=0.3)
+    pe_f, dpe_f = dk.pe_and_tangents(coords_f, spec, bf)  # v5's prepared inputs of those points
+    dpe_f, cd_f = dpe_f.contiguous(), sinecos_pe(cdata_f, make_freq_bands(16, 4.0)).to(bf).contiguous()
     specs = step_config_from_cfg(Config.fromfile(os.path.join(os.getcwd(), "configs", "DeepPhysiNet_NCEP_cfg.py"))
                                  ["config"]).obs_specs
     times = {
-        "v4s_fwd": median_ms(lambda: dk.fused_decode_jvp_v4s(fw6, pe_cm, cd, ref_t, bf)),
-        "v4s_bwd": median_ms(lambda: dk.decode_bwd_kernel_v4s(fw6, pe_cm, cd, g_p, g_t, bf)),
-        "v6_fwd": median_ms(lambda: dk.fused_decode_jvp_v6(fw6, trig, cd, ref_t.t().contiguous(), bf)),
-        "v6_bwd": median_ms(lambda: dk.decode_bwd_kernel_v6(fw6, trig, cd, g_pn, g_tn, bf)),
-        "v4t_fwd": median_ms(lambda: dk.fused_decode_jvp_v4t(fw, pe, dpe, cd, ref_t, bf)),
-        "v4t_bwd": median_ms(lambda: dk.decode_bwd_kernel_v4t(fw, pe, dpe, cd, g_p, g_t, bf), iters=3),
-        "v2": median_ms(lambda: dk.fused_decode_jvp(w, pe, dpe, cd, cdata, bf), iters=3),
+        "v4s_fwd": median_ms(lambda: dk.fused_decode_jvp_v4s(fw6, pe_cm, cd, ref_t, bf), name="v4s_fwd"),
+        "v4s_bwd": median_ms(lambda: dk.decode_bwd_kernel_v4s(fw6, pe_cm, cd, g_p, g_t, bf), name="v4s_bwd"),
+        "v6_fwd": median_ms(lambda: dk.fused_decode_jvp_v6(fw6, trig, cd, ref_t.t().contiguous(), bf), name="v6_fwd"),
+        "v6_bwd": median_ms(lambda: dk.decode_bwd_kernel_v6(fw6, trig, cd, g_pn, g_tn, bf), name="v6_bwd"),
+        "v4t_fwd": median_ms(lambda: dk.fused_decode_jvp_v4t(fw, pe, dpe, cd, ref_t, bf), name="v4t_fwd"),
+        "v4t_bwd": median_ms(lambda: dk.decode_bwd_kernel_v4t(fw, pe, dpe, cd, g_p, g_t, bf), iters=3, name="v4t_bwd"),
+        "v2": median_ms(lambda: dk.fused_decode_jvp(w, pe, dpe, cd, cdata, bf), iters=3, name="v2"),
         "resid_v4": median_ms(lambda: rk.fused_residual_sums_v4(fw, pe_r, dpe_r, cd_r, cdata_r, cor, specs,
-                                                                compute_dtype=bf), iters=3),
+                                                                compute_dtype=bf), iters=3, name="resid_v4"),
         "resid_v6": median_ms(lambda: rk.fused_residual_sums_v6(fw6, trig_r, cd_r, cdata_r, cor, specs,
-                                                                compute_dtype=bf), iters=3),
-        "v3": median_ms(lambda: dk.fused_decode_jvp_v3(w, coords_f, cdata_f, spec, bf), iters=3),
-        "v4pe": median_ms(lambda: dk.fused_decode_jvp_v4pe(fw, coords_f, cdata_f, spec, bf)),
+                                                                compute_dtype=bf), iters=3, name="resid_v6"),
+        "v3": median_ms(lambda: dk.fused_decode_jvp_v3(w, coords_f, cdata_f, spec, bf), iters=3, name="v3"),
+        "v4pe": median_ms(lambda: dk.fused_decode_jvp_v4pe(fw, coords_f, cdata_f, spec, bf), name="v4pe"),
+        "v5": median_ms(lambda: dk.fused_decode_jvp_v5(fw, pe_f, dpe_f, cd_f, cdata_f, bf), iters=3, name="v5"),
     }
-    label = sys.argv[1] if len(sys.argv) > 1 else "tree"
-    print(f"[decode timing] {label} {json.dumps(times)}  ({torch.cuda.get_device_name(0)})", flush=True)
+    print(f"[decode timing] {args.label} {json.dumps(times)}  ({torch.cuda.get_device_name(0)})", flush=True)
+    if args.outputs:
+        torch.save(OUTPUTS, args.outputs)
+    if args.against:
+        saved = torch.load(args.against)
+        same = {k: len(v) == len(saved[k]) and all(torch.equal(a, b) for a, b in zip(v, saved[k]))
+                for k, v in OUTPUTS.items() if k in saved}
+        print(f"[decode timing] {args.label} outputs bit-equal to {os.path.basename(args.against)}'s: "
+              f"{json.dumps(same)}", flush=True)
     return 0
 
 

@@ -13,7 +13,8 @@ value, and, for each floor of ``FLOORS`` such units (0: the ulp window alone), t
 window flags a block of 64 points and variable and the differing ones it misses:
 
 * the v4 / v4t forward's z (T(p)) and u_k (t_k) on one 145 x 257 frame (``chip_smoke.py``'s
-  phase 7), and the v4s forward's (v6 has the same values in another layout) on the batch's
+  phase 7; v5's too, the same operands through the same stage 1: v5 differs in r's sum only), and
+  the v4s forward's (v6 has the same values in another layout) on the batch's
   20,480 margin points, the windows of ``csrc/decode_jvp_tc.cuh`` (``TIE_ULPS_Z``,
   ``TIE_ULPS_U``, ``TIE_FLOOR_Z``, ``TIE_FLOOR_U``: ``KERNEL_FLOORS``);
 * the v2 forward's z (T(p)) and c (T(c)) on the margin points (``csrc/decode_jvp_v2.cu``);
@@ -151,11 +152,11 @@ def main() -> int:
 
     def read(label, model):
         with torch.no_grad():
-            # the v4 / v4t forward on one frame
+            # the v4 / v4t and v5 forwards on one frame
             tokens = runner._encode(model, field, fh_frame)
             w, pe, dpe, _ = engine._kernel_inputs(model, tokens, *frame, torch.tensor([fh_frame], device=dev), spec)
             fw = dk.fuse_decode_weights(w)
-            layer1_reading(f"{label}, v4 frame", pe.to(bf), fw.w1, fw.b1,
+            layer1_reading(f"{label}, v4 and v5 frame", pe.to(bf), fw.w1, fw.b1,
                            [(dpe[k].to(bf), fw.w1c[:, k]) for k in range(3)], missed)
             del pe, dpe, fw
             # the v4pe and v3 forwards on the same frame: the in-kernel PE and the channel-major weights

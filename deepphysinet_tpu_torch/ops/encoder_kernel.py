@@ -5,7 +5,9 @@ operators the flagship encoder (4 post-norm layers over 287 tokens x 256 dims) i
 about fifty small launches; ``fused_encoder_forward`` runs the layers, the final
 LayerNorm and the projection in one launch of ``csrc/encoder.cu`` on a CUDA tensor
 (or raises) and its plain version ``fused_encoder_forward_ref`` on a CPU tensor;
-``fused_encoder_forward.launches`` counts kernel launches.
+``fused_encoder_forward.launches`` counts kernel launches.  In bf16 the kernel runs its
+products on the tensor cores in clusters of four blocks (``kernel_route`` says which body
+a shape takes); float32 keeps the CUDA-core body.
 
 * ``extract_encoder_weights``: the port's encoder modules stacked per layer and
   sliced per head, in the shapes of the JAX function (:76-118);
@@ -158,12 +160,88 @@ def fused_encoder_forward_ref(w: EncoderKernelWeights, x: torch.Tensor, activati
     return dense(x, w.wproj, w.bproj).float()
 
 
+# The bf16 kernel's weight tiles (csrc/encoder.cu, namespace tce): each product's output columns
+# are split over the CLUSTER blocks of a cluster by n8 tiles, and a block's slice is one tile
+# [up16(K), ld] (ld = the slice's width rounded up to 16, plus 8) with zeros past K and past the
+# slice, so that one bulk copy fills a shared-memory slot in the layout the tensor cores read
+# (widths up to 256: a tile of at most [256, 72]).  ``pack_encoder_weights`` lays the tiles out.
+CLUSTER, SLOT_BYTES = 4, 256 * 72 * 2
+_PACKED = ("wo", "w1", "w2", "wq", "wk", "wv")  # a layer's products, in the kernel's order; then wproj
+
+
+def _up16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+def tile_geometry(k: int, n: int, rank: int):
+    """(c0, nc, ld, rows) of block ``rank``'s tile of a [k, n] product (``tce::Weight``)."""
+    nt = n // 8
+    c0, nc = 8 * (rank * nt // CLUSTER), 8 * ((rank + 1) * nt // CLUSTER - rank * nt // CLUSTER)
+    return c0, nc, _up16(nc) + 8, _up16(k)
+
+
+def _product_shapes(n_layers, n_heads, d, e, f, c):
+    """(matrix field, layer, K, N) of every product, in the order of the packed array."""
+    he = n_heads * e
+    kn = {"wo": (he, d), "w1": (d, f), "w2": (f, d), "wq": (d, he), "wk": (d, he), "wv": (d, he)}
+    return [(m, lay, *kn[m]) for lay in range(n_layers) for m in _PACKED] + [("wproj", -1, d, c)]
+
+
+@functools.lru_cache(maxsize=8)
+def _pack_plan(n_layers: int, n_heads: int, d: int, e: int, f: int, c: int):
+    """(index, offsets) on the CPU: packed element i is element index[i] of the weights' matrices
+    flattened in ``_PACKED`` + ``wproj`` order, the last one past them a zero; offsets[p, rank] is
+    where block rank's tile of product p starts."""
+    he = n_heads * e
+    size = {"wo": n_layers * he * d, "w1": n_layers * d * f, "w2": n_layers * f * d, "wq": n_layers * d * he,
+            "wk": n_layers * d * he, "wv": n_layers * d * he, "wproj": d * c}
+    base, at = {}, 0
+    for m in _PACKED + ("wproj",):
+        base[m], at = at, at + size[m]
+    zero = at
+    parts, offsets, at = [], [], 0
+    for m, lay, k, n in _product_shapes(n_layers, n_heads, d, e, f, c):
+        row = []
+        for rank in range(CLUSTER):
+            c0, nc, ld, rows = tile_geometry(k, n, rank)
+            kk = torch.arange(rows).view(-1, 1)
+            col = c0 + torch.arange(ld).view(1, -1)
+            if m in ("wq", "wk", "wv"):  # [NL, H, D, E]: column h E + e' of row k
+                src = base[m] + lay * he * d + (col // e) * d * e + kk * e + col % e
+            elif m == "wproj":
+                src = base[m] + kk * n + col
+            else:  # [NL, K, N]
+                src = base[m] + lay * k * n + kk * n + col
+            idx = torch.where((kk < k) & (col < c0 + nc), src, torch.full_like(src, zero))
+            parts.append(idx.reshape(-1))
+            row.append(at)
+            at += idx.numel()
+        offsets.append(row)
+    return torch.cat(parts).to(torch.int32 if zero < 2 ** 31 else torch.int64), torch.tensor(offsets, dtype=torch.int64)
+
+
+@functools.lru_cache(maxsize=8)
+def _pack_plan_on(n_layers, n_heads, d, e, f, c, device: str):
+    index, offsets = _pack_plan(n_layers, n_heads, d, e, f, c)
+    return index.to(device), offsets.to(device)
+
+
+def pack_encoder_weights(w: EncoderKernelWeights):
+    """(packed, offsets): the matrices of ``w`` (in their own dtype, on their device) as the bf16
+    kernel's tiles, and where each block's tile of each product starts (``tile_geometry``)."""
+    n_layers, n_heads, d, e = w.wq.shape
+    f, c = w.w1.shape[-1], w.wproj.shape[-1]
+    index, offsets = _pack_plan_on(n_layers, n_heads, d, e, f, c, str(w.wq.device))
+    src = torch.cat([getattr(w, m).reshape(-1) for m in _PACKED + ("wproj",)] + [w.wq.new_zeros(1)])
+    return src.index_select(0, index), offsets
+
+
 class _EncoderArgs(ctypes.Structure):
     """``dpn::EncoderArgs`` of ``csrc/encoder.cu``."""
 
     _fields_ = ([(k, ctypes.c_void_p) for k in ("x",) + EncoderKernelWeights._fields + ("xres", "qkv", "o", "out")]
                 + [(k, ctypes.c_int) for k in ("L", "D", "H", "E", "F", "C", "NL", "gelu")]
-                + [("scale", ctypes.c_float)])
+                + [("scale", ctypes.c_float), ("packed", ctypes.c_void_p), ("offsets", ctypes.c_void_p)])
 
 
 @functools.cache
@@ -171,20 +249,37 @@ def _library() -> ctypes.CDLL:
     """Build (at first use) and load the kernel's library; declare its C signatures."""
     from deepphysinet_tpu_torch.ops.cuda_build import load_library
 
-    lib = load_library(SOURCE)
+    return declare(load_library(SOURCE))
+
+
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signatures of a library built from ``csrc/encoder.cu``."""
     lib.dpn_encoder.argtypes = [ctypes.c_int, ctypes.POINTER(_EncoderArgs), ctypes.c_void_p]
     lib.dpn_encoder.restype = ctypes.c_int
-    lib.dpn_encoder_shared_bytes.argtypes = [ctypes.c_int] * 6
+    lib.dpn_encoder_shared_bytes.argtypes = [ctypes.c_int] * 7
     lib.dpn_encoder_shared_bytes.restype = ctypes.c_longlong
+    lib.dpn_encoder_route.argtypes = [ctypes.c_int] * 7
+    lib.dpn_encoder_route.restype = ctypes.c_int
     return lib
 
 
+def kernel_route(w: EncoderKernelWeights, length: int, compute_dtype=torch.bfloat16) -> int:
+    """The body the kernel takes for ``length`` tokens on these weights' shapes (on the current
+    card): the tensor-core body's padded head width (16, 32 or 64; bf16 with heads up to 64 wide,
+    products up to 1,024 columns), or 0 for the CUDA-core body (float32, and bf16 past those)."""
+    n_heads, d, e = w.wq.shape[1:]
+    return _library().dpn_encoder_route(int(compute_dtype == torch.bfloat16), length, d, n_heads, e,
+                                        w.w1.shape[-1], w.wproj.shape[-1])
+
+
 def fused_encoder_forward(w: EncoderKernelWeights, x: torch.Tensor, activation: str = "gelu",
-                          compute_dtype=torch.bfloat16) -> torch.Tensor:
+                          compute_dtype=torch.bfloat16, packed=None) -> torch.Tensor:
     """Tokens [L, D] (float32, after the embedding) -> encoder output [L, C] float32.
 
     CPU tensors take ``fused_encoder_forward_ref``; a CUDA tensor launches the kernel
-    (one launch) or raises.  ``fused_encoder_forward.launches`` counts kernel launches."""
+    (one launch) or raises.  ``fused_encoder_forward.launches`` counts kernel launches.
+    ``packed``: ``pack_encoder_weights`` of the cast weights, for calls that share them (made
+    here when the tensor-core body needs it and none is given)."""
     if x.device.type == "cpu":
         return fused_encoder_forward_ref(w, x, activation, compute_dtype)
     name = "fused_encoder_forward"
@@ -206,7 +301,7 @@ def fused_encoder_forward(w: EncoderKernelWeights, x: torch.Tensor, activation: 
         raise ValueError(f"{name}: widths d_model {d}, head {e}, d_ff {f}, c_out {c} must be multiples "
                          "of 8 (16-byte loads)")
     lib = _library()
-    smem = lib.dpn_encoder_shared_bytes(length, d, n_heads, e, f, c)
+    smem = lib.dpn_encoder_shared_bytes(int(compute_dtype == torch.bfloat16), length, d, n_heads, e, f, c)
     if smem > _MAX_SHARED_BYTES:
         raise ValueError(f"{name}: {length} tokens of {n_heads} heads x {e} need {smem} bytes of "
                          f"shared memory, more than a block's {_MAX_SHARED_BYTES}")
@@ -221,10 +316,14 @@ def fused_encoder_forward(w: EncoderKernelWeights, x: torch.Tensor, activation: 
     xres = torch.empty((length, d), dtype=torch.float32, device=dev)
     qkv = torch.empty((3, n_heads, length, e), dtype=compute_dtype, device=dev)
     o = torch.empty((length, n_heads * e), dtype=compute_dtype, device=dev)
+    is_bf16 = int(compute_dtype == torch.bfloat16)
+    if lib.dpn_encoder_route(is_bf16, length, d, n_heads, e, f, c) and packed is None:
+        packed = pack_encoder_weights(w)
     args = _EncoderArgs(*(t.data_ptr() for t in (x, *w, xres, qkv, o, out)),
-                        length, d, n_heads, e, f, c, n_layers, int(activation == "gelu"), 1.0 / (e ** 0.5))
+                        length, d, n_heads, e, f, c, n_layers, int(activation == "gelu"), 1.0 / (e ** 0.5),
+                        *((t.data_ptr() for t in packed) if packed is not None else (None, None)))
     with torch.cuda.device(dev):
-        err = lib.dpn_encoder(int(compute_dtype == torch.bfloat16), ctypes.byref(args),
+        err = lib.dpn_encoder(is_bf16, ctypes.byref(args),
                               torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
@@ -246,4 +345,6 @@ def encode_fused(model, field_x: torch.Tensor, forecast_h: torch.Tensor) -> torc
     cdt = model.compute_dtype
     w = cast_encoder_weights(extract_encoder_weights(model), cdt)
     act = net.encoder.attn_layers[0].activation
-    return torch.stack([fused_encoder_forward(w, xe[b], act, cdt) for b in range(xe.shape[0])])
+    # the bf16 kernel's packed tiles, once for the batch (the CUDA-core body reads w in place)
+    packed = pack_encoder_weights(w) if xe.device.type == "cuda" and cdt == torch.bfloat16 else None
+    return torch.stack([fused_encoder_forward(w, xe[b], act, cdt, packed) for b in range(xe.shape[0])])

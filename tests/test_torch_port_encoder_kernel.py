@@ -156,6 +156,28 @@ def test_plain_version_matches_the_kernel_body(models, case):
     _assert_tokens_close(got, out.value, m["dtype"])
 
 
+# the bf16 kernel's unit edges: one token, 16-row groups (15, 16, 17) and 32-query attention units (33)
+UNIT_EDGE_LENGTHS = (1, 15, 16, 17, 33)
+
+
+@pytest.mark.parametrize("length", UNIT_EDGE_LENGTHS)
+@pytest.mark.parametrize("case", ["gelu_f32", "gelu_bf16"])
+def test_plain_version_matches_the_kernel_body_at_unit_edges(models, case, length):
+    """``fused_encoder_forward_ref`` against ``_encoder_kernel`` on plain arrays at the token counts
+    where the bf16 kernel's row groups and attention units begin and end."""
+    m = models[case]
+    jw = jek.extract_encoder_weights(m["jm"], m["params"])
+    cdt, f32 = getattr(jnp, m["dtype"]), jnp.float32
+    x = np.random.RandomState(100 + length).randn(length, 64).astype(np.float32)
+    refs = [_Ref(jnp.asarray(getattr(jw, k)).astype(cdt if k in tek._MATRICES else f32)) for k in jw._fields]
+    out = _Ref(jnp.zeros((length, 64), f32))
+    jek._encoder_kernel(_Ref(jnp.asarray(x)), *refs, out, n_layers=jw.wq.shape[0], n_heads=4, seq_len=length,
+                        scale=1.0 / 4.0, cdt=cdt, activation="gelu")
+    got = tek.fused_encoder_forward_ref(tek.extract_encoder_weights(m["tm"]), torch.from_numpy(x), "gelu",
+                                        getattr(torch, m["dtype"]))
+    _assert_tokens_close(got, out.value, m["dtype"])
+
+
 @pytest.mark.parametrize("case", ["gelu_f32", "gelu_bf16", "batch2_f32"])
 def test_encode_fused_matches_port_encode(models, case):
     m = models[case]
@@ -163,6 +185,51 @@ def test_encode_fused_matches_port_encode(models, case):
     with torch.no_grad():
         want = m["tm"].encode(field, fh)
     _assert_tokens_close(tek.encode_fused(m["tm"], field, fh), want, m["dtype"])
+
+
+def _random_weights(n_layers, n_heads, d, e, f, c, seed):
+    rng = np.random.RandomState(seed)
+    shapes = dict(wq=(n_layers, n_heads, d, e), bq=(n_layers, n_heads, e), wk=(n_layers, n_heads, d, e),
+                  bk=(n_layers, n_heads, e), wv=(n_layers, n_heads, d, e), bv=(n_layers, n_heads, e),
+                  wo=(n_layers, n_heads, e, d), bo=(n_layers, d), ln1s=(n_layers, d), ln1b=(n_layers, d),
+                  w1=(n_layers, d, f), b1=(n_layers, f), w2=(n_layers, f, d), b2=(n_layers, d),
+                  ln2s=(n_layers, d), ln2b=(n_layers, d), lns=(d,), lnb=(d,), wproj=(d, c), bproj=(c,))
+    return tek.EncoderKernelWeights(**{k: torch.from_numpy(rng.randn(*v).astype(np.float32))
+                                       for k, v in shapes.items()})
+
+
+@pytest.mark.parametrize("shape", ["model", "widths_of_8"])
+def test_packed_tiles_round_trip_to_extracted_weights(models, shape):
+    """``pack_encoder_weights`` (the bf16 kernel's weight tiles) holds every matrix of
+    ``extract_encoder_weights`` once, each block's column slice as one tile with zeros past K and
+    past the slice, at the offsets it returns: unpacked by ``tile_geometry``, the tiles give back
+    each product's matrix bit for bit.  Also at widths that are multiples of 8 and not of 16."""
+    w = (tek.extract_encoder_weights(models["gelu_f32"]["tm"]) if shape == "model"
+         else _random_weights(2, 3, 72, 24, 40, 56, seed=5))
+    n_layers, n_heads, d, e = w.wq.shape
+    f, c = w.w1.shape[-1], w.wproj.shape[-1]
+    w = tek.cast_encoder_weights(w, torch.bfloat16)
+    packed, offsets = tek.pack_encoder_weights(w)
+    assert packed.dtype == torch.bfloat16 and offsets.shape == (6 * n_layers + 1, tek.CLUSTER)
+    covered = 0
+    for p, (m, lay, k, n) in enumerate(tek._product_shapes(n_layers, n_heads, d, e, f, c)):
+        if m in ("wq", "wk", "wv"):  # [H, D, E] -> [D, H E]
+            want = getattr(w, m)[lay].permute(1, 0, 2).reshape(d, n_heads * e)
+        elif m == "wo":
+            want = w.wo[lay].reshape(n_heads * e, d)
+        else:
+            want = getattr(w, m) if m == "wproj" else getattr(w, m)[lay]
+        got = torch.zeros_like(want)
+        for rank in range(tek.CLUSTER):
+            c0, nc, ld, rows = tek.tile_geometry(k, n, rank)
+            at = int(offsets[p, rank])
+            t = packed[at:at + rows * ld].view(rows, ld)
+            assert not t[k:].any() and not t[:, nc:].any(), (m, lay, rank)
+            assert rows % 16 == 0 and ld % 8 == 0 and rows * ld * 2 <= tek.SLOT_BYTES
+            got[:, c0:c0 + nc] = t[:k, :nc]
+            covered += rows * ld
+        assert torch.equal(got, want), (m, lay)
+    assert covered == packed.numel()
 
 
 def test_wrapper_has_no_kernel_off_cpu_and_cuda(models):
@@ -209,3 +276,12 @@ def test_encoder_kernel_matches_plain(port_models, cuda_device, case):
     torch.cuda.synchronize()
     assert tek.fused_encoder_forward.launches == before + 1
     _assert_tokens_close(got.cpu(), tek.fused_encoder_forward_ref(w, x, act, cd).cpu(), m["dtype"])
+    # bf16 runs on the tensor-core body (heads of 16), float32 on the CUDA-core body; both also at the
+    # token counts where the bf16 body's 16-row groups and 32-query attention units begin and end
+    assert tek.kernel_route(tek.cast_encoder_weights(w, cd), x.shape[0], cd) == (16 if cd == torch.bfloat16 else 0)
+    tokens = torch.from_numpy(np.random.RandomState(7).randn(max(UNIT_EDGE_LENGTHS), x.shape[1]).astype(np.float32))
+    for n in UNIT_EDGE_LENGTHS:
+        xn = tokens[:n].to(cuda_device)
+        got = tek.fused_encoder_forward(w, xn, act, cd)
+        torch.cuda.synchronize()
+        _assert_tokens_close(got.cpu(), tek.fused_encoder_forward_ref(w, xn, act, cd).cpu(), m["dtype"])
