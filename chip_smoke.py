@@ -9,7 +9,8 @@ Phases, each of which raises (exit code 1) on failure:
 
 1. build    -- compile the nine sources under ``deepphysinet_tpu_torch/csrc/`` with
                nvcc, all at once (and four timing variants of the encoder's), and log
-               registers, spills and shared memory;
+               registers, spills and shared memory; build the host data layer's C++
+               kernels (``native/src/dpn_native.cc``) with g++;
 2. primal   -- the primal decode kernel against its plain PyTorch version on the
                card, at 37,265 (one 145 x 257 frame), 1,000 and 3 points and at the
                point-block edges 17, 64, 65 and 129, bf16 and f32;
@@ -104,7 +105,18 @@ Phases, each of which raises (exit code 1) on failure:
                default model on the same weights; one PDE step's loss and gradients
                under ``'pallas'`` against the default; 3 PDE steps under ``'pallas'``,
                with the launch counts;
-19. timing  -- by CUDA events, medians, alternating order: each kernel and its
+19. disk    -- inference from disk at flagship width: a synthetic GeoTIFF tree (labels
+               145 x 257, inputs 37 x 65, two init times) written with the port's
+               generator, the seeded flagship model saved with the port's
+               ``save_checkpoint``, and ``python -m deepphysinet_tpu_torch.cli --mode
+               inference`` (called in process, ``--set`` overrides) on six hours, with
+               the primal kernel's launch count (one a 40,960-point chunk and hour); every
+               exported T GeoTIFF read back against its grid flipped north-up, with the
+               study area's geo-transform; one hour against the plain decode; the native
+               host library (built in phase 1) against numpy on that hour's grid; one
+               hour by host clock, split into dataset open, raster reads (token
+               matrix and NWP cube), conditioning, encode, decode and export;
+20. timing  -- by CUDA events, medians, alternating order: each kernel and its
                plain version at the main paths' sizes (the attention kernels beside one
                ``scaled_dot_product_attention`` call and a bound of three terms, the
                single-tile kernel also at 1,024 tokens; the primal, v4 pair, v4s pair,
@@ -122,7 +134,7 @@ Phases, each of which raises (exit code 1) on failure:
                clock around a synchronize: one frame, one training step of each
                kind, one residual sweep, split into their parts, and one encode
                through ``PhysicsNet.encode`` and ``encode_fused``;
-20. profile -- only with ``--profile``: ``torch.profiler`` over three steps of each
+21. profile -- only with ``--profile``: ``torch.profiler`` over three steps of each
                kind, three frames and three residual sweeps, for the device's busy share.
 
 The last three lines of standard output are a JSON object with each kernel's
@@ -891,6 +903,162 @@ def paths_phase(dev, cfg, cd, window, dcfg, scfg, field, batch, launch_counts, r
     return launches
 
 
+DISK_HOURS = ("2008-01-01_06_00_00", "2008-01-01_11_00_00")  # six hours of the tree's first window
+DISK_GEO = (72.0, 0.25, 0.0, 54.0, 0.0, -0.25)  # the study area's north-up geo-transform
+
+
+def disk_phase(dev, cd, cfg, native) -> int:
+    """Inference from disk at flagship width: a synthetic GeoTIFF tree (bbox 72-136 E, 18-54 N:
+    labels 145 x 257, inputs 37 x 65, two init times) written with the port's generator, the
+    seeded flagship model (phase 3's weights) saved with the port's ``save_checkpoint``, and the
+    port's command line with ``--mode inference`` on six hours of the tree, through the primal
+    kernel.  Every hour's exported T GeoTIFF is read back and held to the returned grid flipped
+    north-up, with the study area's geo-transform; one hour is held to ``predict_grid``'s frame
+    through the plain decode at phase 3's bound; the dataset's interpolation of that hour's grid
+    goes through the native library (which must have been built) and is held to the window's numpy
+    interpolation; and one hour is timed by host clock, split into its parts.  Returns the primal
+    kernel's launches."""
+    import contextlib
+    import datetime
+    import io
+    import shutil
+    import tempfile
+
+    from deepphysinet_tpu_torch import cli
+    from deepphysinet_tpu_torch.data.geotiff import read_tiff
+    from deepphysinet_tpu_torch.data.synthetic import generate_synthetic_dataset
+    from deepphysinet_tpu_torch.data.window import Window
+    from deepphysinet_tpu_torch.inference import runner
+    from deepphysinet_tpu_torch.ops import decode_kernel as dk
+    from deepphysinet_tpu_torch.physics import engine
+    from deepphysinet_tpu_torch.train import checkpoint as ckpt
+    from deepphysinet_tpu_torch.train import train_step as ts
+    from deepphysinet_tpu_torch.train.point_fn import inverse_norm_stack_t
+
+    tmp = tempfile.mkdtemp(prefix="dpn_disk_")
+    try:
+        t0 = time.perf_counter()
+        paths = generate_synthetic_dataset(os.path.join(tmp, "tree"), n_init_times=2, bbox=(72.0, 18.0, 136.0, 54.0))
+        tree_s = time.perf_counter() - t0
+        model = ts.create_train_state(cfg["meta_cfg"], cfg["net_cfg"], cfg["train_cfg"]["optimizer"],
+                                      torch.Generator().manual_seed(0), compute_dtype=cd, device=dev,
+                                      attn_impl=cfg["train_cfg"]["tpu"].get("attn_impl")).model
+        model.eval()
+        ckpt_dir, out = os.path.join(tmp, "ckpt"), os.path.join(tmp, "out")
+        ckpt.save_checkpoint(ckpt_dir, 0, 0, model, None, dx=float(cfg["train_cfg"]["dx"]),
+                             dy=float(cfg["train_cfg"]["dy"]), pred_t_span=86400.0, obs_norm_cfg=cfg["obs_norm_cfg"])
+        data = "train_cfg.valid_data."
+        sets = [f"{data}input_path={paths['input_path']}", f"{data}label_path={paths['label_path']}",
+                f"{data}constant_path={paths['constant_path']}", f"{data}in_coord_file={paths['in_coord_file']}",
+                f"{data}out_coord_file={paths['out_coord_file']}",
+                f"{data}input_data_map_cfg.NCEP={paths['input_map_file']}",
+                f"{data}start_time=2008-01-01_00_00_00", f"{data}end_time=2008-01-02_00_00_00",
+                f"inference_cfg.start_time={DISK_HOURS[0]}", f"inference_cfg.end_time={DISK_HOURS[1]}",
+                "inference_cfg.log.with_vis=False", "inference_cfg.log.write_source=True",
+                f"inference_cfg.log.vis_path={out}"]
+        args = ["--config_file", FLAGSHIP_CFG, "--mode", "inference", "--checkpoints_path", ckpt_dir]
+        for item in sets:
+            args += ["--set", item]
+        dk.decode_primal_v4t.launches = 0
+        t0 = time.perf_counter()
+        results = cli.main(args)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = dk.decode_primal_v4t.launches
+        chunks = -(-GRID_POINTS // runner._DECODE_CHUNK)
+        log(f"[disk] tree of {sum(len(f) for _, _, f in os.walk(paths['input_path']))} input and "
+            f"{len(os.listdir(paths['label_path']))} label GeoTIFFs written in {tree_s:.1f} s; the command line ran "
+            f"{len(results)} hours in {run_s:.1f} s with {launches} primal kernel launches "
+            f"(expected {chunks} a 40,960-point chunk x {len(results)} hours)")
+        if len(results) != 6 or launches != chunks * len(results):
+            raise AssertionError(f"inference from disk: {len(results)} hours, {launches} primal launches")
+        exported = sorted(os.listdir(out))
+        for hour, grids in results:
+            stamp = (hour + datetime.timedelta(hours=6)).strftime("%Y-%m-%d_%H_%M_%S")
+            img, geo = read_tiff(os.path.join(out, f"{stamp}_T.tiff"))
+            if geo != DISK_GEO or not np.array_equal(img[:, :, 0], grids["T"][::-1]):
+                raise AssertionError(f"the T GeoTIFF of {hour} is not the grid north-up with {DISK_GEO}: {geo}")
+            if not all(a.shape == (145, 257) and np.isfinite(a).all() for a in grids.values()):
+                raise AssertionError(f"the grids of {hour} are not finite 145 x 257 arrays")
+        log(f"[disk] {len(exported)} GeoTIFFs exported ({exported[0]} .. {exported[-1]}); each read back equals its "
+            f"hour's T grid flipped north-up, geo-transform {DISK_GEO}; mean T "
+            + ", ".join(f"{g['T'].mean():.4g}" for _, g in results) + " K")
+
+        # one hour against predict_grid's frame through the plain decode (phase 3's bound)
+        full_cfg = copy.deepcopy(cfg)  # the configuration the command line ran
+        cli.apply_overrides(full_cfg, sets)
+        payload = ckpt.load_checkpoint(ckpt_dir)[0]
+        ddcfg, ds = runner.inference_setup(full_cfg, payload)
+        hour = datetime.datetime.strptime(DISK_HOURS[0], "%Y-%m-%d_%H_%M_%S")
+        f, fh, off = runner.window_covering(ds, hour)
+        window = Window.from_dataset(ds, f, labels=False)
+        xs, ys = np.meshgrid(np.arange(257.0), np.arange(145.0))
+        px, py, pt, nwp, _ = window.get_margin_grid(xs.ravel(), ys.ravel(), np.full(xs.size, off))
+        fh_norm = float(fh) / ddcfg.forecast_time_period
+        with torch.no_grad():
+            tokens = runner._encode(model, torch.from_numpy(window.field[None]).to(dev), fh_norm)
+            coords = torch.from_numpy(np.stack([px, py, pt], -1)).to(dev)
+            weights, pe, _, cd_pe = engine._kernel_inputs(model, tokens, coords, torch.from_numpy(nwp).to(dev),
+                                                          torch.tensor([fh_norm], device=dev), ddcfg.coord_spec)
+            plain_norm = dk.decode_primal_v4t_ref(dk.fuse_decode_weights(weights), pe.to(cd), cd_pe.to(cd),
+                                                  torch.from_numpy(nwp).to(dev).t().contiguous(), cd)
+            plain = inverse_norm_stack_t(plain_norm, ddcfg.obs_specs, with_clip=True).cpu().numpy()
+        stds = np.array([sp.norm_factor[1] for sp in ddcfg.obs_specs])[:, None]
+        frame = np.stack([results[0][1][k].reshape(-1) for k in ("u", "v", "P", "T", "q", "rio")])
+        err = float((np.abs(frame - plain) / stds).max())
+        limit = TOL[cd] * (1.0 + float(plain_norm.abs().max()))
+        log(f"[disk] the hour {hour} against predict_grid's frame through the plain decode: max error {err:.3e} "
+            f"normalized units (bound {limit:.3e})")
+        if err > limit:
+            raise AssertionError(f"inference from disk disagrees with the plain decode: {err} > {limit}")
+
+        # the native library: the dataset's interpolation of the hour's grid against the window's numpy one
+        if not native.available():
+            raise AssertionError(f"the native host library did not build: {native.BUILD_ERROR}")
+        t0 = time.perf_counter()
+        nat = ds.get_margin_grid(f, xs.ravel(), ys.ravel(), np.full(xs.size, off))[3]
+        nat_ms = 1e3 * (time.perf_counter() - t0)
+        nat_err = float(np.abs(nat - nwp).max())
+        log(f"[disk] native library {native.library_path()} built and ran: the dataset's trilinear interpolation "
+            f"of the hour's {xs.size} points in {nat_ms:.1f} ms, max |native - numpy| {nat_err:.2e} (bound 1e-6); "
+            "the inference path interpolates with the window's numpy (float64) version")
+        if nat_err > 1e-6:
+            raise AssertionError(f"native interpolation disagrees with numpy: {nat_err}")
+
+        # one hour by host clock, split into its parts (the median of three after a warm-up)
+        def hour_parts() -> dict:
+            parts = {}
+
+            def timed(name, fn):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                r = fn()
+                torch.cuda.synchronize()
+                parts[name] = 1e3 * (time.perf_counter() - t)
+                return r
+
+            with contextlib.redirect_stdout(io.StringIO()):  # its metadata lines were logged above
+                d = timed("dataset open", lambda: runner.inference_setup(full_cfg, payload)[1])
+            w = timed("raster reads (tokens, NWP cube)", lambda: Window.from_dataset(d, f, labels=False))
+            g = timed("conditioning", lambda: w.get_margin_grid(xs.ravel(), ys.ravel(), np.full(xs.size, off)))
+            tok = timed("encode", lambda: runner._encode(model, torch.from_numpy(w.field[None]).to(dev), fh_norm))
+            phys = timed("decode", lambda: runner._decode_points(model, ddcfg, tok, g[0], g[1], g[2], g[3], fh_norm,
+                                                                 True).cpu().numpy())
+            timed("export", lambda: runner.export_geotiff(os.path.join(tmp, "timed_T.tiff"),
+                                                          phys[3].reshape(145, 257), d, ddcfg))
+            return parts
+
+        hour_parts()
+        runs = [hour_parts() for _ in range(3)]
+        split = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+        hour_ms = statistics.median(sum(r[k] for k in r if k != "dataset open") for r in runs)
+        log(f"[disk] one hour by host clock, ms (median of 3): {hour_ms:.3f} without the dataset's open, split "
+            + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def attention_and_encoder_timing(dev, cd, model, field, fh_norm: float, stage_builds: dict) -> dict:
     """CUDA-event times of the attention kernels (and one scaled_dot_product_attention call, the
     library yardstick the port never calls) and of the fused encoder kernel, each beside its plain
@@ -977,6 +1145,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check needs an NVIDIA GPU", file=sys.stderr)
         return 1
+    from deepphysinet_tpu_torch import native
     from deepphysinet_tpu_torch.config import Config
     from deepphysinet_tpu_torch.data.window import synthetic_batch, synthetic_window
     from deepphysinet_tpu_torch.diagnostics import encoder_stages
@@ -1013,6 +1182,11 @@ def main() -> int:
     at._library()
     ek._library()
     log(f"[build] {', '.join(sources)} built together and loaded in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    if not native.available():  # the host data layer's C++ kernels (native/src/dpn_native.cc), by g++
+        raise AssertionError(f"the native host library did not build: {native.BUILD_ERROR}")
+    log(f"[build] native/src/dpn_native.cc built with g++ and loaded in {time.perf_counter() - t0:.1f} s: "
+        f"{native.library_path()}")
     for source in sources:
         if source == at.SOURCE:
             continue
@@ -2226,7 +2400,11 @@ def main() -> int:
                                 reset_launch_counts, noise_v7)
     torch.cuda.empty_cache()
 
-    # ---- 19. timing --------------------------------------------------------------------------------
+    # ---- 19. inference from disk: the host data layer, a checkpoint and the command line ----------
+    disk_launches = disk_phase(dev, cd, cfg, native)
+    torch.cuda.empty_cache()
+
+    # ---- 20. timing --------------------------------------------------------------------------------
     hid, in_ch = cfg["net_cfg"]["hidden_channels"], cfg["net_cfg"]["in_channels"]
     two_f = in_ch // 3
 
@@ -2758,7 +2936,7 @@ def main() -> int:
     enc_timing = attention_and_encoder_timing(dev, cd, model, field, window.forecast_h / dcfg.forecast_time_period,
                                               enc_stage_builds)
 
-    # ---- 20. profile (only with --profile): the device's busy share and its largest kernels ----
+    # ---- 21. profile (only with --profile): the device's busy share and its largest kernels ----
     if "--profile" in sys.argv[1:]:
         from torch.profiler import ProfilerActivity, profile
 
@@ -2889,6 +3067,7 @@ def main() -> int:
         {"name": "decode_primal_v4t", "route": "cuda", "source": csrc + "decode_primal.cu",
          "replaces": f"{jax_file}:956",
          "launches": primal_launches, "launches_eval": eval_launches["decode_primal_v4t"],
+         "launches_disk": disk_launches,
          "max_abs_err": errs[(cd, GRID_POINTS)], "max_rel_err": rel_errs[(cd, GRID_POINTS)],
          "points": GRID_POINTS,
          "ms": k_ms, "plain_ms": p_ms, "bound_ms": primal_bound[0], "bound_by": primal_bound[1],

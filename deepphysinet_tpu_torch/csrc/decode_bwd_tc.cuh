@@ -17,6 +17,9 @@
 //   gw2f1 += p^T g_rp + sum_k t_k^T g_rt_k       gwdf1 += cd^T g_rp
 //   g_z   = 1[z > 0] (g_rp W^T + 2 go b)   g_tz_k = 1[z > 0] (g_rt_k W^T + 2 gto_k b)
 //   gw1   += pe^T g_z             gb1 += sum_n g_z
+//
+// (with T(g_z), T(g_tz,k) near a bf16 tie summed again in the plain version's order: see
+// TIE_FLOOR_G below)
 //   gw1c[k] += tan_k^T g_tz_k
 //
 // Every operand of every product is rounded to bf16 first, also g_rp, g_rt, g_z and g_tz; sums
@@ -39,7 +42,9 @@
 //   operand read by a plain ldmatrix from the row-major w2f1 (no transposed copy), the A operand
 //   g_r formed in registers; warp w owns points 32 (w & 1) .. + 31 of row set w >> 1 and the
 //   pass's 64 columns.  The epilogue masks with z's bits, sums g_z per column for gb1 and writes
-//   T(g_z) and T(g_tz,k) over the row sets, whose last reader (gw2f1) is done.
+//   T(g_z) and T(g_tz,k) over the row sets, whose last reader (gw2f1) is done; the values near a
+//   bf16 tie go to the warp's list, and when it fills or after the last pass the warp sums each
+//   again in cuBLAS's order (fix_g_ties).
 // * gw1 = pe^T g_z and gw1c[k] = tan_k^T g_tz,k.  The block's primal rows are loaded again by
 //   cp.async over cd (dead after gwdf1) while g W^T runs; v4's dpe rows ([3, 64, ld_of(ch)],
 //   27,648 bytes at flagship width, more than cd's 25,600) go into the ring once g W^T has
@@ -79,6 +84,28 @@ constexpr int WT_LD = ld_of(WT_COLS);
 constexpr int WORDS = HID / 32;  // mask words a point
 
 static_assert(WT_ROWS * WT_LD * (int)sizeof(__nv_bfloat16) <= jvp::SLOT_BYTES, "a w2f1 tile fits a ring slot");
+
+// T(g_z) and T(g_tz,k) as the plain version rounds them.  The plain version forms g_p = g_rp W^T
+// with cuBLAS in f32 (one FMA a term in column order from zero: checked bit for bit on the card
+// for g_z; for g_tz,k, a batched product, cuBLAS parts from that order at about 4 of 10^6
+// elements) and rounds g_z = 1[z > 0] (g_p + 2 go b) to bf16 as the input of gw1 = pe^T g_z; the
+// tensor cores sum g W^T in another order, and where the two sums straddle a bf16 rounding tie,
+// T(g_z) differs by one step.  Each such flip moves gw1 by pe x one bf16 step of g_z: at |g_z| in
+// [2, 4) that is 2^-6, 2e-3 of gw1's largest value at 65 points, which phase 7 of chip_smoke.py
+// once read (ROADMAP C24).  So the backward flags every nonzero T(g_z) and T(g_tz,k) whose f32
+// value lies within TIE_FLOOR_G times the largest |value| of its row's 64 columns of the pass of
+// a tie, and sums it again in the plain version's order (fix_g_ties).  On an H100, on the
+// flagship weights seeded and after two trainings of six steps, an emulation of the tensor cores'
+// sums puts g_z and g_tz,k within 7.1 x 2^-24 of that largest value from cuBLAS's, so the floor
+// alone (16, more than twice that; no window in ulps of the value, which a floor wider than every
+// sum-order difference makes redundant) misses no flip: about 45 g_z and 130 g_tz,k values a block
+// and variable (python -m deepphysinet_tpu_torch.diagnostics.tie_window).
+#ifndef DPN_BWD_G_TIES  // 0 builds the backwards without the window (a timing variant)
+#define DPN_BWD_G_TIES 1
+#endif
+constexpr float TIE_FLOOR_G = 16.0f * 0x1p-24f;
+constexpr int G_CAP = 64;  // entries of a warp's list of flagged g values
+static_assert(WARPS * G_CAP <= jvp::TIE_CAP + 1, "the warps' lists fit in fix_ties's list memory");
 
 // Byte offsets of the backward's shared memory at input width in_ch (see the header); with_dpe
 // for v4, whose dpe rows lie under the row sets' tail in stage 1 and in the ring at the end.
@@ -157,11 +184,77 @@ __device__ __forceinline__ void contract(float (&acc)[4][4][4], uint32_t at, uin
   }
 }
 
+// x nonzero and within `floor` of its bf16 rounding tie (the f32 value whose low 16 bits are 0x8000:
+// x minus it is exact); & not &&, as in jvp::near_bf16_tie.
+__device__ __forceinline__ bool near_tie_abs(float x, float floor) {
+  const float tie = __uint_as_float((__float_as_uint(x) & 0xffff0000u) | 0x8000u);
+  return (x != 0.0f) & (fabsf(x - tie) <= floor);
+}
+
+// fix_g_ties: the `count` entries (row << 8 | column) of the warp's list wl, flagged values of
+// row set s of g W^T's epilogue, each summed again by one lane as the plain version sums it:
+// g = sum_j T(1[r > 0] go a_j) W[col, j], one FMA a term in j order from zero (a product of two
+// bf16 values is exact in f32), then T(g + 2 (go b[col])) into the row set.  Its r-mask bits and
+// cotangent are the block's (maskr_s, gos), a = fw2, b = w2wo of the variable, W its w2f1.  The
+// terms go 32 at a time: one coalesced load of a's 32 values, which the lanes share by shuffles,
+// and the lane's 32 weights of its W row (four 16-byte loads, from L2), both issued a chunk ahead,
+// so that no load's latency sits in the chain of FMAs.  The whole warp runs it (the shuffles);
+// lanes past `count` compute a value they do not store.  Every flagged value is nonzero, so z's
+// mask is set there.  Not inlined: one copy serves both call sites.
+__device__ __noinline__ void fix_g_ties(const int* wl, int count, int s, const float* gos,
+                                        const uint32_t* maskr_s, const float* __restrict__ fw2,
+                                        const float* __restrict__ w2wo, const bf16* __restrict__ W,
+                                        bf16* sets) {
+  constexpr unsigned FULL = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  __syncwarp();  // the list is written
+  for (int e0 = 0; e0 < count; e0 += 32) {
+    const bool live = e0 + lane < count;
+    const int ent = live ? wl[e0 + lane] : 0, row = ent >> 8, col = ent & 0xff;
+    const float go = gos[s * NB + row];
+    const uint32_t* mr = maskr_s + row * WORDS;
+    const uint4* wr = reinterpret_cast<const uint4*>(W + (size_t)col * HID);
+    float acc = 0.0f, a_next = fw2[lane];
+    uint4 w_next[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) w_next[i] = __ldg(wr + i);
+#pragma unroll 1
+    for (int c = 0; c < WORDS; ++c) {  // terms 32 c .. 32 c + 31
+      const float a = a_next;
+      uint4 wv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) wv[i] = w_next[i];
+      if (c + 1 < WORDS) {
+        a_next = fw2[32 * (c + 1) + lane];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) w_next[i] = __ldg(wr + 4 * (c + 1) + i);
+      }
+      const uint32_t m = mr[c];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const uint32_t x[4] = {wv[i].x, wv[i].y, wv[i].z, wv[i].w};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int t = 8 * i + 2 * q;
+          const float g0 = to_f32(__float2bfloat16_rn(g_r(m, t, go, __shfl_sync(FULL, a, t))));
+          const float g1 = to_f32(__float2bfloat16_rn(g_r(m, t + 1, go, __shfl_sync(FULL, a, t + 1))));
+          acc = fmaf(g0, __uint_as_float(x[q] << 16), acc);
+          acc = fmaf(g1, __uint_as_float(x[q] & 0xffff0000u), acc);
+        }
+      }
+    }
+    if (live) sets[(s * NB + row) * LDA + col] = __float2bfloat16_rn(acc + 2.0f * (go * w2wo[col]));
+  }
+  __syncwarp();  // the list may be written again
+}
+
 // The backward of one block (NB points from blockIdx.x, variable blockIdx.y): adds its share of
 // the nine weight cotangents into the outputs.  src says where the layer-1 rows lie; w1v
 // [in_ch, HID] and w1cv [3, ch, HID] are the variable's primal and tangent layer-1 rows; the
 // cotangents are var-major ([n_vars, n], [3, n_vars, n]) or point-major as var_major says.
-// Shared memory: bwd_smem(src.in_ch, !src.tangents_in_primal()).total bytes.
+// Shared memory: bwd_smem(src.in_ch, !src.tangents_in_primal()).total bytes.  G_TIES (a
+// compile-time switch) sums T(g_z) and T(g_tz,k) near a bf16 tie again (fix_g_ties).
+template <bool G_TIES = (DPN_BWD_G_TIES != 0)>
 __device__ __forceinline__ void backward_block(const jvp::RowSource& src, const bf16* __restrict__ cd,
                                                const float* __restrict__ g_primal,
                                                const float* __restrict__ g_tang, const bf16* __restrict__ w1v,
@@ -356,6 +449,8 @@ __device__ __forceinline__ void backward_block(const jvp::RowSource& src, const 
   // ---- g_z = 1[z > 0] (g_r W^T + 2 go b) for the four row sets, over the row sets ----
   {
     const int s = warp >> 1, rbase = 32 * (warp & 1);  // the warp's row set and first point
+    int* wl = reinterpret_cast<int*>(smem + L.list) + warp * G_CAP;  // the warp's flagged values
+    int listed = 0;                                                   // entries in wl (warp-uniform)
     float go_r[2][2];
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt)
@@ -392,8 +487,8 @@ __device__ __forceinline__ void backward_block(const jvp::RowSource& src, const 
           }
         }
       }
-      // epilogue: columns 64 kp + 8 nt + t2 + e; z's mask word 2 kp + nt / 4
-      float s_z[8][2] = {};
+      // epilogue: columns 64 kp + 8 nt + t2 + e; z's mask word 2 kp + nt / 4; g_z into acc
+      float s_z[8][2] = {}, row_max[2][2] = {};
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) {
         const int col = WT_ROWS * kp + 8 * nt + t2;
@@ -407,6 +502,9 @@ __device__ __forceinline__ void backward_block(const jvp::RowSource& src, const 
             const float go = go_r[mt][h];
             const float z0 = m & 1u ? acc[mt][nt][2 * h] + 2.0f * (go * b0) : 0.0f;
             const float z1 = (m >> 1) & 1u ? acc[mt][nt][2 * h + 1] + 2.0f * (go * b1v) : 0.0f;
+            acc[mt][nt][2 * h] = z0;
+            acc[mt][nt][2 * h + 1] = z1;
+            row_max[mt][h] = fmaxf(row_max[mt][h], fmaxf(fabsf(z0), fabsf(z1)));
             s_z[nt][0] += z0;
             s_z[nt][1] += z1;
             *reinterpret_cast<uint32_t*>(sets + (s * NB + row) * LDA + col) = mma::pack_bf16x2(z0, z1);
@@ -421,7 +519,40 @@ __device__ __forceinline__ void backward_block(const jvp::RowSource& src, const 
             if (g == 0) atomicAdd(&gb1[WT_ROWS * kp + 8 * nt + t2 + e], z);
           }
       }
+      if constexpr (G_TIES) {
+        // bit 4 (8 mt + nt) + 2 h + e flags g_z at row 16 mt + g + 8 h, column 8 nt + t2 + e of the pass
+        uint64_t tie = 0ull;
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float floor_g = TIE_FLOOR_G * mma::quad_max(row_max[mt][h]);
+#pragma unroll
+            for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+              for (int e = 0; e < 2; ++e)
+                tie |= (uint64_t)(near_tie_abs(acc[mt][nt][2 * h + e], floor_g) ? 1u : 0u)
+                       << (4 * (8 * mt + nt) + 2 * h + e);
+          }
+        // into the warp's list, one entry a lane a round (a lane rarely has more), summed again
+        // whenever the list fills
+        for (unsigned any = __ballot_sync(0xffffffffu, tie != 0ull); any != 0u;
+             any = __ballot_sync(0xffffffffu, tie != 0ull)) {
+          if (listed + __popc(any) > G_CAP) {
+            fix_g_ties(wl, listed, s, gos, maskr_s, fw2, w2wo, W, sets);
+            listed = 0;
+          }
+          if (tie != 0ull) {
+            const int b = __ffsll(tie) - 1, mt = b >> 5, nt = (b >> 2) & 7;
+            wl[listed + __popc(any & ((1u << lane) - 1u))] =
+                (rbase + 16 * mt + g + 8 * ((b >> 1) & 1)) << 8 | (WT_ROWS * kp + 8 * nt + t2 + (b & 1));
+            tie &= tie - 1ull;
+          }
+          listed += __popc(any);
+        }
+      }
     }
+    if (G_TIES && listed > 0) fix_g_ties(wl, listed, s, gos, maskr_s, fw2, w2wo, W, sets);
   }
   mma::cp_async_wait<0>();
   __syncthreads();  // g_z, g_tz,k and the primal rows are published; the ring is free

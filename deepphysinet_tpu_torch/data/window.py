@@ -8,9 +8,9 @@ A stand-in for the ``PhysicsDataset`` methods that ``inference/runner.py`` and
 dataset.py:101-115), the full-grid conditioning (``get_margin_grid``), the
 Coriolis parameter, the grid axes and dx/dy, and for the evaluation sweeps the
 normalized label cube (``get_label_cube``) with the time steps that define the
-window's labelled hours.  Reading GeoTIFF trees is not
-ported yet: a window comes from ``synthetic_window`` or from arrays that an
-existing dataset produced (``Window.from_dataset``).  ``synthetic_batch`` draws
+window's labelled hours.  A window comes from a GeoTIFF tree through the
+port's ``data/dataset.py::PhysicsDataset`` (``Window.from_dataset``), or from
+``synthetic_window``.  ``synthetic_batch`` draws
 one training batch (margin and collocation points with their conditioning,
 Coriolis parameter and labels) at the configuration's sizes; sampling points
 from real windows on the device is not ported yet.
@@ -114,8 +114,9 @@ class Window:
 
     @classmethod
     def from_dataset(cls, dataset: Any, input_file: str, labels: bool = True) -> "Window":
-        """Copy one window's arrays out of a ``PhysicsDataset``-like object; the
-        label cube too unless ``labels`` is off (a dataset without label files)."""
+        """Copy one window's arrays out of a ``PhysicsDataset`` (``data/dataset.py``, or an object
+        with its methods); the label cube too unless ``labels`` is off (a dataset without label
+        files)."""
         field = np.concatenate([dataset.get_item_input(input_file),
                                 dataset.constant_variables], axis=0)
         _, _, forecast_h, _ = dataset._parse_item(input_file)

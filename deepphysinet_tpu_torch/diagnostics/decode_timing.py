@@ -2,9 +2,11 @@
 on one card.
 
 Random weights at flagship width (in_ch 192, hidden 256, six variables), bf16: the v4s and v6
-pairs, the v4t forward and backward and the v2 forward at 20,480 points, the two residual-sum
-kernels at 65,536 (the flagship's observation specs), and the forwards that take one frame, v3,
-v4pe and v5, at its 37,265 points, each the median of five runs of ten launches (three for the
+pairs, the v4t forward and backward, the v4 backward ([N, 6] layout) and the v2 forward at 20,480
+points, the two residual-sum kernels at 65,536 (the flagship's observation specs), and the forwards
+that take one frame, v3, v4pe and v5, at its 37,265 points (``--only`` picks some; ``--flagship``
+puts the seeded flagship model's operands into the v4s, v6 and v4 pairs), each the
+median of five runs of ten launches (three for the
 slower ones) by CUDA events.  It imports the port from the
 working directory, so the same file times any tree.  Compare two trees in one call, in turns
 (here the parent's checkout in ``parent/``):
@@ -67,11 +69,49 @@ def median_ms(fn, iters: int = 10, name: str = "") -> float:
     return round(statistics.median(runs), 4)
 
 
+def flagship_operands(dev, bf):
+    """The seeded flagship model's operands of the decode pairs, as ``chip_smoke.py`` builds them:
+    the v4 pair's (fused weights, pe, dpe, cd) on the first N points of one 145 x 257 frame at 6.5 h
+    of the seeded synthetic window, and the v4s / v6 pairs' (fused weights, channel-major pe, cd) on
+    the seeded batch's N margin points."""
+    from deepphysinet_tpu_torch.data.window import synthetic_batch, synthetic_window
+    from deepphysinet_tpu_torch.inference import runner
+    from deepphysinet_tpu_torch.physics import engine
+    from deepphysinet_tpu_torch.train import train_step as ts
+
+    cfg = Config.fromfile(os.path.join(os.getcwd(), "configs", "DeepPhysiNet_NCEP_cfg.py"))["config"]
+    scfg = ts.step_config_from_cfg(cfg)
+    model = ts.create_train_state(cfg["meta_cfg"], cfg["net_cfg"], cfg["train_cfg"]["optimizer"],
+                                  torch.Generator().manual_seed(0), compute_dtype=bf, device=dev,
+                                  attn_impl=cfg["train_cfg"]["tpu"].get("attn_impl")).model
+    window = synthetic_window(cfg, seed=0)
+    xs, ys = np.meshgrid(np.arange(257.0), np.arange(145.0))
+    px, py, pt, nwp, _ = window.get_margin_grid(xs.ravel()[:N], ys.ravel()[:N], np.full(N, 6.5))
+    fh_frame = window.forecast_h / runner.decode_config_from_cfg(cfg).forecast_time_period
+    batch = ts.batch_to_device(synthetic_batch(cfg, seed=0), device=dev)
+    with torch.no_grad():
+        tokens = runner._encode(model, torch.from_numpy(window.field[None]).to(dev), fh_frame)
+        w, pe, dpe, cd = engine._kernel_inputs(model, tokens, torch.from_numpy(np.stack([px, py, pt], -1)).to(dev),
+                                               torch.from_numpy(nwp).to(dev), torch.tensor([fh_frame], device=dev),
+                                               scfg.coord_spec)
+        fh = (batch.forecast_h / scfg.forecast_time_period)[:, None]
+        tokens = model.encode(batch.field, fh)[0]
+        m = batch.margin
+        coords = torch.stack([m.x[0, :N], m.y[0, :N], m.t[0, :N]], dim=-1)
+        w6, pe_cm, cd_m = engine._kernel_inputs_s(model, tokens, coords, m.nwp[0, :N], fh[0], scfg.coord_spec)
+        fw6 = dk.fuse_v6_from_v4(dk.fuse_decode_weights(w6), scfg.coord_spec)
+    return (dk.fuse_decode_weights(w), pe.to(bf).contiguous(), dpe.to(bf).contiguous(), cd.to(bf).contiguous(),
+            fw6, pe_cm.to(bf).contiguous(), cd_m.to(bf).contiguous())
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("label", nargs="?", default="tree")
     ap.add_argument("--outputs", help="save each kernel's outputs to this file")
     ap.add_argument("--against", help="hold each kernel's outputs to those saved in this file, bit for bit")
+    ap.add_argument("--only", help="comma-separated kernels to time (default: all), e.g. v4s_bwd,v6_bwd")
+    ap.add_argument("--flagship", action="store_true",
+                    help="the v4s / v6 / v4 pairs on the seeded flagship model's operands (chip_smoke.py's)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("decode_timing: CUDA is not available", file=sys.stderr)
@@ -118,22 +158,27 @@ def main() -> int:
     dpe_f, cd_f = dpe_f.contiguous(), sinecos_pe(cdata_f, make_freq_bands(16, 4.0)).to(bf).contiguous()
     specs = step_config_from_cfg(Config.fromfile(os.path.join(os.getcwd(), "configs", "DeepPhysiNet_NCEP_cfg.py"))
                                  ["config"]).obs_specs
-    times = {
-        "v4s_fwd": median_ms(lambda: dk.fused_decode_jvp_v4s(fw6, pe_cm, cd, ref_t, bf), name="v4s_fwd"),
-        "v4s_bwd": median_ms(lambda: dk.decode_bwd_kernel_v4s(fw6, pe_cm, cd, g_p, g_t, bf), name="v4s_bwd"),
-        "v6_fwd": median_ms(lambda: dk.fused_decode_jvp_v6(fw6, trig, cd, ref_t.t().contiguous(), bf), name="v6_fwd"),
-        "v6_bwd": median_ms(lambda: dk.decode_bwd_kernel_v6(fw6, trig, cd, g_pn, g_tn, bf), name="v6_bwd"),
-        "v4t_fwd": median_ms(lambda: dk.fused_decode_jvp_v4t(fw, pe, dpe, cd, ref_t, bf), name="v4t_fwd"),
-        "v4t_bwd": median_ms(lambda: dk.decode_bwd_kernel_v4t(fw, pe, dpe, cd, g_p, g_t, bf), iters=3, name="v4t_bwd"),
-        "v2": median_ms(lambda: dk.fused_decode_jvp(w, pe, dpe, cd, cdata, bf), iters=3, name="v2"),
-        "resid_v4": median_ms(lambda: rk.fused_residual_sums_v4(fw, pe_r, dpe_r, cd_r, cdata_r, cor, specs,
-                                                                compute_dtype=bf), iters=3, name="resid_v4"),
-        "resid_v6": median_ms(lambda: rk.fused_residual_sums_v6(fw6, trig_r, cd_r, cdata_r, cor, specs,
-                                                                compute_dtype=bf), iters=3, name="resid_v6"),
-        "v3": median_ms(lambda: dk.fused_decode_jvp_v3(w, coords_f, cdata_f, spec, bf), iters=3, name="v3"),
-        "v4pe": median_ms(lambda: dk.fused_decode_jvp_v4pe(fw, coords_f, cdata_f, spec, bf), name="v4pe"),
-        "v5": median_ms(lambda: dk.fused_decode_jvp_v5(fw, pe_f, dpe_f, cd_f, cdata_f, bf), iters=3, name="v5"),
+    cd_s = cd  # the v4s / v6 pairs' cd rows (the v4 pair's: cd)
+    if args.flagship:  # the decode pairs' operands of the seeded flagship model instead
+        fw, pe, dpe, cd, fw6, pe_cm, cd_s = flagship_operands(dev, bf)
+        trig = pe_cm.reshape(N, 3, -1).permute(1, 0, 2).contiguous()
+    fns = {  # name: (one launch, launches a run)
+        "v4s_fwd": (lambda: dk.fused_decode_jvp_v4s(fw6, pe_cm, cd_s, ref_t, bf), 10),
+        "v4s_bwd": (lambda: dk.decode_bwd_kernel_v4s(fw6, pe_cm, cd_s, g_p, g_t, bf), 10),
+        "v6_fwd": (lambda: dk.fused_decode_jvp_v6(fw6, trig, cd_s, ref_t.t().contiguous(), bf), 10),
+        "v6_bwd": (lambda: dk.decode_bwd_kernel_v6(fw6, trig, cd_s, g_pn, g_tn, bf), 10),
+        "v4t_fwd": (lambda: dk.fused_decode_jvp_v4t(fw, pe, dpe, cd, ref_t, bf), 10),
+        "v4t_bwd": (lambda: dk.decode_bwd_kernel_v4t(fw, pe, dpe, cd, g_p, g_t, bf), 3),
+        "v4_bwd": (lambda: dk.decode_bwd_kernel_v4(fw, pe, dpe, cd, g_pn, g_tn, bf), 3),
+        "v2": (lambda: dk.fused_decode_jvp(w, pe, dpe, cd, cdata, bf), 3),
+        "resid_v4": (lambda: rk.fused_residual_sums_v4(fw, pe_r, dpe_r, cd_r, cdata_r, cor, specs, compute_dtype=bf), 3),
+        "resid_v6": (lambda: rk.fused_residual_sums_v6(fw6, trig_r, cd_r, cdata_r, cor, specs, compute_dtype=bf), 3),
+        "v3": (lambda: dk.fused_decode_jvp_v3(w, coords_f, cdata_f, spec, bf), 3),
+        "v4pe": (lambda: dk.fused_decode_jvp_v4pe(fw, coords_f, cdata_f, spec, bf), 10),
+        "v5": (lambda: dk.fused_decode_jvp_v5(fw, pe_f, dpe_f, cd_f, cdata_f, bf), 3),
     }
+    only = args.only.split(",") if args.only else list(fns)
+    times = {k: median_ms(fns[k][0], iters=fns[k][1], name=k) for k in only}
     print(f"[decode timing] {args.label} {json.dumps(times)}  ({torch.cuda.get_device_name(0)})", flush=True)
     if args.outputs:
         torch.save(OUTPUTS, args.outputs)

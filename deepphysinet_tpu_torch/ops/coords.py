@@ -8,6 +8,7 @@ and SineCos-encoded (3 input dims, 32 freqs -> 192 features).
 from __future__ import annotations
 
 import dataclasses
+import pickle
 from typing import Tuple
 
 import numpy as np
@@ -64,3 +65,16 @@ def make_latlon_grid(
     lats = np.arange(lat0, lat1 + step / 2, step, dtype=np.float64)
     lon2d, lat2d = np.meshgrid(lons, lats)
     return lon2d, lat2d
+
+
+def save_coord_pickle(path: str, lon2d: np.ndarray, lat2d: np.ndarray) -> None:
+    """Write a (lon2d, lat2d) coord pickle, the layout of auxiliary_data/coord_*.pickle."""
+    with open(path, "wb") as fp:
+        pickle.dump((lon2d, lat2d), fp)
+
+
+def load_coord_pickle(path: str) -> Tuple[np.ndarray, np.ndarray]:
+    """Load a (lon2d, lat2d) coord pickle (dataset/physics_dataset.py:98-105)."""
+    with open(path, "rb") as fp:
+        lon, lat = pickle.load(fp)
+    return np.asarray(lon), np.asarray(lat)

@@ -346,6 +346,34 @@ for impl in ("pallas", "flash"):
         tokens_impl = twin.encode(batch.field, fh)
     encoded[impl] = bool(torch.isfinite(tokens_impl).all())
 encoded["fused"] = bool(torch.allclose(encode_fused(twin, batch.field, fh), tokens_impl, atol=1e-4))
+# inference from disk through the command line: a port-written GeoTIFF tree and the JAX checkpoint
+# that the test wrote (flax parameters, optax state) at these widths, set on the flagship config
+import os
+from deepphysinet_tpu_torch import cli
+from deepphysinet_tpu_torch.data.synthetic import generate_synthetic_dataset
+from deepphysinet_tpu_torch.train.checkpoint import find_jax_objects, load_checkpoint
+work = os.environ["DPN_BLOCKED_WORK"]
+paths = generate_synthetic_dataset(os.path.join(work, "tree"), n_init_times=2, bbox=(72.0, 18.0, 88.0, 27.0))
+d = "train_cfg.valid_data."
+sets = [f"{d}input_path={paths['input_path']}", f"{d}label_path={paths['label_path']}",
+        f"{d}constant_path={paths['constant_path']}", f"{d}in_coord_file={paths['in_coord_file']}",
+        f"{d}out_coord_file={paths['out_coord_file']}", f"{d}input_data_map_cfg.NCEP={paths['input_map_file']}",
+        f"{d}label_img_size=(37, 65)", f"{d}start_time=2008-01-01_00_00_00", f"{d}end_time=2008-01-01_00_00_00",
+        "train_cfg.img_size=(37, 65)", "inference_cfg.img_size=(37, 65)",
+        "meta_cfg.enc_in=170", "meta_cfg.c_out=32", "meta_cfg.d_model=32", "meta_cfg.e_layers=2",
+        "meta_cfg.d_ff=32", "net_cfg.hidden_channels=32", "net_cfg.learnable_token_num=40",
+        "inference_cfg.start_time=2008-01-01_05_00_00", "inference_cfg.end_time=2008-01-01_06_00_00",
+        "inference_cfg.log.with_vis=False", "inference_cfg.log.write_source=True",
+        f"inference_cfg.log.vis_path={os.path.join(work, 'out')}"]
+cli_args = ["--config_file", "configs/DeepPhysiNet_NCEP_cfg.py", "--mode", "inference", "--device", "cpu",
+            "--checkpoints_path", os.environ["DPN_JAX_CKPT"]]
+for item in sets:
+    cli_args += ["--set", item]
+hours = cli.main(cli_args)
+payload = load_checkpoint(os.environ["DPN_JAX_CKPT"])[0]
+disk = [len(hours), sorted(os.listdir(os.path.join(work, "out"))),
+        all(bool(np.isfinite(g["T"]).all()) for _, g in hours),
+        len(find_jax_objects(payload["opt_state"], "ScaleByAdamState"))]
 loaded = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "flax", "jaxlib", "optax",
                 "deepphysinet_tpu") and sys.modules[k] is not None)
 print(json.dumps({"loaded": loaded, "T": list(grid["T"].shape), "pts": list(pts.shape),
@@ -361,13 +389,32 @@ print(json.dumps({"loaded": loaded, "T": list(grid["T"].shape), "pts": list(pts.
                   "sweeps_finite": all(np.isfinite(v) for v in sweeps.values()),
                   "sweep_hours": sweeps["n_hours"], "sweep_points": sweeps["n_points"],
                   "has_lead": "rmse_t2_f048" in sweeps and "weighted_total" in sweeps,
-                  "encoded": encoded, "v2": v2}))
+                  "encoded": encoded, "v2": v2, "disk": disk}))
 """
 
 
-def test_port_runs_with_jax_blocked():
+def _blocked_jax_checkpoint(path):
+    """A JAX checkpoint (flax parameters and an optax Adam state, as the JAX trainer saves them) of
+    the model that ``_POISONED`` sets on the flagship config, for its inference from disk."""
+    from deepphysinet_tpu.train import checkpoint as jck
+    from deepphysinet_tpu.train.optim import build_optimizer
+
+    cfg = Config.fromfile(os.path.join(REPO, "configs", "DeepPhysiNet_NCEP_cfg.py"))["config"]
+    cfg["meta_cfg"].update(enc_in=170, c_out=32, d_model=32, e_layers=2, d_ff=32)
+    cfg["net_cfg"].update(hidden_channels=32, learnable_token_num=40)
+    meta = {k: v for k, v in cfg["meta_cfg"].items() if k != "name"}
+    net = {k: v for k, v in cfg["net_cfg"].items() if k != "name"}
+    jm = JaxPhysicsNet(meta_cfg=meta, net_cfg=net, compute_dtype=jnp.bfloat16)
+    params = jm.init(jax.random.PRNGKey(9), jnp.zeros((1, 159, 170)), jnp.zeros((2, 192)), jnp.zeros((2, 6)),
+                     jnp.asarray([[0.1]], jnp.float32))
+    jck.save_model(path, 1, 12, params, build_optimizer("Adam", lr=1e-4, weight_decay=1e-4).init(params),
+                   dx=27000.0, dy=27000.0, pred_t_span=86400.0, obs_norm_cfg=cfg["obs_norm_cfg"])
+
+
+def test_port_runs_with_jax_blocked(tmp_path):
+    _blocked_jax_checkpoint(str(tmp_path / "jax_ckpt"))
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    env["PYTHONPATH"] = REPO
+    env.update(PYTHONPATH=REPO, DPN_JAX_CKPT=str(tmp_path / "jax_ckpt"), DPN_BLOCKED_WORK=str(tmp_path))
     res = subprocess.run([sys.executable, "-c", _POISONED], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
@@ -378,4 +425,5 @@ def test_port_runs_with_jax_blocked():
                    "v6": [6, True, 3], "fused_keys": [7, 7, 7], "fused_finite": True,
                    "sweep_hours": 5.0, "sweep_points": 5.0 * 37 * 65, "has_lead": True,
                    "encoded": {"pallas": True, "flash": True, "fused": True},
-                   "v2": [2, "kernel", True, 7, True, True]}
+                   "v2": [2, "kernel", True, 7, True, True],
+                   "disk": [2, ["2008-01-01_11_00_00_T.tiff", "2008-01-01_12_00_00_T.tiff"], True, 1]}
