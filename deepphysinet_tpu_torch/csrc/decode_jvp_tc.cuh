@@ -71,6 +71,19 @@ constexpr float TIE_FLOOR_Z = 16.0f * 0x1p-24f;
 constexpr float TIE_FLOOR_U = 16.0f * 0x1p-24f;
 constexpr int TIE_CAP = 511;    // entries of a block's list of flagged values (v2's fix_group_ties)
 
+// The relu kinks of the forwards (forward_block).  The decode is not continuous in z and r: where
+// the tensor cores' sum of a relu argument lies on the other side of zero than cuBLAS's, the kernel
+// switches one of 256 terms of a tangent on or off that the plain version does not.  A residual
+// sum over a few points carries that point's term (chip_smoke.py's phase 11: 2.6e-3 of the
+// continuity sum at 129 points, bound 2e-3).  So forward_block flags every z within KINK_FLOOR_Z,
+// and every r within KINK_FLOOR_R, times the largest |value| of the warp's 32 columns of its row
+// of zero, and decides its switch by the plain version's sum: z through fix_ties (with its u_k,
+// which fix_ties masks by the z it sums), r through r_plain.  The floors are twice the tie floors
+// and more, since r's sum has nearly twice z's terms (python -m
+// deepphysinet_tpu_torch.diagnostics.residual_points reads the kinks that part).
+constexpr float KINK_FLOOR_Z = 32.0f * 0x1p-24f;
+constexpr float KINK_FLOOR_R = 64.0f * 0x1p-24f;
+
 // The tests below combine their terms with & and |, not && and ||: stage 1's epilogues test every
 // element of a warp tile, and with the floors the short-circuit forms compiled to branches there
 // that made the v4s forward 0.91 ms at 20,480 points, the bitwise forms 0.76 (an H100 at 700 W,
@@ -271,7 +284,10 @@ __device__ __forceinline__ void fix_ties(uint32_t (&tie_z)[4], uint64_t (&tie_u)
           }
         }
       }
-      if (listed) sets[(q * NB + row) * LDA + col] = __float2bfloat16_rn(q == 0 ? fmaxf(s + b1[col], 0.0f) : s);
+      // u_k masked by the sign of z as stored: a z listed near zero was summed again above
+      if (listed)
+        sets[(q * NB + row) * LDA + col] = __float2bfloat16_rn(
+            q == 0 ? fmaxf(s + b1[col], 0.0f) : (to_f32(sets[row * LDA + col]) > 0.0f ? s : 0.0f));
       __syncwarp();  // wl is written again
     }
   }
@@ -320,14 +336,18 @@ __host__ __device__ inline bool row_region_valid(int in_ch, bool with_dpe) {
 // row 16 mt + g + 8 h, and on_u(k, mt, nt, h, col, u0, u1) the masked u_k in f32, both before the
 // bf16 rounding.  With Z_FLOOR, tie_z also flags each p within z_tie_floor times the largest |z|
 // of the warp's 32 columns of its row of a tie (the two-argument near_bf16_tie); with U_FLOOR,
-// tie_u each masked u_k within u_tie_floor times the largest |masked u_k| of those columns.
-template <bool Z_FLOOR = false, bool U_FLOOR = false, class OnZ, class OnU>
+// tie_u each masked u_k within u_tie_floor times the largest |masked u_k| of those columns.  With
+// Z_KINK (and Z_FLOOR), a z within z_kink_floor times that largest |z| of zero flags its p in tie_z
+// and its three u_k in tie_u, masked or not: fix_ties sums them again and masks the u_k by the new
+// z (KINK_FLOOR_Z).  mask keeps the tensor cores' signs.
+template <bool Z_FLOOR = false, bool U_FLOOR = false, bool Z_KINK = false, class OnZ, class OnU>
 __device__ __forceinline__ void stage1(const bf16* pe_s, int ldp, const bf16* tan_s, int ldt, int tan_k,
                                        const bf16* __restrict__ w1v, const bf16* __restrict__ w1cv,
                                        const float* __restrict__ b1, int in_ch, unsigned char* ring,
                                        bf16* sets, uint32_t (&mask)[4], uint32_t (&tie_z)[4],
                                        uint64_t (&tie_u)[4], OnZ on_z, OnU on_u, float z_tie_floor = 0.0f,
-                                       float u_tie_floor = 0.0f) {
+                                       float u_tie_floor = 0.0f, float z_kink_floor = 0.0f) {
+  static_assert(Z_FLOOR || !Z_KINK, "the kink floor is a share of the tie floor's largest |z|");
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t2 = 2 * (lane & 3);
   const int ch = in_ch / 3;
   // stage 1's weights, per warp and without block barriers: the warp's 32 columns of w1, then
@@ -368,6 +388,7 @@ __device__ __forceinline__ void stage1(const bf16* pe_s, int ldp, const bf16* ta
                              slice_next(), 0);
   __syncthreads();  // pe_s may lie under the row sets
   float floor_z[4][2] = {};  // z_tie_floor times the largest |z| of the warp's 32 columns of each of the lane's rows
+  float kink_z[4][2] = {};   // Z_KINK: z_kink_floor times the same
   if constexpr (Z_FLOOR) {
 #pragma unroll
     for (int mt = 0; mt < 4; ++mt)
@@ -379,7 +400,9 @@ __device__ __forceinline__ void stage1(const bf16* pe_s, int ldp, const bf16* ta
           const int col = 32 * warp + 8 * nt + t2;
           m = fmaxf(m, fmaxf(fabsf(acc[mt][nt][2 * h] + b1[col]), fabsf(acc[mt][nt][2 * h + 1] + b1[col + 1])));
         }
-        floor_z[mt][h] = z_tie_floor * mma::quad_max(m);
+        m = mma::quad_max(m);
+        floor_z[mt][h] = z_tie_floor * m;
+        kink_z[mt][h] = z_kink_floor * m;
       }
   }
 #pragma unroll
@@ -398,6 +421,12 @@ __device__ __forceinline__ void stage1(const bf16* pe_s, int ldp, const bf16* ta
         const bool tie1 = Z_FLOOR ? near_bf16_tie<TIE_ULPS_Z>(p1, floor_z[mt][h]) : near_bf16_tie<TIE_ULPS_Z>(p1);
         tie_z[mt] |= (tie0 ? 1u : 0u) << (4 * nt + 2 * h);
         tie_z[mt] |= (tie1 ? 1u : 0u) << (4 * nt + 2 * h + 1);
+        if constexpr (Z_KINK) {
+          const uint32_t kinks = (fabsf(z0) <= kink_z[mt][h] ? 1u : 0u) << (4 * nt + 2 * h) |
+                                 (fabsf(z1) <= kink_z[mt][h] ? 1u : 0u) << (4 * nt + 2 * h + 1);
+          tie_z[mt] |= kinks;
+          tie_u[mt] |= (uint64_t)kinks | (uint64_t)kinks << 16 | (uint64_t)kinks << 32;
+        }
         on_z(mt, nt, h, col, p0, p1);
         *reinterpret_cast<uint32_t*>(sets + (16 * mt + g + 8 * h) * LDA + col) = mma::pack_bf16x2(p0, p1);
       }
@@ -542,6 +571,22 @@ __host__ __device__ inline FwdSmem fwd_smem(int in_ch, bool with_dpe) {
 
 static_assert(WARPS * 32 <= 2 * 4 * NB, "fix_ties's lists fit in stage 2's partial sums");
 
+// r at one element as the plain version sums it (KINK_FLOOR_R): T(p) . w2f1 and cd . wdf1 each one
+// FMA a term in k order from zero (a product of two bf16 values is exact in f32), then (s1 + s2),
+// to which the caller adds rbias, or with SPLIT_R s1 + (s2 + rbias).  p_row and cd_row are the
+// point's rows of T(p) and cd in shared memory, w2f1v and wdf1v the variable's weights.  Not
+// inlined: forward_block's epilogue calls it from one site, for its rare r near zero only.
+template <bool SPLIT_R>
+__device__ __noinline__ float r_plain(const bf16* p_row, const bf16* cd_row, const bf16* __restrict__ w2f1v,
+                                      const bf16* __restrict__ wdf1v, int in_ch, int col, float rb) {
+  float s1 = 0.0f, s2 = 0.0f;
+#pragma unroll 8
+  for (int k = 0; k < HID; ++k) s1 = fmaf(to_f32(p_row[k]), to_f32(w2f1v[(size_t)k * HID + col]), s1);
+#pragma unroll 8
+  for (int k = 0; k < in_ch; ++k) s2 = fmaf(to_f32(cd_row[k]), to_f32(wdf1v[(size_t)k * HID + col]), s2);
+  return SPLIT_R ? s1 + (s2 + rb) : s1 + s2;
+}
+
 // The forward of one block (NB points from blockIdx.x, variable blockIdx.y): primal and the three
 // tangents of every point, from src (RowSource, with cd [n, in_ch]; or PeSource, which computes the
 // pe, dpe and cd rows, cd unused) and ref, into primal / tang in the var-major ([n_vars, n],
@@ -600,8 +645,9 @@ __device__ __forceinline__ void forward_block(const Src& src, const bf16* cd, co
     };
     const auto on_u = [](int, int, int, int, int, float, float) {};
     // direction k's tangent rows: v4's dpe block k, or lanes k ch .. of the primal rows
-    stage1<true, true>(pe_s, ldp, with_dpe ? dpe_s : pe_s, with_dpe ? ldd : ldp, with_dpe ? NB * ldd : ch, w1v,
-                       w1cv, b1, in_ch, smem + L.ring, sets, mask, tie_z, tie_u, on_z, on_u, TIE_FLOOR_Z, TIE_FLOOR_U);
+    stage1<true, true, true>(pe_s, ldp, with_dpe ? dpe_s : pe_s, with_dpe ? ldd : ldp, with_dpe ? NB * ldd : ch,
+                             w1v, w1cv, b1, in_ch, smem + L.ring, sets, mask, tie_z, tie_u, on_z, on_u, TIE_FLOOR_Z,
+                             TIE_FLOOR_U, KINK_FLOOR_Z);
     tc::store_row_sums(s, red1 + warp * NB, lane);
   }
   tc::cd_sums(cd_s, ldp, in_ch, wdwo + v * in_ch, NB, redc);
@@ -637,6 +683,37 @@ __device__ __forceinline__ void forward_block(const Src& src, const bf16* cd, co
   const int pg = warp & 3, half = warp >> 2;
   float s_r[2] = {0.0f, 0.0f}, s_t[3][2] = {};
   stage2<SPLIT_R>(ring, sets, cd_s, ldp, in_ch, [&](int c, float (&acc)[4][4][4]) {
+    // r near zero (KINK_FLOOR_R of the largest |r| of the warp's 32 columns of its row), summed
+    // again as the plain version sums it: the tests are branch-free, the rare recompute is not
+    float kink_r[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float rb = SPLIT_R ? 0.0f : rbias[c * S2_COLS + 32 * half + 8 * nt + t2 + (i & 1)];
+        kink_r[i >> 1] = fmaxf(kink_r[i >> 1], fabsf(acc[0][nt][i] + rb));
+      }
+    kink_r[0] = KINK_FLOOR_R * mma::quad_max(kink_r[0]);
+    kink_r[1] = KINK_FLOOR_R * mma::quad_max(kink_r[1]);
+    uint32_t kinks = 0u;
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float rb = SPLIT_R ? 0.0f : rbias[c * S2_COLS + 32 * half + 8 * nt + t2 + (i & 1)];
+        kinks |= (fabsf(acc[0][nt][i] + rb) <= kink_r[i >> 1] ? 1u : 0u) << (4 * nt + i);
+      }
+#pragma unroll 1
+    for (; kinks != 0u; kinks &= kinks - 1u) {
+      const int b = __ffs(kinks) - 1, i = b & 3;
+      const int row = 16 * pg + g + 8 * (i >> 1), col = c * S2_COLS + 32 * half + 8 * (b >> 2) + t2 + (i & 1);
+      const float r = r_plain<SPLIT_R>(sets + row * LDA, cd_s + row * ldp, w2f1v, wdf1v, in_ch, col,
+                                       SPLIT_R ? rbias[col] : 0.0f);
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[0][nt][e] = 4 * nt + e == b ? r : acc[0][nt][e];
+    }
 #pragma unroll
     for (int nt = 0; nt < 4; ++nt) {
       const int col = c * S2_COLS + 32 * half + 8 * nt + t2;

@@ -68,7 +68,11 @@
 //   within TIE_ULPS_Z / TIE_ULPS_U ulps, or TIE_FLOOR_Z / TIE_FLOOR_U of its row's largest
 //   value, of a bf16 rounding tie, T(p) or t_k is recomputed in the plain version's order once
 //   stage 1 is done (fix_ties); without that, T(p) and t_k flip by one step at some elements of
-//   a flagship frame, and tangents move past chip_smoke.py's bound.
+//   a flagship frame, and tangents move past chip_smoke.py's bound.  Where z or r lies within
+//   KINK_FLOOR_Z / KINK_FLOOR_R of its row's largest value of zero, its relu switch is decided
+//   by the plain version's sum too (fix_ties for z and its u_k, r_plain for r); without that, a
+//   few points of 65,536 have a tangent term switched on or off, up to 8e-2 of the tangent's
+//   largest.
 //
 // float (decode_jvp_v4_kernel, the parity configuration; no TF32): the products on the
 // CUDA cores (FMA), the chain of decode_common.cuh's primal_stages and tangent_stage; the

@@ -17,8 +17,9 @@
 //
 // bf16 (residual_sums_tc, the flagship's type): the decode is the bf16 tensor-core forward body
 // of decode_jvp_tc.cuh (forward_block: 64 points and ONE variable a block, mma.sync products,
-// fix_ties with its floors), the same function with the same bits as the split path's forward
-// (decode_jvp_v4.cu's v4t for v4, decode_jvp_v4s.cu's v6 kernel for v6); where the card differs
+// fix_ties with its floors, the relu switches near zero decided by the plain version's sums), the
+// same function with the same bits as the split path's forward (decode_jvp_v4.cu's v4t for v4,
+// decode_jvp_v4s.cu's v6 kernel for v6); where the card differs
 // from the TPU:
 //
 // * A point's residuals need all six variables, but the body takes one variable a block: its
