@@ -63,8 +63,12 @@ Phases, each of which raises (exit code 1) on failure:
                against their plain versions, bf16 and f32, ``with_clip`` on and off,
                at 49,152, 65,536 and 50,001 points of the window and at the point-block
                edges 1, 17, 64, 65 and 129, each beside a
-               float64 sum of the plain version's per-point terms; two runs (the
-               same bits); against the split path on the same points; then the
+               float64 sum of the plain version's per-point terms, each equation also
+               allowed the decode's own disagreement carried through its terms (the
+               forward kernel's decode against the plain decode, float64 derivatives),
+               with the points that carry it; two runs (the same bits); the kernel's
+               term of single points against the forward kernel's decode's; against the
+               split path on the same points; then the
                entry points: ``fused_residual_losses`` with versions 6 and 2 at 40,960
                (split branch) and 65,536 points (in-kernel) and
                ``kernel_residual_losses(version=4)`` at 65,536, with the launch counts;
@@ -116,7 +120,19 @@ Phases, each of which raises (exit code 1) on failure:
                host library (built in phase 1) against numpy on that hour's grid; one
                hour by host clock, split into dataset open, raster reads (token
                matrix and NWP cube), conditioning, encode, decode and export;
-20. timing  -- by CUDA events, medians, alternating order: each kernel and its
+20. trainer -- training from disk at flagship width: ``python -m deepphysinet_tpu_torch.cli
+               --mode train`` (in process) on phase 19's tree from its seeded checkpoint,
+               the flagship's batch, workers and engine, 10 steps (4 data-only, then the
+               PDE terms, a validation batch at each log step), with the v4s kernels'
+               launch counts, the logged losses finite and the checkpoint's metadata; a
+               resumed run of 2 more steps from the physics_latest it wrote (its first
+               step at the saved step, the scheduled rate of its epoch, the saved
+               parameters bit for bit, Adam's step count); ``--mode test`` on the final
+               checkpoint (the full-grid RMSE, one primal launch a window's hour); one
+               step by host clock, split into waiting on the loader, the copy to the
+               device, the step, the metric fetch, validation and the epoch save, and
+               whether the loader keeps up with the step;
+21. timing  -- by CUDA events, medians, alternating order: each kernel and its
                plain version at the main paths' sizes (the attention kernels beside one
                ``scaled_dot_product_attention`` call and a bound of three terms, the
                single-tile kernel also at 1,024 tokens; the primal, v4 pair, v4s pair,
@@ -134,7 +150,7 @@ Phases, each of which raises (exit code 1) on failure:
                clock around a synchronize: one frame, one training step of each
                kind, one residual sweep, split into their parts, and one encode
                through ``PhysicsNet.encode`` and ``encode_fused``;
-21. profile -- only with ``--profile``: ``torch.profiler`` over three steps of each
+22. profile -- only with ``--profile``: ``torch.profiler`` over three steps of each
                kind, three frames and three residual sweeps, for the device's busy share.
 
 The last three lines of standard output are a JSON object with each kernel's
@@ -253,7 +269,16 @@ RTOL_SWEEP = 2e-3
 # differences of large terms, and the order of the sum over the points (the kernel: a
 # block, then blocks in order; the plain version: torch.sum).  float32 is held to 1e-4,
 # the bar of the JAX package's tests at 64 points; bf16 to 2e-3, where a summation
-# difference may flip the bf16 rounding of p or of a tangent (as RTOL_BWD).  The vapor
+# difference may flip the bf16 rounding of p or of a tangent (as RTOL_BWD).  A point's term
+# can be an ill-conditioned function of the decode's outputs (without the clip a density of
+# 1e-4, where p_x / rho turns one ulp of the normalized output into 7e-5 of rho; a gas law at
+# 50 K that subtracts two pressures of 36,000 Pa), so each equation is also allowed what the
+# decode's own disagreement moves its terms by, to first order: the sum over the points of
+# |d term / d output| x |kernel decode - plain decode| over the 24 outputs, in float64
+# (``decode_allowance``; the kernel decode is the forward kernel's, whose bits the
+# residual kernel's decode has: the check samples that, a point's term alone against the
+# term of the forward kernel's decode; the derivatives are the larger of those at the two
+# decodes, which bounds the change of a square or a quotient).  The vapor
 # equation switches a whole term on delta = 1[Dp/Dt < 0 and q >= q_s], and with the clip
 # its Dp/Dt or Dq/Dt drops to zero where p or q crosses a bound: a point within SWITCH_EPS
 # of a switch of delta (Dp/Dt = 0, q = q_s, the pole of q_s's Tetens formula), or within
@@ -513,6 +538,108 @@ def vapor_switch_points(engine, scfg, primal, tang, with_clip: bool, eps: float,
     return int(near.sum()), float(size[near].double().sum())
 
 
+def point_subset(ins, idx):
+    """A residual or decode wrapper's point arguments at ``idx`` (a [3, N, ...] operand on its axis
+    1); the weights, ``ins[0]``, as they are."""
+    return (ins[0], *(x[:, idx].contiguous() if x.ndim == 3 else x[idx].contiguous() for x in ins[1:]))
+
+
+def term_gradients(rk, primal, tang, cor, specs, with_clip: bool):
+    """|d term_e / d output| of ``rk.residual_point_terms`` at one decode (``primal`` [N, 6], ``tang``
+    [3, N, 6]), float64: [6, N, 6] and [6, 3, N, 6].  A point's terms depend on its own outputs only,
+    so the gradient of an equation's sum over the points gives them all.  The vapor term's q_s,
+    delta and F are detached there, as in training, and take no share."""
+    g_ps, g_ts = [], []
+    with torch.enable_grad():
+        p64 = primal.detach().double().requires_grad_()
+        t64 = tang.detach().double().requires_grad_()
+        terms = rk.residual_point_terms(p64, t64, cor.double(), specs, with_clip)
+        for e in range(terms.shape[0]):
+            g_p, g_t = torch.autograd.grad(terms[e].sum(), (p64, t64), retain_graph=e < terms.shape[0] - 1,
+                                           allow_unused=True)
+            g_ps.append(torch.zeros_like(p64) if g_p is None else g_p.abs())
+            g_ts.append(torch.zeros_like(t64) if g_t is None else g_t.abs())
+    return torch.stack(g_ps), torch.stack(g_ts)
+
+
+def decode_allowance(rk, primal, tang, k_primal, k_tang, cor, specs, with_clip: bool) -> torch.Tensor:
+    """What the decode's own disagreement moves each point's terms by: [6, N] float64, for equation
+    e and point n the sum over the point's 24 decode outputs of |d term_e / d output| x delta, where
+    delta = |kernel decode - plain decode| of that output (``k_primal`` / ``primal`` [N, 6],
+    ``k_tang`` / ``tang`` [3, N, 6]).  The derivative is the larger of its magnitudes at the two
+    decodes (``term_gradients``): by the mean value theorem the change of a term is its gradient at a
+    point between them times delta, and for the products, quotients and squares of the six equations
+    that gradient lies within the larger of the two ends' on a segment this short."""
+    d_p = (k_primal.double() - primal.double()).abs()
+    d_t = (k_tang.double() - tang.double()).abs()
+    (gp_a, gt_a), (gp_b, gt_b) = (term_gradients(rk, primal, tang, cor, specs, with_clip),
+                                  term_gradients(rk, k_primal, k_tang, cor, specs, with_clip))
+    return (torch.maximum(gp_a, gp_b) * d_p).sum(-1) + (torch.maximum(gt_a, gt_b) * d_t).sum((1, 3))
+
+
+def residual_check(rk, engine, scfg, fns, ins, cor, with_clip: bool, dtype, rtol: float) -> dict:
+    """One of phase 11's checks: a residual-sum kernel against its plain version on the points of
+    ``ins`` (the wrapper's arguments up to the conditioning values), ``fns`` = (kernel, plain
+    version, plain decode, the forward kernel whose bits the residual kernel's decode has).  Each
+    equation e passes if |kernel - plain| <= rtol |plain| + allowance_e: the allowance is the sum
+    over the points of ``decode_allowance``, the decode's own disagreement (the forward kernel's
+    outputs against the plain decode's) carried through the term, the vapor sum's also the terms
+    of its points near a switch (``vapor_switch_points``).  Also the decode's bits: at the three
+    points that carry most of the largest allowance and at the first five, the kernel's term (a
+    launch on the point alone) against the term of the forward kernel's decode and of the plain
+    decode.  Returns the readings, the plain decode among them."""
+    kernel_fn, plain_fn, decode_ref, decode_kernel = fns
+    specs = scfg.obs_specs
+    primal, tang = decode_ref(*ins, dtype)
+    k_primal, k_tang = decode_kernel(*ins, dtype)
+    got = kernel_fn(*ins, cor, specs, with_clip=with_clip, compute_dtype=dtype)
+    again = kernel_fn(*ins, cor, specs, with_clip=with_clip, compute_dtype=dtype)
+    torch.cuda.synchronize()
+    want = plain_fn(*ins, cor, specs, with_clip=with_clip, compute_dtype=dtype)
+    exact = rk.residual_point_terms(primal, tang, cor, specs, with_clip).double().sum(1)
+    exact_k = rk.residual_point_terms(k_primal, k_tang, cor, specs, with_clip).double().sum(1)
+    n_near, moved = vapor_switch_points(engine, scfg, primal, tang, with_clip, SWITCH_EPS[dtype], KINK_EPS)
+    shares = decode_allowance(rk, primal, tang, k_primal, k_tang, cor, specs, with_clip)
+    allowance = shares.sum(1).tolist()
+    extra = [a + (moved if e == 4 else 0.0) for e, a in enumerate(allowance)]
+    got_l, want_l = got.tolist(), want.tolist()
+    ok = [abs(g - w) <= rtol * abs(w) + x for g, w, x in zip(got_l, want_l, extra)]
+    top = {e: torch.topk(shares[e], min(3, shares.shape[1])).indices.tolist() for e in range(6)}
+    widest = max(range(6), key=lambda e: allowance[e] / (rtol * abs(want_l[e])) if want_l[e] else 0.0)
+    sample = sorted(set(top[widest]) | set(range(min(5, primal.shape[0]))))
+    k_terms = rk.residual_point_terms(k_primal[sample], k_tang[:, sample], cor[sample], specs, with_clip)
+    p_terms = rk.residual_point_terms(primal[sample], tang[:, sample], cor[sample], specs, with_clip)
+    bits_equal = plain_equal = 0
+    for j, i in enumerate(sample):
+        alone = kernel_fn(*point_subset(ins, [i]), cor[[i]].contiguous(), specs, with_clip=with_clip,
+                          compute_dtype=dtype)
+        bits_equal += torch.equal(alone, k_terms[:, j])
+        plain_equal += torch.equal(alone, p_terms[:, j])
+    phys, _ = engine.packed_physical_from_primal_tangents(primal, tang, specs, with_clip)
+    return dict(got=got, again=again, want=want, exact=exact, exact_k=exact_k, n_near=n_near, moved=moved,
+                allowance=allowance,
+                extra=extra, ok=ok, top=top, phys=phys, sample=len(sample), bits_equal=bits_equal,
+                plain_equal=plain_equal, primal=primal, tang=tang)
+
+
+def allowance_text(check: dict, rtol: float) -> str:
+    """A check's allowances beside the relative bound's part, per equation; where an allowance
+    reaches a tenth of that part, the three points that carry most of it with their rho, T and p."""
+    parts = []
+    for e, (a, w) in enumerate(zip(check["allowance"], check["want"].tolist())):
+        text = f"{EQUATION_SHORT[e]} {a:.3g} (bound's part {rtol * abs(w):.3g})"
+        if a >= 0.1 * rtol * abs(w):
+            phys = check["phys"]
+            text += " at " + ", ".join(
+                f"[{i}: rho {float(phys[5, i]):.4g}, T {float(phys[3, i]):.4g}, p {float(phys[2, i]):.6g}]"
+                for i in check["top"][e])
+        parts.append(text)
+    return "; ".join(parts)
+
+
+EQUATION_SHORT = ("mom_u", "mom_v", "cont", "energy", "vapor", "gas")
+
+
 V2_ROUNDING_POINTS = ("T(p)", "T(t_k)", "T(c)", "T(t2_k)", "T(relu r)", "T(tr_k)")
 
 
@@ -611,21 +738,19 @@ def kernel_ptxas(build_log: str, kernel: str) -> str:
     return "; ".join(report) or "no ptxas report"
 
 
-def without_partial_atomics(cuda_build, source: str) -> ctypes.CDLL:
-    """``source`` built from a copy of the sources in which the backward's partials skip their
-    atomic adds (add_tile adds only a value that does not occur): a reading of what those adds
-    cost, never called by the port."""
-    work = os.path.join(cuda_build.BUILD_DIR, "without_partial_atomics")
+def variant_library(cuda_build, source: str, variant: str, header: str, old: str, new: str) -> ctypes.CDLL:
+    """``source`` built from a copy of the sources (under the build directory, in ``variant``) in
+    which ``header``'s text ``old`` is replaced by ``new``: a reading, never called by the port."""
+    work = os.path.join(cuda_build.BUILD_DIR, variant)
     os.makedirs(work, exist_ok=True)
     for name in os.listdir(cuda_build.CSRC_DIR):
         if name.endswith((".cu", ".cuh")):
             with open(os.path.join(cuda_build.CSRC_DIR, name)) as f:
                 text = f.read()
-            if name == "decode_mma.cuh":
-                add = "atomicAdd(reinterpret_cast<float4*>(at), v);"
-                if add not in text:
-                    raise AssertionError("add_tile's atomic add not found in decode_mma.cuh")
-                text = text.replace(add, "if (v.x == 1.25e-37f) " + add)
+            if name == header:
+                if old not in text:
+                    raise AssertionError(f"{old!r} not found in {header}")
+                text = text.replace(old, new)
             with open(os.path.join(work, name), "w") as f:
                 f.write(text)
     so = os.path.join(work, os.path.splitext(source)[0] + ".so")
@@ -634,6 +759,15 @@ def without_partial_atomics(cuda_build, source: str) -> ctypes.CDLL:
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed on the variant of {source}: {res.stderr[-2000:]}")
     return ctypes.CDLL(so)
+
+
+def without_partial_atomics(cuda_build, source: str) -> ctypes.CDLL:
+    """``source`` built from a copy of the sources in which the backward's partials skip their
+    atomic adds (add_tile adds only a value that does not occur): a reading of what those adds
+    cost, never called by the port."""
+    add = "atomicAdd(reinterpret_cast<float4*>(at), v);"
+    return variant_library(cuda_build, source, "without_partial_atomics", "decode_mma.cuh", add,
+                           "if (v.x == 1.25e-37f) " + add)
 
 
 # the encoder kernel's checks at the flagship's 287 tokens and at short lengths across the bf16 body's
@@ -907,7 +1041,7 @@ DISK_HOURS = ("2008-01-01_06_00_00", "2008-01-01_11_00_00")  # six hours of the 
 DISK_GEO = (72.0, 0.25, 0.0, 54.0, 0.0, -0.25)  # the study area's north-up geo-transform
 
 
-def disk_phase(dev, cd, cfg, native) -> int:
+def disk_phase(dev, cd, cfg, native, tmp: str):
     """Inference from disk at flagship width: a synthetic GeoTIFF tree (bbox 72-136 E, 18-54 N:
     labels 145 x 257, inputs 37 x 65, two init times) written with the port's generator, the
     seeded flagship model (phase 3's weights) saved with the port's ``save_checkpoint``, and the
@@ -916,13 +1050,12 @@ def disk_phase(dev, cd, cfg, native) -> int:
     north-up, with the study area's geo-transform; one hour is held to ``predict_grid``'s frame
     through the plain decode at phase 3's bound; the dataset's interpolation of that hour's grid
     goes through the native library (which must have been built) and is held to the window's numpy
-    interpolation; and one hour is timed by host clock, split into its parts.  Returns the primal
-    kernel's launches."""
+    interpolation; and one hour is timed by host clock, split into its parts.  The tree and the
+    checkpoint go into ``tmp``, where the trainer's phase finds them.  Returns the primal kernel's
+    launches, the tree's paths and the checkpoint's directory."""
     import contextlib
     import datetime
     import io
-    import shutil
-    import tempfile
 
     from deepphysinet_tpu_torch import cli
     from deepphysinet_tpu_torch.data.geotiff import read_tiff
@@ -935,128 +1068,303 @@ def disk_phase(dev, cd, cfg, native) -> int:
     from deepphysinet_tpu_torch.train import train_step as ts
     from deepphysinet_tpu_torch.train.point_fn import inverse_norm_stack_t
 
-    tmp = tempfile.mkdtemp(prefix="dpn_disk_")
+    t0 = time.perf_counter()
+    paths = generate_synthetic_dataset(os.path.join(tmp, "tree"), n_init_times=2, bbox=(72.0, 18.0, 136.0, 54.0))
+    tree_s = time.perf_counter() - t0
+    model = ts.create_train_state(cfg["meta_cfg"], cfg["net_cfg"], cfg["train_cfg"]["optimizer"],
+                                  torch.Generator().manual_seed(0), compute_dtype=cd, device=dev,
+                                  attn_impl=cfg["train_cfg"]["tpu"].get("attn_impl")).model
+    model.eval()
+    ckpt_dir, out = os.path.join(tmp, "ckpt"), os.path.join(tmp, "out")
+    ckpt.save_checkpoint(ckpt_dir, 0, 0, model, None, dx=float(cfg["train_cfg"]["dx"]),
+                         dy=float(cfg["train_cfg"]["dy"]), pred_t_span=86400.0, obs_norm_cfg=cfg["obs_norm_cfg"])
+    data = "train_cfg.valid_data."
+    sets = [f"{data}input_path={paths['input_path']}", f"{data}label_path={paths['label_path']}",
+            f"{data}constant_path={paths['constant_path']}", f"{data}in_coord_file={paths['in_coord_file']}",
+            f"{data}out_coord_file={paths['out_coord_file']}",
+            f"{data}input_data_map_cfg.NCEP={paths['input_map_file']}",
+            f"{data}start_time=2008-01-01_00_00_00", f"{data}end_time=2008-01-02_00_00_00",
+            f"inference_cfg.start_time={DISK_HOURS[0]}", f"inference_cfg.end_time={DISK_HOURS[1]}",
+            "inference_cfg.log.with_vis=False", "inference_cfg.log.write_source=True",
+            f"inference_cfg.log.vis_path={out}"]
+    args = ["--config_file", FLAGSHIP_CFG, "--mode", "inference", "--checkpoints_path", ckpt_dir]
+    for item in sets:
+        args += ["--set", item]
+    dk.decode_primal_v4t.launches = 0
+    t0 = time.perf_counter()
+    results = cli.main(args)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = dk.decode_primal_v4t.launches
+    chunks = -(-GRID_POINTS // runner._DECODE_CHUNK)
+    log(f"[disk] tree of {sum(len(f) for _, _, f in os.walk(paths['input_path']))} input and "
+        f"{len(os.listdir(paths['label_path']))} label GeoTIFFs written in {tree_s:.1f} s; the command line ran "
+        f"{len(results)} hours in {run_s:.1f} s with {launches} primal kernel launches "
+        f"(expected {chunks} a 40,960-point chunk x {len(results)} hours)")
+    if len(results) != 6 or launches != chunks * len(results):
+        raise AssertionError(f"inference from disk: {len(results)} hours, {launches} primal launches")
+    exported = sorted(os.listdir(out))
+    for hour, grids in results:
+        stamp = (hour + datetime.timedelta(hours=6)).strftime("%Y-%m-%d_%H_%M_%S")
+        img, geo = read_tiff(os.path.join(out, f"{stamp}_T.tiff"))
+        if geo != DISK_GEO or not np.array_equal(img[:, :, 0], grids["T"][::-1]):
+            raise AssertionError(f"the T GeoTIFF of {hour} is not the grid north-up with {DISK_GEO}: {geo}")
+        if not all(a.shape == (145, 257) and np.isfinite(a).all() for a in grids.values()):
+            raise AssertionError(f"the grids of {hour} are not finite 145 x 257 arrays")
+    log(f"[disk] {len(exported)} GeoTIFFs exported ({exported[0]} .. {exported[-1]}); each read back equals its "
+        f"hour's T grid flipped north-up, geo-transform {DISK_GEO}; mean T "
+        + ", ".join(f"{g['T'].mean():.4g}" for _, g in results) + " K")
+
+    # one hour against predict_grid's frame through the plain decode (phase 3's bound)
+    full_cfg = copy.deepcopy(cfg)  # the configuration the command line ran
+    cli.apply_overrides(full_cfg, sets)
+    payload = ckpt.load_checkpoint(ckpt_dir)[0]
+    ddcfg, ds = runner.inference_setup(full_cfg, payload)
+    hour = datetime.datetime.strptime(DISK_HOURS[0], "%Y-%m-%d_%H_%M_%S")
+    f, fh, off = runner.window_covering(ds, hour)
+    window = Window.from_dataset(ds, f, labels=False)
+    xs, ys = np.meshgrid(np.arange(257.0), np.arange(145.0))
+    px, py, pt, nwp, _ = window.get_margin_grid(xs.ravel(), ys.ravel(), np.full(xs.size, off))
+    fh_norm = float(fh) / ddcfg.forecast_time_period
+    with torch.no_grad():
+        tokens = runner._encode(model, torch.from_numpy(window.field[None]).to(dev), fh_norm)
+        coords = torch.from_numpy(np.stack([px, py, pt], -1)).to(dev)
+        weights, pe, _, cd_pe = engine._kernel_inputs(model, tokens, coords, torch.from_numpy(nwp).to(dev),
+                                                      torch.tensor([fh_norm], device=dev), ddcfg.coord_spec)
+        plain_norm = dk.decode_primal_v4t_ref(dk.fuse_decode_weights(weights), pe.to(cd), cd_pe.to(cd),
+                                              torch.from_numpy(nwp).to(dev).t().contiguous(), cd)
+        plain = inverse_norm_stack_t(plain_norm, ddcfg.obs_specs, with_clip=True).cpu().numpy()
+    stds = np.array([sp.norm_factor[1] for sp in ddcfg.obs_specs])[:, None]
+    frame = np.stack([results[0][1][k].reshape(-1) for k in ("u", "v", "P", "T", "q", "rio")])
+    err = float((np.abs(frame - plain) / stds).max())
+    limit = TOL[cd] * (1.0 + float(plain_norm.abs().max()))
+    log(f"[disk] the hour {hour} against predict_grid's frame through the plain decode: max error {err:.3e} "
+        f"normalized units (bound {limit:.3e})")
+    if err > limit:
+        raise AssertionError(f"inference from disk disagrees with the plain decode: {err} > {limit}")
+
+    # the native library: the dataset's interpolation of the hour's grid against the window's numpy one
+    if not native.available():
+        raise AssertionError(f"the native host library did not build: {native.BUILD_ERROR}")
+    t0 = time.perf_counter()
+    nat = ds.get_margin_grid(f, xs.ravel(), ys.ravel(), np.full(xs.size, off))[3]
+    nat_ms = 1e3 * (time.perf_counter() - t0)
+    nat_err = float(np.abs(nat - nwp).max())
+    log(f"[disk] native library {native.library_path()} built and ran: the dataset's trilinear interpolation "
+        f"of the hour's {xs.size} points in {nat_ms:.1f} ms, max |native - numpy| {nat_err:.2e} (bound 1e-6); "
+        "the inference path interpolates with the window's numpy (float64) version")
+    if nat_err > 1e-6:
+        raise AssertionError(f"native interpolation disagrees with numpy: {nat_err}")
+
+    # one hour by host clock, split into its parts (the median of three after a warm-up)
+    def hour_parts() -> dict:
+        parts = {}
+
+        def timed(name, fn):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r = fn()
+            torch.cuda.synchronize()
+            parts[name] = 1e3 * (time.perf_counter() - t)
+            return r
+
+        with contextlib.redirect_stdout(io.StringIO()):  # its metadata lines were logged above
+            d = timed("dataset open", lambda: runner.inference_setup(full_cfg, payload)[1])
+        w = timed("raster reads (tokens, NWP cube)", lambda: Window.from_dataset(d, f, labels=False))
+        g = timed("conditioning", lambda: w.get_margin_grid(xs.ravel(), ys.ravel(), np.full(xs.size, off)))
+        tok = timed("encode", lambda: runner._encode(model, torch.from_numpy(w.field[None]).to(dev), fh_norm))
+        phys = timed("decode", lambda: runner._decode_points(model, ddcfg, tok, g[0], g[1], g[2], g[3], fh_norm,
+                                                             True).cpu().numpy())
+        timed("export", lambda: runner.export_geotiff(os.path.join(tmp, "timed_T.tiff"),
+                                                      phys[3].reshape(145, 257), d, ddcfg))
+        return parts
+
+    hour_parts()
+    runs = [hour_parts() for _ in range(3)]
+    split = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+    hour_ms = statistics.median(sum(r[k] for k in r if k != "dataset open") for r in runs)
+    log(f"[disk] one hour by host clock, ms (median of 3): {hour_ms:.3f} without the dataset's open, split "
+        + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
+    return launches, paths, ckpt_dir
+
+
+# the trainer's phase: steps of its first run (from phase 19's seeded checkpoint) and of its resumed run,
+# the first PDE step and the log cadence
+TRAINER_STEPS, TRAINER_RESUMED_STEPS = 10, 2
+TRAINER_PDE_START, TRAINER_LOG_STEP = 4, 5
+TRAINER_META = ("dx", "dy", "dt", "pred_x_span", "pred_y_span", "pred_t_span", "label_time_step",
+                "input_variable_cfg", "input_time_step", "input_time_step_nums", "obs_norm_cfg", "start_time",
+                "end_time")
+
+
+def trainer_phase(dev, cfg, paths, seed_ckpt: str, tmp: str, launch_counts, reset_launch_counts) -> dict:
+    """Training from disk at flagship width through the port's command line (``--mode train``, in
+    process): phase 19's tree (two windows an epoch) and its seeded model's checkpoint, the
+    flagship's batch (20,480 + 4,096 points), loader workers (6) and engine, with ``--set`` for the
+    tree's paths, no renders, ``pde_start_step`` ``TRAINER_PDE_START`` and ``log_step``
+    ``TRAINER_LOG_STEP``: ``TRAINER_STEPS`` steps, then a resumed run of ``TRAINER_RESUMED_STEPS``
+    more from the ``physics_latest`` it wrote, then ``--mode test`` (the full-grid RMSE, through the
+    primal kernel) on the final checkpoint.  Holds: every logged loss finite; the v4s forward and
+    backward launches to two a PDE step (margin and collocation points) plus two a PDE validation
+    batch (forward only); the checkpoint's metadata bundle; the resumed run's first step at the
+    saved step, with the scheduled rate of its epoch, the saved parameters bit for bit and an Adam
+    step count equal to the steps taken; finite RMSEs with one primal launch a window's hour.  Times
+    by host clock the first run's steps after the first (waiting on the loader, the copy to the
+    device, the step, the metric fetch and validation of a log step, the epoch saves) and one
+    window's item read alone, and says whether the loader keeps up with the step: each epoch's
+    loader starts its two windows side by side, so the wait at an epoch's first step over two is
+    what an item costs the workers.  Returns the launch counts."""
+    import glob
+    import importlib.util
+    import shutil
+    import warnings
+
+    from deepphysinet_tpu_torch import cli
+    from deepphysinet_tpu_torch.data.dataset import PhysicsDataset
+    from deepphysinet_tpu_torch.interface import build as ibuild
+    from deepphysinet_tpu_torch.interface import interface_physics as ip
+    from deepphysinet_tpu_torch.ops import decode_kernel as dk
+    from deepphysinet_tpu_torch.train import checkpoint as ckpt
+    from deepphysinet_tpu_torch.train.schedules import build_lr_schedule
+
+    ckpt_dir, log_dir = os.path.join(tmp, "trainer_ckpt"), os.path.join(tmp, "trainer_log")
+    shutil.copytree(seed_ckpt, ckpt_dir)  # the seeded weights at epoch 0, step 0, no optimizer state
+    tree = {k: paths[k] for k in ("input_path", "label_path", "constant_path", "in_coord_file", "out_coord_file")}
+    tree.update({"input_data_map_cfg.NCEP": paths["input_map_file"], "start_time": "2008-01-01_00_00_00",
+                 "end_time": "2008-01-02_00_00_00"})  # both init times: two windows
+    sets = [f"train_cfg.{split}.{k}={v}" for split, seed in (("train_data", 0), ("valid_data", 1))
+            for k, v in {**tree, "seed": seed}.items()]
+    sets += ["train_cfg.log.with_vis=False", f"train_cfg.log.log_step={TRAINER_LOG_STEP}",
+             f"train_cfg.tpu.pde_start_step={TRAINER_PDE_START}"]
+    base = ["--config_file", FLAGSHIP_CFG, "--checkpoints_path", ckpt_dir]
+    for item in sets:
+        base += ["--set", item]
+    built, first = [], []
+    build, make_step = ibuild.builder_models, ip.make_train_step
+
+    def recording_build(*a, **k):  # the command line's interface, for its step clock
+        built.append(build(*a, **k))
+        return built[-1]
+
+    def recording_make_step(scfg):  # each run's state at its first step, before the update
+        inner = make_step(scfg)
+
+        def step(state, batch, with_pde):
+            if len(first) < len(built):
+                first.append(dict(step=state.step, lr=[g["lr"] for g in state.optimizer.param_groups],
+                                  adam=sorted({float(v["step"]) for v in state.optimizer.state.values()}),
+                                  params={k: v.detach().clone() for k, v in state.model.state_dict().items()}))
+            return inner(state, batch, with_pde)
+
+        return step
+
+    ibuild.builder_models, ip.make_train_step = recording_build, recording_make_step
     try:
+        reset_launch_counts()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            state = cli.main(base + ["--mode", "train", "--max_steps", str(TRAINER_STEPS), "--log_path", log_dir])
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+        saved, next_epoch, saved_step = ckpt.load_checkpoint(ckpt_dir)
         t0 = time.perf_counter()
-        paths = generate_synthetic_dataset(os.path.join(tmp, "tree"), n_init_times=2, bbox=(72.0, 18.0, 136.0, 54.0))
-        tree_s = time.perf_counter() - t0
-        model = ts.create_train_state(cfg["meta_cfg"], cfg["net_cfg"], cfg["train_cfg"]["optimizer"],
-                                      torch.Generator().manual_seed(0), compute_dtype=cd, device=dev,
-                                      attn_impl=cfg["train_cfg"]["tpu"].get("attn_impl")).model
-        model.eval()
-        ckpt_dir, out = os.path.join(tmp, "ckpt"), os.path.join(tmp, "out")
-        ckpt.save_checkpoint(ckpt_dir, 0, 0, model, None, dx=float(cfg["train_cfg"]["dx"]),
-                             dy=float(cfg["train_cfg"]["dy"]), pred_t_span=86400.0, obs_norm_cfg=cfg["obs_norm_cfg"])
-        data = "train_cfg.valid_data."
-        sets = [f"{data}input_path={paths['input_path']}", f"{data}label_path={paths['label_path']}",
-                f"{data}constant_path={paths['constant_path']}", f"{data}in_coord_file={paths['in_coord_file']}",
-                f"{data}out_coord_file={paths['out_coord_file']}",
-                f"{data}input_data_map_cfg.NCEP={paths['input_map_file']}",
-                f"{data}start_time=2008-01-01_00_00_00", f"{data}end_time=2008-01-02_00_00_00",
-                f"inference_cfg.start_time={DISK_HOURS[0]}", f"inference_cfg.end_time={DISK_HOURS[1]}",
-                "inference_cfg.log.with_vis=False", "inference_cfg.log.write_source=True",
-                f"inference_cfg.log.vis_path={out}"]
-        args = ["--config_file", FLAGSHIP_CFG, "--mode", "inference", "--checkpoints_path", ckpt_dir]
-        for item in sets:
-            args += ["--set", item]
-        dk.decode_primal_v4t.launches = 0
-        t0 = time.perf_counter()
-        results = cli.main(args)
+        resumed = cli.main(base + ["--mode", "train", "--max_steps", str(TRAINER_STEPS + TRAINER_RESUMED_STEPS),
+                                   "--log_path", log_dir])
         torch.cuda.synchronize()
-        run_s = time.perf_counter() - t0
-        launches = dk.decode_primal_v4t.launches
-        chunks = -(-GRID_POINTS // runner._DECODE_CHUNK)
-        log(f"[disk] tree of {sum(len(f) for _, _, f in os.walk(paths['input_path']))} input and "
-            f"{len(os.listdir(paths['label_path']))} label GeoTIFFs written in {tree_s:.1f} s; the command line ran "
-            f"{len(results)} hours in {run_s:.1f} s with {launches} primal kernel launches "
-            f"(expected {chunks} a 40,960-point chunk x {len(results)} hours)")
-        if len(results) != 6 or launches != chunks * len(results):
-            raise AssertionError(f"inference from disk: {len(results)} hours, {launches} primal launches")
-        exported = sorted(os.listdir(out))
-        for hour, grids in results:
-            stamp = (hour + datetime.timedelta(hours=6)).strftime("%Y-%m-%d_%H_%M_%S")
-            img, geo = read_tiff(os.path.join(out, f"{stamp}_T.tiff"))
-            if geo != DISK_GEO or not np.array_equal(img[:, :, 0], grids["T"][::-1]):
-                raise AssertionError(f"the T GeoTIFF of {hour} is not the grid north-up with {DISK_GEO}: {geo}")
-            if not all(a.shape == (145, 257) and np.isfinite(a).all() for a in grids.values()):
-                raise AssertionError(f"the grids of {hour} are not finite 145 x 257 arrays")
-        log(f"[disk] {len(exported)} GeoTIFFs exported ({exported[0]} .. {exported[-1]}); each read back equals its "
-            f"hour's T grid flipped north-up, geo-transform {DISK_GEO}; mean T "
-            + ", ".join(f"{g['T'].mean():.4g}" for _, g in results) + " K")
-
-        # one hour against predict_grid's frame through the plain decode (phase 3's bound)
-        full_cfg = copy.deepcopy(cfg)  # the configuration the command line ran
-        cli.apply_overrides(full_cfg, sets)
-        payload = ckpt.load_checkpoint(ckpt_dir)[0]
-        ddcfg, ds = runner.inference_setup(full_cfg, payload)
-        hour = datetime.datetime.strptime(DISK_HOURS[0], "%Y-%m-%d_%H_%M_%S")
-        f, fh, off = runner.window_covering(ds, hour)
-        window = Window.from_dataset(ds, f, labels=False)
-        xs, ys = np.meshgrid(np.arange(257.0), np.arange(145.0))
-        px, py, pt, nwp, _ = window.get_margin_grid(xs.ravel(), ys.ravel(), np.full(xs.size, off))
-        fh_norm = float(fh) / ddcfg.forecast_time_period
-        with torch.no_grad():
-            tokens = runner._encode(model, torch.from_numpy(window.field[None]).to(dev), fh_norm)
-            coords = torch.from_numpy(np.stack([px, py, pt], -1)).to(dev)
-            weights, pe, _, cd_pe = engine._kernel_inputs(model, tokens, coords, torch.from_numpy(nwp).to(dev),
-                                                          torch.tensor([fh_norm], device=dev), ddcfg.coord_spec)
-            plain_norm = dk.decode_primal_v4t_ref(dk.fuse_decode_weights(weights), pe.to(cd), cd_pe.to(cd),
-                                                  torch.from_numpy(nwp).to(dev).t().contiguous(), cd)
-            plain = inverse_norm_stack_t(plain_norm, ddcfg.obs_specs, with_clip=True).cpu().numpy()
-        stds = np.array([sp.norm_factor[1] for sp in ddcfg.obs_specs])[:, None]
-        frame = np.stack([results[0][1][k].reshape(-1) for k in ("u", "v", "P", "T", "q", "rio")])
-        err = float((np.abs(frame - plain) / stds).max())
-        limit = TOL[cd] * (1.0 + float(plain_norm.abs().max()))
-        log(f"[disk] the hour {hour} against predict_grid's frame through the plain decode: max error {err:.3e} "
-            f"normalized units (bound {limit:.3e})")
-        if err > limit:
-            raise AssertionError(f"inference from disk disagrees with the plain decode: {err} > {limit}")
-
-        # the native library: the dataset's interpolation of the hour's grid against the window's numpy one
-        if not native.available():
-            raise AssertionError(f"the native host library did not build: {native.BUILD_ERROR}")
-        t0 = time.perf_counter()
-        nat = ds.get_margin_grid(f, xs.ravel(), ys.ravel(), np.full(xs.size, off))[3]
-        nat_ms = 1e3 * (time.perf_counter() - t0)
-        nat_err = float(np.abs(nat - nwp).max())
-        log(f"[disk] native library {native.library_path()} built and ran: the dataset's trilinear interpolation "
-            f"of the hour's {xs.size} points in {nat_ms:.1f} ms, max |native - numpy| {nat_err:.2e} (bound 1e-6); "
-            "the inference path interpolates with the window's numpy (float64) version")
-        if nat_err > 1e-6:
-            raise AssertionError(f"native interpolation disagrees with numpy: {nat_err}")
-
-        # one hour by host clock, split into its parts (the median of three after a warm-up)
-        def hour_parts() -> dict:
-            parts = {}
-
-            def timed(name, fn):
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                r = fn()
-                torch.cuda.synchronize()
-                parts[name] = 1e3 * (time.perf_counter() - t)
-                return r
-
-            with contextlib.redirect_stdout(io.StringIO()):  # its metadata lines were logged above
-                d = timed("dataset open", lambda: runner.inference_setup(full_cfg, payload)[1])
-            w = timed("raster reads (tokens, NWP cube)", lambda: Window.from_dataset(d, f, labels=False))
-            g = timed("conditioning", lambda: w.get_margin_grid(xs.ravel(), ys.ravel(), np.full(xs.size, off)))
-            tok = timed("encode", lambda: runner._encode(model, torch.from_numpy(w.field[None]).to(dev), fh_norm))
-            phys = timed("decode", lambda: runner._decode_points(model, ddcfg, tok, g[0], g[1], g[2], g[3], fh_norm,
-                                                                 True).cpu().numpy())
-            timed("export", lambda: runner.export_geotiff(os.path.join(tmp, "timed_T.tiff"),
-                                                          phys[3].reshape(145, 257), d, ddcfg))
-            return parts
-
-        hour_parts()
-        runs = [hour_parts() for _ in range(3)]
-        split = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
-        hour_ms = statistics.median(sum(r[k] for k in r if k != "dataset open") for r in runs)
-        log(f"[disk] one hour by host clock, ms (median of 3): {hour_ms:.3f} without the dataset's open, split "
-            + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
-        return launches
+        resumed_s = time.perf_counter() - t0
+        counts = launch_counts()
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        ibuild.builder_models, ip.make_train_step = build, make_step
+
+    # every logged loss finite
+    losses = []
+    for path in sorted(glob.glob(os.path.join(log_dir, "log_*.txt"))):
+        for line in open(path):
+            fields = dict(f.split(":", 1) for f in line.strip().split(",") if ":" in f)
+            losses += [float(fields[k]) for k in ("train loss", "margin_loss", "grad", "valid loss", "margin")
+                       if k in fields]
+    tb_missing = importlib.util.find_spec("tensorboardX") is None
+    warned = any("tensorboardX unavailable" in str(w.message) for w in caught)
+    log(f"[trainer] the command line trained {state.step} steps from phase 19's seeded checkpoint in {run_s:.1f} s, "
+        f"then resumed from its physics_latest (epoch {next_epoch - 1}, step {saved_step}) for {resumed.step - state.step} "
+        f"more in {resumed_s:.1f} s; {len(losses)} logged losses, grad norms and validation losses, all finite: "
+        f"{all(np.isfinite(losses))}; tensorboardX {'missing, the summaries a no-op with its warning' if tb_missing else 'present'}")
+    if not (losses and all(np.isfinite(losses))) or (tb_missing and not warned):
+        raise AssertionError(f"trainer: logged losses {losses}, tensorboardX warning {warned}")
+    if (state.step, saved_step, resumed.step) != (TRAINER_STEPS, TRAINER_STEPS, TRAINER_STEPS + TRAINER_RESUMED_STEPS):
+        raise AssertionError(f"trainer: steps {state.step}, saved {saved_step}, resumed to {resumed.step}")
+
+    # the launches: two forwards and two backwards a PDE step, two forwards a PDE validation batch
+    steps = range(1, TRAINER_STEPS + TRAINER_RESUMED_STEPS + 1)
+    pde = [s for s in steps if s - 1 >= TRAINER_PDE_START]
+    logged = [s for s in steps if s % TRAINER_LOG_STEP == 1 or s in (TRAINER_STEPS, TRAINER_STEPS + TRAINER_RESUMED_STEPS)]
+    want = (2 * len(pde) + 2 * len([s for s in logged if s in pde]), 2 * len(pde))
+    got = (counts["fused_decode_jvp_v4s"], counts["decode_bwd_kernel_v4s"])
+    others = {k: v for k, v in counts.items() if v and k not in ("fused_decode_jvp_v4s", "decode_bwd_kernel_v4s")}
+    log(f"[trainer] v4s forward / backward kernel launches {got[0]} / {got[1]} (expected {want[0]} / {want[1]}: "
+        f"{len(pde)} PDE steps x 2, and {want[0] - want[1]} forwards of {len(logged)} validation batches, "
+        f"{(want[0] - want[1]) // 2} with the PDE terms); other kernels {others}")
+    if got != want or others:
+        raise AssertionError(f"trainer: v4s launches {got}, expected {want}; other kernels {others}")
+
+    # the checkpoint and the resume
+    missing = [k for k in TRAINER_META if k not in saved]
+    schedule = build_lr_schedule(lr=float(cfg["train_cfg"]["optimizer"]["lr"]), **cfg["train_cfg"]["lr_schedule"])
+    r = first[1]
+    same = all(torch.equal(r["params"][k].cpu(), v) for k, v in saved["model"].items())
+    log(f"[trainer] physics_latest: epoch {next_epoch - 1}, step {saved_step}, metadata bundle complete: {not missing}; "
+        f"the resumed run's first step at step {r['step']}, rate {r['lr'][0]:.6g} (schedule of epoch {next_epoch}: "
+        f"{schedule(next_epoch):.6g}), Adam step counts {r['adam']}, parameters bit-equal to the saved ones: {same}")
+    if missing or r["step"] != saved_step or set(r["lr"]) != {schedule(next_epoch)} or r["adam"] != [float(saved_step)] \
+            or not same:
+        raise AssertionError(f"trainer: resume from {ckpt_dir} (missing metadata {missing}, first step {r['step']}, "
+                             f"rates {r['lr']}, Adam steps {r['adam']}, parameters equal {same})")
+
+    # --mode test on the final checkpoint: the full-grid RMSE through the primal kernel
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    metrics = cli.main(base + ["--mode", "test"])
+    torch.cuda.synchronize()
+    test_s = time.perf_counter() - t0
+    test_launches = launch_counts()["decode_primal_v4t"]
+    rmse = {k: v for k, v in metrics.items() if k.startswith("rmse_")}
+    hours = int(metrics["n_points"]) // GRID_POINTS
+    log(f"[trainer] --mode test on the final checkpoint (step {metrics['global_step']:.0f}) in {test_s:.1f} s: "
+        f"{metrics['n_windows']:.0f} windows, {hours} labelled hours, {test_launches} primal kernel launches; RMSE "
+        + ", ".join(f"{k[5:]} {v:.4g}" for k, v in rmse.items()))
+    if not (len(rmse) == 6 and all(np.isfinite(list(rmse.values()))) and test_launches == hours
+            and metrics["global_step"] == TRAINER_STEPS + TRAINER_RESUMED_STEPS):
+        raise AssertionError(f"trainer: --mode test gave {metrics} with {test_launches} primal launches")
+
+    # the first run's steps by host clock (medians over the steps after the first), and one item alone
+    clock = built[0].step_clock
+    per_step = {k: statistics.median(clock[k][1:]) * 1e3 for k in ("copy", "step")}
+    split_pde = {kind: statistics.median(clock["step"][i] * 1e3 for i in range(1, TRAINER_STEPS)
+                                         if (i >= TRAINER_PDE_START) == is_pde)
+                 for kind, is_pde in (("data-only", False), ("PDE", True))}
+    windows = 2  # an epoch of the tree
+    epoch_first = statistics.median(clock["loader"][i] * 1e3 for i in range(windows, TRAINER_STEPS, windows))
+    within = statistics.median(clock["loader"][i] * 1e3 for i in range(1, TRAINER_STEPS, windows))
+    tc = cfg["train_cfg"]
+    data_cfg = dict(tc["train_data"], **{k: v for k, v in tree.items() if "." not in k},
+                    input_data_map_cfg=dict(NCEP=paths["input_map_file"]))
+    ds = PhysicsDataset(**data_cfg, input_variable_cfg=cfg["variable_cfg"], out_variable_cfg=cfg["obs_norm_cfg"],
+                        dx=float(tc["dx"]), dy=float(tc["dy"]))
+    item_ms = host_ms(lambda: ds[0])
+    loader_ms = epoch_first / windows
+    work_ms = per_step["copy"] + per_step["step"]
+    log(f"[trainer] one step by host clock, ms (median of steps 2-{TRAINER_STEPS}): waiting on the loader at an "
+        f"epoch's first step {epoch_first:.3f}, at its second {within:.3f}; copy to the device {per_step['copy']:.3f}; "
+        f"the step {per_step['step']:.3f} (data-only {split_pde['data-only']:.3f}, PDE {split_pde['PDE']:.3f}); at a "
+        f"log step the metric fetch {statistics.median(clock['fetch']) * 1e3:.3f} and the validation batch "
+        f"{statistics.median(clock['valid']) * 1e3:.3f}; an epoch save {statistics.median(clock['save']) * 1e3:.3f} "
+        f"(off the loop's thread but the last); {TRAINER_STEPS / run_s:.2f} steps/s over the run with its start-up")
+    log(f"[trainer] the loader: one window's item (raster reads, point draws, interpolation) {item_ms:.3f} ms alone; "
+        f"in the run, {tc['num_workers']} workers deliver an item every {loader_ms:.3f} ms (an epoch's first wait over "
+        f"its {windows} windows) against {work_ms:.3f} ms of copy and step: the host loader "
+        f"{'keeps up with' if loader_ms <= work_ms else 'does NOT keep up with'} the step")
+    return dict(counts=counts, test_launches=test_launches)
 
 
 def attention_and_encoder_timing(dev, cd, model, field, fh_norm: float, stage_builds: dict) -> dict:
@@ -1961,11 +2269,15 @@ def main() -> int:
         return abs(got_ - want_) <= rtol * abs(want_) + extra
 
     resid_err, resid_rel, switch_moved, finite_points = {}, {}, {}, {}
-    residual_fns = {4: (rk.fused_residual_sums_v4, rk.residual_sums_v4_ref, dk.decode_jvp_v4_ref),
-                    6: (rk.fused_residual_sums_v6, rk.residual_sums_v6_ref, dk.decode_jvp_v6_ref)}
+    residual_fns = {4: (rk.fused_residual_sums_v4, rk.residual_sums_v4_ref, dk.decode_jvp_v4_ref,
+                        dk.fused_decode_jvp_v4),
+                    6: (rk.fused_residual_sums_v6, rk.residual_sums_v6_ref, dk.decode_jvp_v6_ref,
+                        dk.fused_decode_jvp_v6)}
+    decode_bits = [0, 0, 0]  # points sampled; the kernel's term equal to the forward kernel's; to the plain's
     for n in RESIDUAL_SIZES:
         coords, nwp, cor = window_points(n, seed=n)
-        for version, (kernel_fn, plain_fn, decode_ref) in residual_fns.items():
+        for version, fns in residual_fns.items():
+            decode_ref = fns[2]
             for dtype in (torch.bfloat16, torch.float32):
                 all_ins = residual_inputs(version, coords, nwp, dtype)
                 for with_clip in (True, False):
@@ -1991,42 +2303,41 @@ def main() -> int:
                         continue
                     if not bool(keep.all()):
                         dropped, cor_ = int((~keep).sum()), cor[keep].contiguous()
-                        ins = (ins[0], *(x[:, keep].contiguous() if x.ndim == 3 else x[keep].contiguous()
-                                         for x in ins[1:]))
-                        primal, tang = decode_ref(*ins, dtype)
-                    got = kernel_fn(*ins, cor_, scfg.obs_specs, with_clip=with_clip, compute_dtype=dtype)
-                    again = kernel_fn(*ins, cor_, scfg.obs_specs, with_clip=with_clip, compute_dtype=dtype)
-                    torch.cuda.synchronize()
-                    want = plain_fn(*ins, cor_, scfg.obs_specs, with_clip=with_clip, compute_dtype=dtype)
-                    exact = rk.residual_point_terms(primal, tang, cor_, scfg.obs_specs, with_clip).double().sum(1)
+                        ins = point_subset(ins, keep)
+                    chk = residual_check(rk, engine, scfg, fns, ins, cor_, with_clip, dtype, RTOL_RESIDUAL[dtype])
+                    got, want, moved = chk["got"], chk["want"], chk["moved"]
                     rel = [relative(g_, w_) for g_, w_ in zip(got.tolist(), want.tolist())]
-                    n_near, moved = vapor_switch_points(engine, scfg, primal, tang, with_clip, SWITCH_EPS[dtype],
-                                                        KINK_EPS)
                     switch_moved[(version, dtype, with_clip)] = moved
                     if with_clip and dtype == cd:
                         finite_points[version] = keep
-                    # per equation within RTOL_RESIDUAL of the plain sum, the vapor sum also within the
-                    # terms of the points near a switch (moved); the limits as shares of the plain sums
-                    limits = [RTOL_RESIDUAL[dtype]] * 6
-                    limits[4] = relative(float(want[4]) + moved, float(want[4])) + RTOL_RESIDUAL[dtype]
+                    for i, k in enumerate(("sample", "bits_equal", "plain_equal")):
+                        decode_bits[i] += chk[k]
+                    # per equation within RTOL_RESIDUAL of the plain sum and the decode's allowance, the
+                    # vapor sum also within the terms of the points near a switch; the limits as shares
+                    # of the plain sums
+                    limits = [relative(float(w_) + x_, float(w_)) + RTOL_RESIDUAL[dtype]
+                              for w_, x_ in zip(want.tolist(), chk["extra"])]
                     worst = max(range(6), key=lambda e: rel[e] / limits[e] if limits[e] < float("inf") else 0.0)
                     log(f"[residual] v{version} {str(dtype):15s} N={n:6d} clip={with_clip!s:5s}: per equation "
                         f"|kernel-plain| / plain at most {rel[worst]:.2e} ({rk.EQUATIONS[worst]}; bound "
-                        f"{limits[worst]:.1e}); two runs bit-equal: {torch.equal(got, again)}; kernel "
+                        f"{limits[worst]:.1e}); two runs bit-equal: {torch.equal(got, chk['again'])}; kernel "
                         + " ".join(f"{x:.8g}" for x in got.tolist()) + "; plain "
                         + " ".join(f"{x:.8g}" for x in want.tolist()) + "; float64 sum of the plain terms "
-                        + " ".join(f"{x:.8g}" for x in exact.tolist())
-                        + f"; {n_near} points near a switch of the vapor term ({SWITCH_EPS[dtype]:.0e} of delta's, "
-                        f"{KINK_EPS:.0e} of a bound), their vapor "
-                        f"terms at most {moved:.3g}; {dropped} points left out")
-                    if not (got.shape == (6,) and bool(torch.isfinite(got).all()) and torch.equal(got, again)
-                            and all(within(g_, w_, RTOL_RESIDUAL[dtype], moved if e == 4 else 0.0)
-                                    for e, (g_, w_) in enumerate(zip(got.tolist(), want.tolist())))):
+                        + " ".join(f"{x:.8g}" for x in chk["exact"].tolist()) + "; of the forward kernel decode's terms "
+                        + " ".join(f"{x:.8g}" for x in chk["exact_k"].tolist())
+                        + f"; {chk['n_near']} points near a switch of the vapor term ({SWITCH_EPS[dtype]:.0e} of "
+                        f"delta's, {KINK_EPS:.0e} of a bound), their vapor terms at most {moved:.3g}; the decode's "
+                        f"allowance: {allowance_text(chk, RTOL_RESIDUAL[dtype])}; the kernel's term at "
+                        f"{chk['sample']} points equals the forward kernel's decode's at {chk['bits_equal']} (the "
+                        f"plain decode's at {chk['plain_equal']}); {dropped} points left out")
+                    if not (got.shape == (6,) and bool(torch.isfinite(got).all()) and torch.equal(got, chk["again"])
+                            and all(chk["ok"])):
                         raise AssertionError(f"residual-sum kernel v{version} disagrees with its plain version "
                                              f"({dtype}, N={n}, with_clip={with_clip}): {rel} > {limits}")
                     if with_clip:
                         resid_err[(version, dtype, n)] = float((got - want).abs().max())
                         resid_rel[(version, dtype, n)] = rel[worst]
+                    del chk
                 del primal, tang, ins, all_ins
         # the in-kernel path against the split path on the same points, through the entry points:
         # those of the residual check above (whose terms are finite in the plain decode)
@@ -2056,6 +2367,12 @@ def main() -> int:
                 raise AssertionError(f"in-kernel assembly v{version} disagrees with the split path (N={n}): {rel}")
     del coords, nwp, cor, args, pts
     torch.cuda.empty_cache()
+    log(f"[residual] the decode's bits: over all checks, the kernel's term at {decode_bits[0]} points (each a "
+        f"launch of its own) equals the term of the forward kernel's decode at {decode_bits[1]}, of the plain "
+        f"decode at {decode_bits[2]}")
+    if decode_bits[1] != decode_bits[0]:  # the decode allowance takes the forward kernel's decode for the kernel's
+        raise AssertionError(f"the residual-sum kernels' decode parts from the forward kernels' at "
+                             f"{decode_bits[0] - decode_bits[1]} of {decode_bits[0]} points")
 
     # the entry points on both sides of the crossover, from counts of 0
     reset_launch_counts()
@@ -2401,10 +2718,21 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 19. inference from disk: the host data layer, a checkpoint and the command line ----------
-    disk_launches = disk_phase(dev, cd, cfg, native)
+    import shutil
+    import tempfile
+
+    disk_tmp = tempfile.mkdtemp(prefix="dpn_disk_")
+    try:
+        disk_launches, disk_paths, disk_ckpt = disk_phase(dev, cd, cfg, native, disk_tmp)
+        torch.cuda.empty_cache()
+
+        # ---- 20. training from disk: the trainer, its resume and --mode test -------------------------
+        trainer = trainer_phase(dev, cfg, disk_paths, disk_ckpt, disk_tmp, launch_counts, reset_launch_counts)
+    finally:
+        shutil.rmtree(disk_tmp, ignore_errors=True)
     torch.cuda.empty_cache()
 
-    # ---- 20. timing --------------------------------------------------------------------------------
+    # ---- 21. timing --------------------------------------------------------------------------------
     hid, in_ch = cfg["net_cfg"]["hidden_channels"], cfg["net_cfg"]["in_channels"]
     two_f = in_ch // 3
 
@@ -2746,7 +3074,7 @@ def main() -> int:
         f"{', 6' if cd == torch.bfloat16 else ''}]; ptxas {resid_ptxas}; scratch {resid_scratch} bytes at "
         f"N={n_}; the decode's products as 4 batched torch.bmm calls (a reading): {resid_bmm:.4f} ms "
         f"({2e-9 * n_vars * fwd_macs * n_ / resid_bmm:.2f} TFLOP/s)")
-    for version, (kernel_fn, plain_fn, _) in residual_fns.items():
+    for version, (kernel_fn, plain_fn, *_) in residual_fns.items():
         ins = residual_inputs(version, coords, nwp, cd)
         k_ms_, p_ms_, times_ = alternating_ms(
             lambda: kernel_fn(*ins, cor, scfg.obs_specs, compute_dtype=cd),
@@ -2936,7 +3264,7 @@ def main() -> int:
     enc_timing = attention_and_encoder_timing(dev, cd, model, field, window.forecast_h / dcfg.forecast_time_period,
                                               enc_stage_builds)
 
-    # ---- 21. profile (only with --profile): the device's busy share and its largest kernels ----
+    # ---- 22. profile (only with --profile): the device's busy share and its largest kernels ----
     if "--profile" in sys.argv[1:]:
         from torch.profiler import ProfilerActivity, profile
 
@@ -3067,20 +3395,22 @@ def main() -> int:
         {"name": "decode_primal_v4t", "route": "cuda", "source": csrc + "decode_primal.cu",
          "replaces": f"{jax_file}:956",
          "launches": primal_launches, "launches_eval": eval_launches["decode_primal_v4t"],
-         "launches_disk": disk_launches,
+         "launches_disk": disk_launches, "launches_test": trainer["test_launches"],
          "max_abs_err": errs[(cd, GRID_POINTS)], "max_rel_err": rel_errs[(cd, GRID_POINTS)],
          "points": GRID_POINTS,
          "ms": k_ms, "plain_ms": p_ms, "bound_ms": primal_bound[0], "bound_by": primal_bound[1],
          "library_ms": None, "products": tc_products},
         {"name": "fused_decode_jvp_v4s", "route": "cuda", "source": csrc + "decode_jvp_v4s.cu",
          "replaces": f"{jax_file}:2358",
-         "launches": fwd_launches, "max_abs_err": fwd_err[(cd, main_n)],
+         "launches": fwd_launches, "launches_trainer": trainer["counts"]["fused_decode_jvp_v4s"],
+         "max_abs_err": fwd_err[(cd, main_n)],
          "max_rel_err": fwd_rel[(cd, main_n)], "points": main_n,
          "ms": t["fwd"], "plain_ms": t["fwd_plain"], "bound_ms": t["fwd_bound"][0],
          "bound_by": t["fwd_bound"][1], "library_ms": None, **v4s_extra("fwd", v4s_ms)},
         {"name": "decode_bwd_kernel_v4s", "route": "cuda", "source": csrc + "decode_bwd_v4s.cu",
          "replaces": f"{jax_file}:2508",
-         "launches": bwd_launches, "max_abs_err": bwd_err[(cd, main_n)],
+         "launches": bwd_launches, "launches_trainer": trainer["counts"]["decode_bwd_kernel_v4s"],
+         "max_abs_err": bwd_err[(cd, main_n)],
          "max_rel_err": bwd_rel[(cd, main_n)], "points": main_n,
          "ms": t["bwd"], "plain_ms": t["bwd_plain"], "bound_ms": t["bwd_bound"][0],
          "bound_by": t["bwd_bound"][1], "library_ms": None, **v4s_extra("bwd", v4s_ms)},

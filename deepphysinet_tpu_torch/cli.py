@@ -2,11 +2,19 @@
 
 Counterpart of the repository's ``train.py`` for the port: it loads the Python-dict
 configuration (``config/config.py``), applies ``--set key.path=value`` overrides with
-``train.py``'s typo guard, and runs the mode the configuration or ``--mode`` names.  Only
-``inference`` is ported (``inference/runner.py::run_inference``: a checkpoint and a GeoTIFF tree
-in, GeoTIFFs and jpg renders out); ``train`` waits for the trainer (ROADMAP A4) and ``test`` for
-the evaluation tools (ROADMAP A6).  It runs on the first CUDA device unless ``--device`` says
-otherwise.  For example, on a tree that ``data/synthetic.py::generate_synthetic_dataset`` wrote:
+``train.py``'s typo guard, builds the interface the configuration names
+(``interface/build.py::builder_models``) and runs the mode the configuration or ``--mode`` names:
+
+* ``train``: ``InterfacePhysics.run_train_interface`` (``--max_steps``, ``--log_path``,
+  ``--checkpoints_path``), after a snapshot of the port's sources into the checkpoint directory
+  (``codes.zip``, as ``train.py`` zips the repository's); ``--dist`` (several GPUs) waits for
+  ROADMAP A7;
+* ``test``: ``run_test_interface`` (held-out RMSE of a checkpoint), printed as one JSON line;
+* ``inference``: ``run_inference_interface`` (a checkpoint and a GeoTIFF tree in, GeoTIFFs and jpg
+  renders out).
+
+It runs on the first CUDA device unless ``--device`` says otherwise.  For example, on a tree that
+``data/synthetic.py::generate_synthetic_dataset`` wrote:
 
     python -m deepphysinet_tpu_torch.cli --config_file configs/DeepPhysiNet_NCEP_cfg.py \\
         --mode inference --checkpoints_path ckpt/ \\
@@ -18,12 +26,26 @@ from __future__ import annotations
 
 import argparse
 import ast
+import json
+import os
 import sys
+import zipfile
 from typing import Optional, Sequence
 
 from deepphysinet_tpu_torch.config.config import Config, update_params
 
-_NOT_PORTED = {"train": "the trainer (ROADMAP A4)", "test": "the evaluation tools (ROADMAP A6)"}
+PACKAGE_DIR = os.path.dirname(os.path.abspath(__file__))
+
+
+def zip_codes(src_dir: str, dst_file: str) -> None:
+    """Source snapshot into the checkpoint directory (``train.py:23``; reference train.py:45-46)."""
+    with zipfile.ZipFile(dst_file, "w", zipfile.ZIP_DEFLATED) as zf:
+        for root, dirs, files in os.walk(src_dir):
+            dirs[:] = [d for d in dirs if d not in (".git", "__pycache__", "checkpoints", "log", "results", "build")]
+            for f in files:
+                if f.endswith((".py", ".md", ".cu", ".cuh")):
+                    p = os.path.join(root, f)
+                    zf.write(p, os.path.relpath(p, src_dir))
 
 
 def apply_overrides(config: dict, items) -> None:
@@ -56,25 +78,41 @@ def apply_overrides(config: dict, items) -> None:
 
 
 def main(argv: Optional[Sequence[str]] = None):
-    """Run the command line; returns what the mode returns (inference: ``run_inference``'s list)."""
+    """Run the command line; returns what the mode returns (train: the final ``TrainState``; test:
+    the metrics; inference: ``run_inference``'s list)."""
     parser = argparse.ArgumentParser("DeepPhysiNet on PyTorch")
     parser.add_argument("--config_file", type=str, default="configs/DeepPhysiNet_NCEP_cfg.py")
     parser.add_argument("--checkpoints_path", type=str, default=None)
+    parser.add_argument("--log_path", type=str, default=None)
+    parser.add_argument("--dist", action="store_true", help="data-parallel over several GPUs (not ported: ROADMAP A7)")
+    parser.add_argument("--max_steps", type=int, default=None, help="stop after N optimizer steps (smoke runs)")
     parser.add_argument("--mode", type=str, default=None, choices=[None, "train", "test", "inference"], nargs="?")
     parser.add_argument("--device", type=str, default=None, help="torch device, e.g. cpu; default the first CUDA device")
     parser.add_argument("--set", dest="overrides", action="append", default=[], metavar="KEY=VALUE",
                         help="dotted config override applied to config.*, e.g. --set inference_cfg.log.with_vis=False "
                              "(values parsed as python literals when possible)")
     args = parser.parse_args(argv)
+    if args.dist:
+        raise NotImplementedError("--dist (data-parallel training over several GPUs) is not ported yet: it waits for "
+                                  "ROADMAP A7")
+    from deepphysinet_tpu_torch.interface.build import builder_models
+
     cfg = Config.fromfile(args.config_file)
     if args.overrides:
         apply_overrides(cfg["config"], args.overrides)
     mode = args.mode or cfg.get("mode", "train")
-    if mode in _NOT_PORTED:
-        raise NotImplementedError(f"--mode {mode} is not ported yet: it waits for {_NOT_PORTED[mode]}")
-    from deepphysinet_tpu_torch.inference.runner import run_inference
-
-    results = run_inference(cfg["config"], checkpoint_path=args.checkpoints_path, device=args.device)
+    models = builder_models(**cfg["config"], device=args.device)
+    if mode == "train":
+        checkpoint_path = args.checkpoints_path or cfg["config"]["train_cfg"]["checkpoints"]["checkpoints_path"]
+        os.makedirs(checkpoint_path, exist_ok=True)
+        zip_codes(PACKAGE_DIR, os.path.join(checkpoint_path, "codes.zip"))
+        return models.run_train_interface(checkpoint_path=args.checkpoints_path, log_path=args.log_path,
+                                          max_steps=args.max_steps)
+    if mode == "test":
+        out = models.run_test_interface(checkpoint_path=args.checkpoints_path)
+        print(json.dumps(out))
+        return out
+    results = models.run_inference_interface(checkpoint_path=args.checkpoints_path)
     print(f"inference: {len(results)} hours" + (f", {results[0][0]} to {results[-1][0]}" if results else ""))
     return results
 

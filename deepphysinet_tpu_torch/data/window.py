@@ -18,6 +18,7 @@ from real windows on the device is not ported yet.
 
 from __future__ import annotations
 
+import collections.abc
 import dataclasses
 from typing import Any, Dict, Mapping, Optional, Tuple
 
@@ -130,6 +131,21 @@ class Window:
                    label_time_step=int(dataset.label_time_step),
                    forecast_time_period=float(dataset.forecast_time_period),
                    label_cube=dataset.get_label_cube(input_file) if labels else None)
+
+
+class DatasetWindows(collections.abc.Sequence):
+    """The windows of a ``PhysicsDataset`` in its order, each read from the rasters when it is
+    taken (``Window.from_dataset``, with its label cube): the sequence that the evaluation sweeps
+    take, without holding every window in memory."""
+
+    def __init__(self, dataset: Any):
+        self.dataset = dataset
+
+    def __len__(self) -> int:
+        return len(self.dataset.input_files)
+
+    def __getitem__(self, i: int) -> Window:
+        return Window.from_dataset(self.dataset, self.dataset.input_files[i])
 
 
 def _grid_shapes(config: Mapping[str, Any]) -> Tuple[Tuple[int, int], Tuple[int, int]]:

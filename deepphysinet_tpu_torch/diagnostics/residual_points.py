@@ -7,7 +7,9 @@ the vapor sum also within the terms of its points near a switch.  The backward's
 each training end a few ulps apart, so the operands move from run to run.  This script repeats
 that training ``--trainings`` times and, after each, runs phase 11's checks (both versions, both
 types, with and without the clip, at ``--sizes``, the same points left out), and prints each check
-whose error reaches ``--report`` of its bound, with the point that carries it: the check's chunks of
+whose error reaches ``--report`` of its bound (each equation also allowed the decode's own
+disagreement carried through its terms, ``chip_smoke.residual_check``), with the point that carries
+it: the check's chunks of
 points are summed by the kernel and the plain version apart, the chunk that parts most is halved
 again down to one point, and that point's kernel term (a launch of its own) is set beside its plain
 term.  For the point it prints its physical fields, the relu argument of its decode (z of layer 1,
@@ -22,6 +24,11 @@ checks that failed, the kinks among the points reported and those points.  It ex
 check failed.  Run from the repository's root on a machine with a card:
 
     python -m deepphysinet_tpu_torch.diagnostics.residual_points --trainings 40
+
+``--perturb EQUATION`` is the checks' negative control: it builds the residual-sum kernels from a
+copy of the sources (under ``csrc/build/``) in which that equation's residual is scaled by
+sqrt(1 + 1e-3), so each of its per-point terms by 1 + 1e-3, runs the checks on that build and
+counts the failures by size; it exits with 0 only when a check failed at every size.
 """
 from __future__ import annotations
 
@@ -30,6 +37,8 @@ import sys
 
 import numpy as np
 import torch
+
+from deepphysinet_tpu_torch.ops.residual_kernel import EQUATIONS
 
 EPS = 2.0 ** -24
 CHUNKS = 32  # chunks a step of the search halves a check's points into
@@ -43,11 +52,6 @@ def cs_near_kink(dk, fw, pe, w1, cd_pe, dtype, kink_eps: float):
     near = (z.abs() < kink_eps * (1.0 + float(z.abs().max()))).any(-1).any(0)
     r = dk.dot_f32(torch.relu(z), fw.w2f1, dtype) + dk.dot_f32(cd_pe, fw.wdf1, dtype) + fw.rbias[:, None, :]
     return near | (r.abs() < kink_eps * (1.0 + float(r.abs().max()))).any(-1).any(0)
-
-
-def subset(ins, idx):
-    """The residual wrapper's point arguments at ``idx`` (a [3, N, ...] operand on its axis 1)."""
-    return (ins[0], *(x[:, idx].contiguous() if x.ndim == 3 else x[idx].contiguous() for x in ins[1:]))
 
 
 def plain_decode(l1, fw, cd_pe, ref_t, cdt, flip=None):
@@ -142,6 +146,8 @@ def main() -> int:
     ap.add_argument("--sizes", type=str, default="", help="comma-separated point counts (default: phase 11's)")
     ap.add_argument("--report", type=float, default=0.25, help="print the checks whose error reaches this share "
                     "of their bound")
+    ap.add_argument("--perturb", choices=EQUATIONS, default=None, help="the negative control: scale this "
+                    "equation's per-point terms by 1 + 1e-3 in a build of the kernels from a copy of the sources")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("residual_points: CUDA is not available", file=sys.stderr)
@@ -150,10 +156,12 @@ def main() -> int:
     from deepphysinet_tpu_torch.config import Config
     from deepphysinet_tpu_torch.data.window import synthetic_batch, synthetic_window
     from deepphysinet_tpu_torch.inference import runner
-    from deepphysinet_tpu_torch.ops import decode_kernel as dk, residual_kernel as rk
+    from deepphysinet_tpu_torch.ops import cuda_build, decode_kernel as dk, residual_kernel as rk
     from deepphysinet_tpu_torch.physics import engine
     from deepphysinet_tpu_torch.train import train_step as ts
 
+    if args.perturb:
+        perturbed_library(cs, cuda_build, rk, EQUATIONS.index(args.perturb))
     torch.backends.cuda.matmul.allow_tf32 = False
     dev, bf, f32 = torch.device("cuda"), torch.bfloat16, torch.float32
     sizes = tuple(int(s) for s in args.sizes.split(",")) if args.sizes else cs.RESIDUAL_SIZES
@@ -171,10 +179,12 @@ def main() -> int:
         px, py, pt, nwp, cor = window.get_margin_grid(g.rand(n) * 256.0, g.rand(n) * 144.0, g.rand(n) * 24.0)
         points[n] = (torch.from_numpy(np.stack([px, py, pt], -1)).to(dev), torch.from_numpy(nwp).to(dev),
                      torch.from_numpy(cor).to(dev))
-    fns = {4: (rk.fused_residual_sums_v4, rk.residual_sums_v4_ref, dk.decode_jvp_v4_ref),
-           6: (rk.fused_residual_sums_v6, rk.residual_sums_v6_ref, dk.decode_jvp_v6_ref)}
+    fns = {4: (rk.fused_residual_sums_v4, rk.residual_sums_v4_ref, dk.decode_jvp_v4_ref, dk.fused_decode_jvp_v4),
+           6: (rk.fused_residual_sums_v6, rk.residual_sums_v6_ref, dk.decode_jvp_v6_ref, dk.fused_decode_jvp_v6)}
     step = ts.make_train_step(scfg)
     n_checks, failed, reported, kinks = 0, 0, 0, 0
+    failed_at = {n: 0 for n in sizes}
+    bits = [0, 0]  # points sampled, the kernel's term equal to the forward kernel's decode's
     flips, flips_near = 0, 0
     decode_fns = {4: (dk.fused_decode_jvp_v4, dk.decode_jvp_v4_ref), 6: (dk.fused_decode_jvp_v6, dk.decode_jvp_v6_ref)}
     n_decode = max(sizes)
@@ -216,7 +226,7 @@ def main() -> int:
                   "|kernel - plain| / max|plain|: " + "; ".join(parts), flush=True)
             for n in sizes:
                 cor = points[n][2]
-                for version, (kfn, pfn, dref) in fns.items():
+                for version, (kfn, pfn, dref, _) in fns.items():
                     all_ins = inputs(version, n)
                     for dtype in (bf, f32):
                         ins = (all_ins[0], *(x.to(dtype) for x in all_ins[1:-1]), all_ins[-1])
@@ -231,25 +241,33 @@ def main() -> int:
                                     keep &= (phys > sp.bound[0]) & (phys < sp.bound[1])
                             if not bool(keep.any()):
                                 continue
-                            ins_k, cor_k = subset(ins, keep), cor[keep].contiguous()
-                            primal, tang = dref(*ins_k, dtype)
-                            _, moved = cs.vapor_switch_points(engine, scfg, primal, tang, with_clip,
-                                                              cs.SWITCH_EPS[dtype], cs.KINK_EPS)
+                            ins_k, cor_k = cs.point_subset(ins, keep), cor[keep].contiguous()
                             rtol = cs.RTOL_RESIDUAL[dtype]
+                            chk = cs.residual_check(rk, engine, scfg, fns[version], ins_k, cor_k, with_clip, dtype,
+                                                    rtol)
+                            primal, tang = chk["primal"], chk["tang"]
 
                             def kernel(idx):
-                                return kfn(*subset(ins_k, idx), cor_k[idx].contiguous(), specs,
+                                return kfn(*cs.point_subset(ins_k, idx), cor_k[idx].contiguous(), specs,
                                            with_clip=with_clip, compute_dtype=dtype)
 
-                            got = kfn(*ins_k, cor_k, specs, with_clip=with_clip, compute_dtype=dtype)
-                            want = pfn(*ins_k, cor_k, specs, with_clip=with_clip, compute_dtype=dtype)
-                            limit = rtol * want.abs() + torch.tensor([0, 0, 0, 0, moved, 0], device=dev)
+                            got, want = chk["got"], chk["want"]
+                            limit = rtol * want.abs() + torch.tensor(chk["extra"], device=dev)
                             diff = (got - want).abs()
                             ratio = torch.where(diff == 0, 0.0, diff / limit)
                             e = int(ratio.argmax())
                             n_checks += 1
-                            failed += float(ratio[e]) > 1.0
+                            failed += not all(chk["ok"])
+                            failed_at[n] += not all(chk["ok"])
+                            bits[0] += chk["sample"]
+                            bits[1] += chk["bits_equal"]
                             worst_it = max(worst_it, float(ratio[e]))
+                            if args.perturb:
+                                print(f"[residual points] training {it} v{version} {str(dtype)[6:]} N={n} "
+                                      f"clip={with_clip}: {'failed' if not all(chk['ok']) else 'passed'}, "
+                                      f"{rk.EQUATIONS[e]} at {float(ratio[e]):.3g} of its bound; allowance: "
+                                      f"{cs.allowance_text(chk, rtol)}", flush=True)
+                                continue
                             if float(ratio[e]) < args.report:
                                 continue
                             reported += 1
@@ -258,16 +276,39 @@ def main() -> int:
                             kinks += explained
                             print(f"[residual points] training {it} v{version} {str(dtype)[6:]} N={n} "
                                   f"clip={with_clip}: {rk.EQUATIONS[e]} at {float(ratio[e]):.3g} of its bound "
-                                  f"({float(((got - want) / want)[e]):.3e} of the plain sum); point {pt_}: {about}",
-                                  flush=True)
+                                  f"({float(((got - want) / want)[e]):.3e} of the plain sum); allowance: "
+                                  f"{cs.allowance_text(chk, rtol)}; point {pt_}: {about}", flush=True)
         print(f"[residual points] training {it}: worst check at {worst_it:.3g} of its bound", flush=True)
         del state, model
         torch.cuda.empty_cache()
+    print(f"[residual points] the decode's bits: the kernel's term at {bits[0]} points (each a launch of its own) "
+          f"equals the term of the forward kernel's decode at {bits[1]}", flush=True)
+    if args.perturb:
+        print(f"[residual points] negative control, {args.perturb}'s terms scaled by 1 + 1e-3: failed checks by "
+              "size " + ", ".join(f"N={n}: {k}" for n, k in failed_at.items()) + f" ({failed} of {n_checks})",
+              flush=True)
+        return 0 if all(failed_at.values()) else 1
     print(f"[residual points] {failed} of {n_checks} checks failed over {args.trainings} trainings; of the "
           f"{reported} checks at {args.report} of their bound or more, {kinks} part at a point where one relu "
           f"switched the other way explains the kernel's term; the bf16 forwards parted at {flips} points by "
           f"{FLIP_FROM:.0e} of a tangent's largest or more, {flips_near} of them near a kink", flush=True)
     return 0 if failed == 0 else 1
+
+
+def perturbed_library(cs, cuda_build, rk, e: int) -> None:
+    """Route the residual-sum wrappers to a build in which equation e's residual is scaled by
+    sqrt(1 + 1e-3) (its squared term by 1 + 1e-3), made from a copy of the sources."""
+    gas = "  out[5] = sub(p, mul(mul(mul(rho, add(1.0f, mul(0.608f, q))), c.r_d), temp));"
+    real = rk._library()
+    lib = cs.variant_library(cuda_build, rk.SOURCE, f"perturbed_{EQUATIONS[e]}", "residual_equations.cuh", gas,
+                             gas + f"\n  out[{e}] = mul(out[{e}], {np.sqrt(1.0 + 1e-3):.9f}f);")
+    for name in ("dpn_residual_sums", "dpn_residual_sums_hid", "dpn_residual_sums_block",
+                 "dpn_residual_sums_shared_bytes", "dpn_residual_sums_scratch_floats", "dpn_residual_sums_tickets"):
+        getattr(lib, name).argtypes = getattr(real, name).argtypes
+        getattr(lib, name).restype = getattr(real, name).restype
+    rk._library = lambda: lib
+    print(f"[residual points] negative control: residual-sum kernels from a copy of the sources with "
+          f"{EQUATIONS[e]}'s residual scaled by {np.sqrt(1.0 + 1e-3):.9f}", flush=True)
 
 
 if __name__ == "__main__":

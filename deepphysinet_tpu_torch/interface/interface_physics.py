@@ -1,0 +1,459 @@
+"""InterfacePhysics: the training, test and inference runtime of the port.
+
+Counterpart of ``deepphysinet_tpu/interface/interface_physics.py`` on one device and in one
+process, with the host sampling the flagship configuration uses (``sample_mode="host"``).
+Orchestration stays on the host: datasets, epochs, logging, checkpoints.  Each batch of the
+``PrefetchLoader`` goes to the device and through the training step (``train/train_step.py``),
+which on a GPU launches the step's decode kernels.
+
+Kept from the JAX interface: the ``pde_start_step`` curriculum, the per-epoch learning rate of
+``train/schedules.py`` written into the optimizer at every epoch end and at the resumed epoch, one
+validation batch at each log step, the log cadence ``global_step % log_step == 1`` (a documented
+divergence from the reference, PARITY.md:107), the log line and its ``training/`` and
+``validation/`` summaries, epoch checkpoints with the metadata bundle (off the loop's thread
+except the last), the SIGTERM save of ``physics_latest``, and resume with the optimizer's state.
+
+Differences:
+
+* the model and its torch optimizer live in a ``TrainState`` that the step updates in place;
+* the metrics of a log step come to the host in one ``torch.stack(...).cpu()``;
+* ``pde_engine`` defaults to ``'kernel'`` on every device (``train_step.default_pde_engine``,
+  ROADMAP C18); JAX picks ``'jvp'`` off the TPU only because its kernel op has no GPU body;
+* checkpoints are the ``.pth`` bundles of ``train/checkpoint.py`` (``ckpt_backend`` ``'pickle'``);
+  the orbax backend is not ported;
+* the SIGTERM handler that a run installs is taken down when the run ends;
+* ``step_clock`` holds each step's host-clock split (loader, copy to the device, step, metric
+  fetch, validation, checkpoint save), for ``chip_smoke.py``;
+* not ported: ``run_train_interface_dist`` (ROADMAP A7), device sampling (``sample_mode="device"``,
+  ROADMAP A5) and the mesh helpers.
+"""
+
+from __future__ import annotations
+
+import datetime
+import os
+import signal
+import threading
+import time
+from typing import Dict, Iterator, Mapping, Optional
+
+import numpy as np
+import torch
+
+from deepphysinet_tpu_torch.data.dataset import PhysicsDataset
+from deepphysinet_tpu_torch.data.pipeline import PrefetchLoader
+from deepphysinet_tpu_torch.data.window import DatasetWindows, Window
+from deepphysinet_tpu_torch.device import resolve_device
+from deepphysinet_tpu_torch.models.physics_net import PhysicsNet
+from deepphysinet_tpu_torch.registry import INTERFACES
+from deepphysinet_tpu_torch.train import checkpoint as ckpt
+from deepphysinet_tpu_torch.train.optim import set_learning_rate
+from deepphysinet_tpu_torch.train.schedules import build_lr_schedule
+from deepphysinet_tpu_torch.train.train_step import (
+    Batch, StepConfig, TrainState, batch_to_device, create_train_state, default_pde_engine, make_eval_step,
+    make_train_step, step_config_from_cfg)
+from deepphysinet_tpu_torch.utils.time_metric import TimeMetric
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "f32": torch.float32, "bf16": torch.bfloat16}
+STEP_PARTS = ("loader", "copy", "step", "fetch", "valid", "save")
+
+
+class _NullWriter:
+    def add_scalar(self, *a, **k):
+        pass
+
+    def close(self):
+        pass
+
+
+def _summary_writer(log_path: str):
+    """tensorboardX's writer; a no-op with a warning when tensorboardX is not installed."""
+    try:
+        from tensorboardX import SummaryWriter
+
+        return SummaryWriter(log_path)
+    except ImportError as e:
+        import warnings
+
+        warnings.warn(f"tensorboardX unavailable ({e}); scalar summaries will NOT be recorded for this run "
+                      "(text log + checkpoints are unaffected)", RuntimeWarning, stacklevel=2)
+        return _NullWriter()
+
+
+@INTERFACES.register("InterfacePhysics")
+class InterfacePhysics:
+    def __init__(self, meta_cfg: dict, net_cfg: dict, obs_norm_cfg: dict, variable_cfg: dict, train_cfg: dict,
+                 test_cfg: Optional[dict] = None, inference_cfg: Optional[dict] = None, device=None, **kwargs):
+        """The configuration's sections (``configs/*.py``, ``config``); ``device=None`` is the first
+        CUDA device, an error without one (the CPU tests pass ``device="cpu"``)."""
+        self.meta_cfg = dict(meta_cfg)
+        self.net_cfg = dict(net_cfg)
+        self.obs_norm_cfg = dict(obs_norm_cfg)
+        self.variable_cfg = dict(variable_cfg)
+        self.train_cfg = dict(train_cfg)
+        self.test_cfg = dict(test_cfg or {})
+        self.inference_cfg = dict(inference_cfg or {})
+
+        tpu_cfg = dict(self.train_cfg.get("tpu", {}))
+        self.compute_dtype = _DTYPES[str(tpu_cfg.get("compute_dtype", "float32")).lower()]
+        self.attn_impl = tpu_cfg.get("attn_impl")
+        self.pde_start_step = int(tpu_cfg.get("pde_start_step", 2000))
+        self.sample_mode = str(tpu_cfg.get("sample_mode", "host"))
+        self.kernel_version = int(tpu_cfg.get("kernel_version", 7))
+        self.packed_assembly = bool(tpu_cfg.get("packed_assembly", True))
+        self.ckpt_backend = str(tpu_cfg.get("ckpt_backend", "pickle"))
+        if self.ckpt_backend == "orbax":
+            raise NotImplementedError("ckpt_backend='orbax' is not ported (a JAX library); the port saves the "
+                                      "reference's .pth bundles (ckpt_backend='pickle')")
+        if self.ckpt_backend != "pickle":
+            raise ValueError(f"unknown ckpt_backend {self.ckpt_backend!r} (pickle|orbax)")
+        # explicit None means "auto", as an absent key (and as attn_impl)
+        self.pde_engine = str(tpu_cfg.get("pde_engine") or default_pde_engine(self.obs_norm_cfg))
+        self.device = resolve_device(device)
+
+        img_size = self.train_cfg["img_size"]
+        if isinstance(img_size, (int, float)):
+            self.lat_size = self.lon_size = int(img_size)
+        else:
+            self.lat_size, self.lon_size = img_size
+
+    def _config(self) -> dict:
+        """The configuration dict the interface was built from."""
+        return dict(meta_cfg=self.meta_cfg, net_cfg=self.net_cfg, obs_norm_cfg=self.obs_norm_cfg,
+                    variable_cfg=self.variable_cfg, train_cfg=self.train_cfg, test_cfg=self.test_cfg,
+                    inference_cfg=self.inference_cfg)
+
+    def _dataset(self, data_cfg: Mapping) -> PhysicsDataset:
+        return PhysicsDataset(**data_cfg, input_variable_cfg=self.variable_cfg, out_variable_cfg=self.obs_norm_cfg,
+                              dx=float(self.train_cfg["dx"]), dy=float(self.train_cfg["dy"]))
+
+    # ---- batch conversion ----
+
+    def _to_batch(self, data: Dict[str, np.ndarray]) -> Batch:
+        """A loader batch (the dataset's keys) as a ``Batch`` on the run's device."""
+        def points(p: str, nwp: str, labels: Optional[str]):
+            out = dict(x=data[f"{p}_x"], y=data[f"{p}_y"], t=data[f"{p}_t"], f=data[f"{p}_f"], nwp=data[nwp])
+            if labels is not None:
+                out["labels"] = data[labels]
+            return out
+
+        return batch_to_device(dict(field=data["field_data"], forecast_h=np.asarray(data["forecast_h"]).reshape(-1),
+                                    margin=points("margin", "margin_input_data", "margin_data"),
+                                    inter=points("inter", "inter_data", None)), device=self.device)
+
+    def _step_cfg(self, pred_t_span: float, forecast_time_period: float, forecast_h_snap: float = 0.0) -> StepConfig:
+        return step_config_from_cfg(self._config(), pred_t_span, forecast_time_period=float(forecast_time_period),
+                                    forecast_h_snap=float(forecast_h_snap), pde_engine=self.pde_engine,
+                                    kernel_version=self.kernel_version, packed_assembly=self.packed_assembly)
+
+    @staticmethod
+    def _fetch_metrics(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
+        """Every scalar of a step in one device-to-host copy."""
+        keys = sorted(metrics.keys())
+        vals = torch.stack([metrics[k].float() for k in keys]).cpu().tolist()
+        return dict(zip(keys, vals))
+
+    # ---- training ----
+
+    def run_train_interface(self, max_steps: Optional[int] = None, checkpoint_path: Optional[str] = None,
+                            log_path: Optional[str] = None, **kwargs) -> TrainState:
+        """Train from ``train_cfg``: resume from ``physics_latest`` in the checkpoint directory or
+        start afresh, then the epochs; stop after ``max_steps`` optimizer steps if given.  Returns the
+        final ``TrainState``."""
+        if self.sample_mode == "device":
+            raise NotImplementedError("sample_mode='device' (sampling on the device) is not ported yet: it waits "
+                                      "for ROADMAP A5; the flagship samples on the host (sample_mode='host')")
+        tc = self.train_cfg
+        tpu_cfg = dict(tc.get("tpu", {}))
+        batch_size = tc["batch_size"]
+        num_epoch = tc["num_epoch"]
+        num_workers = tc.get("num_workers", 2)
+        self.dx = float(tc["dx"])
+        self.dy = float(tc["dy"])
+        time_step = tc.get("lable_time_step", tc.get("label_time_step", 1))
+        self.dt = float(60 * 60 * time_step)
+
+        checkpoint_path = checkpoint_path or tc["checkpoints"]["checkpoints_path"]
+        log_path = log_path or tc["log"]["log_path"]
+        save_step = tc["checkpoints"].get("save_step", 1)
+        log_step = tc["log"].get("log_step", 100)
+        with_vis = tc["log"].get("with_vis", False)
+        vis_path = tc["log"].get("vis_path", "")
+        os.makedirs(log_path, exist_ok=True)
+        os.makedirs(checkpoint_path, exist_ok=True)
+
+        train_dataset = self._dataset(tc["train_data"])
+        valid_dataset = self._dataset(tc["valid_data"])
+        window_h = train_dataset.input_time_step * train_dataset.input_time_step_nums
+        pred_t_span = float(window_h * 3600)
+        self.pred_t_span = pred_t_span
+        cfg = self._step_cfg(pred_t_span, train_dataset.forecast_time_period)
+
+        sched_cfg = tc.get("lr_schedule")
+        opt_cfg = dict(tc["optimizer"])
+        base_lr = float(opt_cfg.get("lr", 1e-4))
+        schedule = build_lr_schedule(lr=base_lr, **sched_cfg) if sched_cfg else (lambda e: base_lr)
+        train_loader = PrefetchLoader(train_dataset, batch_size, shuffle=True, drop_last=True, num_workers=num_workers)
+        valid_loader = PrefetchLoader(valid_dataset, batch_size, shuffle=True, drop_last=True, num_workers=1)
+
+        # ---- state init / resume ----
+        payload, current_epoch, global_step = ckpt.load_checkpoint(checkpoint_path, prefix="physics")
+        # The JAX trainer draws one batch to initialize its parameters; drawing it here too keeps the
+        # loader's shuffles and the dataset's point draws in step with it.
+        next(iter(train_loader))
+        state = create_train_state(self.meta_cfg, self.net_cfg, opt_cfg, torch.Generator().manual_seed(0),
+                                   compute_dtype=self.compute_dtype, device=self.device, attn_impl=self.attn_impl)
+        if payload is not None:
+            print(f"resume from epoch {current_epoch} global_step {global_step}")
+            ckpt.restore_train_state(state, payload, bool(tpu_cfg.get("allow_partial_resume", False)))
+            state.step = global_step
+        date_str = datetime.datetime.now().strftime("%Y-%m-%d_%H_%M_%S")
+        log_fp = open(os.path.join(log_path, f"log_{date_str}.txt"), "w")
+        summary = _summary_writer(log_path)
+        if payload is not None:
+            log_fp.write(f"resume from epoch {current_epoch} global_step {global_step}\n")
+        # a resumed run starts at schedule(current_epoch), not the optimizer's base rate
+        lr = schedule(max(current_epoch, 0))
+        set_learning_rate(state.optimizer, lr)
+        print("set lr to:", lr)
+
+        train_step = make_train_step(cfg)
+        eval_step = make_eval_step(cfg)
+        time_metric = TimeMetric()
+        # SIGTERM: finish the step, save physics_latest, stop (the reference resumes at epoch ends only)
+        preempted = {"flag": False}
+        previous_handler = self._install_preemption_handler(preempted)
+        async_ckpt = ckpt.AsyncCheckpointer() if bool(tpu_cfg.get("async_ckpt", True)) else None
+        meta_kwargs = dict(
+            dx=self.dx, dy=self.dy, dt=self.dt,
+            pred_x_span=self.dx * self.lon_size,
+            pred_y_span=self.dy * self.lat_size,
+            pred_t_span=pred_t_span,
+            label_time_step=time_step,
+            input_variable_cfg=self.variable_cfg,
+            input_time_step=train_dataset.input_time_step,
+            input_time_step_nums=train_dataset.input_time_step_nums,
+            obs_norm_cfg=self.obs_norm_cfg,
+            start_time=str(train_dataset.start_time),
+            end_time=str(train_dataset.end_time),
+        )
+        clock = self.step_clock = {k: [] for k in STEP_PARTS}
+        valid_iter: Iterator = iter(valid_loader)
+        steps_since_log = 0
+        stop = False
+        preemption_saved = False
+        try:
+            for epoch in range(current_epoch, num_epoch):
+                if stop:
+                    break
+                t0 = time.perf_counter()
+                for batch_id, data in enumerate(train_loader):
+                    t1 = time.perf_counter()
+                    with_pde = bool(tc.get("with_pde", True)) and global_step >= self.pde_start_step
+                    global_step += 1
+                    batch = self._to_batch(data)
+                    t2 = time.perf_counter()
+                    state, metrics = train_step(state, batch, with_pde)
+                    t3 = time.perf_counter()
+                    clock["loader"].append(t1 - t0)
+                    clock["copy"].append(t2 - t1)
+                    clock["step"].append(t3 - t2)
+                    steps_since_log += 1
+
+                    if global_step % log_step == 1 or (max_steps and global_step >= max_steps):
+                        fps = time_metric.get_fps(steps_since_log * batch_size)
+                        time_metric.reset()
+                        steps_since_log = 0
+                        m = self._fetch_metrics(metrics)
+                        t4 = time.perf_counter()
+                        clock["fetch"].append(t4 - t3)
+                        fh = float(np.asarray(data["forecast_h"]).reshape(-1)[0])
+                        line = ",".join([
+                            f"epoch:{epoch}/{num_epoch}", f"batch:{batch_id}/{len(train_loader)}",
+                            f"iter:{global_step}", f"train loss:{m['total_loss']:.6f}",
+                            f"margin_loss:{m['margin_loss']:.6f}", f"forecast:{int(fh):03d}h",
+                            f"grad:{m['grad_norm']:.3e}", f"fps:{fps:.3f}"])
+                        print("=========training=========")
+                        print(line)
+                        log_fp.write(line + "\n")
+                        log_fp.flush()
+                        for k, v in m.items():
+                            summary.add_scalar(f"training/{k}", v, global_step)
+                        summary.add_scalar(f"training_f{int(fh):03d}/margin_loss", m["margin_loss"], global_step)
+
+                        # ---- the interleaved validation batch (reference :639-751) ----
+                        vdata = None
+                        if len(valid_loader) > 0:
+                            try:
+                                vdata = next(valid_iter)
+                            except StopIteration:
+                                valid_iter = iter(valid_loader)
+                                vdata = next(valid_iter)
+                        if vdata is not None:
+                            vm = self._fetch_metrics(eval_step(state.model, self._to_batch(vdata), with_pde))
+                            vline = f"valid loss:{vm['total_loss']:.6f},margin:{vm['margin_loss']:.6f}"
+                            print("=========validation=========")
+                            print(vline)
+                            log_fp.write(vline + "\n")
+                            for k, v in vm.items():
+                                summary.add_scalar(f"validation/{k}", v, global_step)
+                            clock["valid"].append(time.perf_counter() - t4)
+
+                        if with_vis and vis_path:
+                            self._render_grid(state.model, train_dataset, data, cfg,
+                                              os.path.join(vis_path, "train_results"), global_step, with_pde)
+
+                    if self._agreed_preemption(preempted):
+                        self._preemption_save(async_ckpt, checkpoint_path, epoch, global_step, state, **meta_kwargs)
+                        preemption_saved = True
+                        stop = True
+                        break
+                    if max_steps and global_step >= max_steps:
+                        stop = True
+                        break
+                    t0 = time.perf_counter()
+
+                is_last = stop or epoch == num_epoch - 1
+                # the rate steps once per epoch, as the reference's scheduler (:831-837), not only on save epochs
+                lr = schedule(epoch + 1)
+                set_learning_rate(state.optimizer, lr)
+                if (epoch % save_step == 0 or is_last) and not preemption_saved:
+                    summary.add_scalar("learning_rate", lr, global_step)
+                    t_save = time.perf_counter()
+                    self._epoch_save(async_ckpt, is_last, checkpoint_path, epoch, global_step, state, meta_kwargs)
+                    clock["save"].append(time.perf_counter() - t_save)
+            if async_ckpt is not None:
+                async_ckpt.close()  # drain in-flight saves
+        finally:
+            # never leak a mid-write checkpoint past an exception
+            if async_ckpt is not None:
+                async_ckpt.close_quietly()
+            valid_iter.close()
+            log_fp.close()
+            summary.close()
+            self._restore_preemption_handler(previous_handler)
+        return state
+
+    @staticmethod
+    def _install_preemption_handler(flag: dict):
+        """SIGTERM -> ``flag["flag"] = True`` (the loop finishes the step, checkpoints, stops); returns
+        the handler it replaced (None off the main thread, where no handler is installed)."""
+        if threading.current_thread() is not threading.main_thread():
+            return None
+
+        def handler(signum, frame):
+            flag["flag"] = True
+
+        try:
+            return signal.signal(signal.SIGTERM, handler)
+        except (ValueError, OSError):
+            return None
+
+    @staticmethod
+    def _restore_preemption_handler(previous) -> None:
+        if previous is not None:
+            signal.signal(signal.SIGTERM, previous)
+
+    @staticmethod
+    def _agreed_preemption(preempted: dict) -> bool:
+        """The JAX interface's agreement on the preemption flag, single-process: the local flag."""
+        return bool(preempted["flag"])
+
+    @staticmethod
+    def _drain_async_ckpt(async_ckpt) -> None:
+        """Wait for in-flight async saves; a PRIOR save's failure is reported but never prevents the
+        synchronous save that follows."""
+        if async_ckpt is None:
+            return
+        try:
+            async_ckpt.wait()
+        except Exception as e:
+            print(f"warning: an earlier async checkpoint save failed ({e}); proceeding with the synchronous save")
+
+    def _epoch_save(self, async_ckpt, is_last, checkpoint_path, epoch, global_step, state, meta_kwargs) -> None:
+        """Epoch-boundary checkpoint: off the loop's thread mid-run, synchronous for the final epoch
+        (returning implies a durable physics_latest)."""
+        if async_ckpt is not None and not is_last:
+            async_ckpt.submit(checkpoint_path, epoch, global_step, state.model, state.optimizer, prefix="physics",
+                              **meta_kwargs)
+            return
+        self._drain_async_ckpt(async_ckpt)
+        ckpt.save_checkpoint(checkpoint_path, epoch, global_step, state.model, state.optimizer, prefix="physics",
+                             **meta_kwargs)
+
+    def _preemption_save(self, async_ckpt, checkpoint_path, epoch, global_step, state, **meta_kwargs) -> None:
+        """One synchronous save inside the SIGTERM grace window, with the metadata bundle."""
+        self._drain_async_ckpt(async_ckpt)
+        print(f"preemption: saving checkpoint at step {global_step}")
+        ckpt.save_checkpoint(checkpoint_path, epoch, global_step, state.model, state.optimizer, prefix="physics",
+                             **meta_kwargs)
+
+    def _render_grid(self, model, dataset, data, cfg, out_dir, global_step, with_pde) -> None:
+        """Full-grid render of all six variables (reference interface_physics.py:532-606)."""
+        from deepphysinet_tpu_torch.inference.runner import predict_grid
+        from deepphysinet_tpu_torch.utils.vis import VisUtils
+
+        time_id = (int(np.random.randint(0, dataset.input_time_step * dataset.input_time_step_nums + 1))
+                   if with_pde else 0)
+        input_file = data["input_file"][0]
+        fh = float(np.asarray(data["forecast_h"]).reshape(-1)[0])
+        window = Window.from_dataset(dataset, input_file, labels=False)
+        grids = predict_grid(model, cfg, window, np.asarray(data["field_data"][0:1], np.float32), fh, time_id,
+                             with_clip=False, device=self.device)
+        vis = VisUtils(coord_file=None, landsea_file=os.path.join(dataset.constant_path, "landsea.tiff"))
+        for name, img in grids.items():
+            out = os.path.join(out_dir, f"{global_step}_result_{name}_f{int(fh):03d}.jpg")
+            vis.forward(img, out, title=f"{name} f{int(fh):03d} t+{time_id}h")
+
+    # ---- evaluation ----
+
+    def run_test_interface(self, checkpoint_path: Optional[str] = None, max_windows: Optional[int] = None,
+                           full_grid: bool = True, **kwargs) -> Dict[str, float]:
+        """Held-out RMSE of a checkpoint over ``test_cfg.test_data`` (when it names a dataset) or
+        ``train_cfg.valid_data``: every labelled grid point at every labelled hour
+        (``full_grid=True``, ``evaluate_rmse_fullgrid``), or the subsampled estimate
+        (``evaluate_rmse``, which takes ``kwargs``).  Writes ``test_cfg.log.result_file`` when set."""
+        from deepphysinet_tpu_torch.eval.rmse import evaluate_rmse, evaluate_rmse_fullgrid
+
+        tc = self.train_cfg
+        self.dx = float(tc["dx"])
+        self.dy = float(tc["dy"])
+        ckpt_path = (checkpoint_path or self.test_cfg.get("checkpoints", {}).get("checkpoints_path")
+                     or tc["checkpoints"]["checkpoints_path"])
+        payload, epoch, step = ckpt.load_checkpoint(ckpt_path, prefix="physics")
+        if payload is None:
+            raise FileNotFoundError(ckpt_path)
+        model = PhysicsNet(self.meta_cfg, self.net_cfg, compute_dtype=self.compute_dtype, device=self.device,
+                           attn_impl=self.attn_impl)
+        model.load_state_dict(payload["model"], strict=True)
+        model.eval()
+
+        data_cfg = self.test_cfg.get("test_data")
+        if not (isinstance(data_cfg, dict) and data_cfg.get("input_path")):
+            data_cfg = tc["valid_data"]
+        dataset = self._dataset(data_cfg)
+        window_h = dataset.input_time_step * dataset.input_time_step_nums
+        cfg = self._step_cfg(float(window_h * 3600), dataset.forecast_time_period)
+        if full_grid:
+            metrics = evaluate_rmse_fullgrid(model, cfg, DatasetWindows(dataset), max_windows=max_windows,
+                                             device=self.device)
+        else:
+            metrics = evaluate_rmse(model, cfg, dataset, max_windows=max_windows, device=self.device, **kwargs)
+        metrics["epoch"] = float(epoch - 1)
+        metrics["global_step"] = float(step)
+        result_file = self.test_cfg.get("log", {}).get("result_file")
+        if result_file:
+            import json
+
+            os.makedirs(os.path.dirname(os.path.abspath(result_file)), exist_ok=True)
+            with open(result_file, "w") as fp:
+                json.dump(metrics, fp, indent=2)
+        return metrics
+
+    # ---- inference ----
+
+    def run_inference_interface(self, checkpoint_path: Optional[str] = None, **kwargs):
+        """``inference/runner.py::run_inference`` on this configuration and device."""
+        from deepphysinet_tpu_torch.inference.runner import run_inference
+
+        return run_inference(self._config(), checkpoint_path=checkpoint_path, device=self.device)

@@ -82,30 +82,32 @@ def residual_point_terms(primal: torch.Tensor, tang: torch.Tensor, coriolis_f: t
                          obs_specs, with_clip: bool = True,
                          constants: PhysicalConstants = DEFAULT_CONSTANTS) -> torch.Tensor:
     """Squared residuals [6, N] of the six equations from the normalized decode
-    outputs ``primal`` [N, 6] and ``tang`` [3, N, 6], in float32.
+    outputs ``primal`` [N, 6] and ``tang`` [3, N, 6], in float32 (in float64 for
+    float64 outputs, which ``chip_smoke.py`` differentiates).
 
     The assembly of the TPU kernels (:78-124): ``phys = o * std + mean``, the
     clip mask from the UNCLIPPED value with strict bounds, u and v never
     clipped, then the pairs of ``physics/equations.py``."""
+    dt = torch.float64 if primal.dtype == torch.float64 else torch.float32
     stds, means, bounds = _norm_constants(obs_specs, with_clip)
     fields, derivs = {}, {}
     for v, key in enumerate(FIELD_KEYS):
-        phys = primal[:, v].float() * stds[v] + means[v]
+        phys = primal[:, v].to(dt) * stds[v] + means[v]
         scale = stds[v]
         if bounds[v] is not None:
             lo, hi = bounds[v]
-            scale = stds[v] * ((phys > lo) & (phys < hi)).float()
+            scale = stds[v] * ((phys > lo) & (phys < hi)).to(dt)
             phys = torch.clamp(phys, lo, hi)
         fields[key] = phys
-        derivs[key] = {ax: tang[k, :, v].float() * scale for k, ax in enumerate(("x", "y", "t"))}
-    f = coriolis_f.reshape(-1).float()
+        derivs[key] = {ax: tang[k, :, v].to(dt) * scale for k, ax in enumerate(("x", "y", "t"))}
+    f = coriolis_f.reshape(-1).to(dt)
     pairs = (eqs.momentum_u_residual(fields, derivs, f, constants),
              eqs.momentum_v_residual(fields, derivs, f, constants),
              eqs.continuity_residual(fields, derivs, constants),
              eqs.energy_residual(fields, derivs, constants),
              eqs.vapor_residual(fields, derivs, constants),
              eqs.gas_residual(fields, constants))
-    diffs = [diff.float() - const.float() for diff, const in pairs]
+    diffs = [diff.to(dt) - const.to(dt) for diff, const in pairs]
     return torch.stack([d * d for d in diffs])
 
 

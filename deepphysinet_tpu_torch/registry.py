@@ -1,5 +1,6 @@
-"""Name -> factory registries: the two of ``deepphysinet_tpu/registry.py`` that the host data
-layer uses, ``DATASETS`` (``data/dataset.py``) and ``PROJECTIONS`` (``utils/vis.py``)."""
+"""Name -> factory registries: the four of ``deepphysinet_tpu/registry.py`` that the port uses,
+``DATASETS`` (``data/dataset.py``), ``PROJECTIONS`` (``utils/vis.py``), ``LR_SCHEDULES``
+(``train/schedules.py``) and ``INTERFACES`` (``interface/interface_physics.py``)."""
 
 from __future__ import annotations
 
@@ -41,3 +42,5 @@ class Registry:
 
 DATASETS = Registry("datasets")
 PROJECTIONS = Registry("projections")
+LR_SCHEDULES = Registry("lr_schedules")
+INTERFACES = Registry("interfaces")

@@ -24,6 +24,14 @@ the newest epoch file when ``latest`` cannot be read, and reads three formats in
   refused.
 
 The orbax backend is not ported (a JAX library; the ``.pth`` layout serves instead).
+
+``restore_train_state`` resumes a training state from any of the three (``_restore_state`` of the
+JAX interface, interface_physics.py:1254): the parameters, and the optimizer's state where the file
+says which parameter each entry belongs to.  The port's files carry ``param_names``, the names of
+the optimizer's parameters in the order its state_dict indexes them; a reference ``.pth`` indexes
+them by the reference model's ``parameters()`` order, which nothing in the repository establishes,
+so its parameters load alone (with a warning) and Adam starts afresh; a JAX pickle's Adam moments
+are optax's ``ScaleByAdamState``, found by name.
 """
 
 from __future__ import annotations
@@ -37,7 +45,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from deepphysinet_tpu_torch.train.torch_import import state_dict_from_jax
+from deepphysinet_tpu_torch.train.torch_import import load_adam_moments, state_dict_from_jax
 from deepphysinet_tpu_torch.utils.async_worker import AsyncWorker
 
 _JAX_PACKAGES = ("optax", "flax", "jax", "jaxlib")
@@ -118,16 +126,27 @@ def _state(obj):
     return obj.state_dict() if hasattr(obj, "state_dict") else obj
 
 
+def _param_names(model, optimizer) -> Dict[str, Any]:
+    """``{"param_names": [...]}``: the names of ``optimizer``'s parameters in the order its
+    state_dict indexes them, when both are objects (nothing otherwise)."""
+    if not (hasattr(model, "named_parameters") and hasattr(optimizer, "param_groups")):
+        return {}
+    name_of = {id(p): name for name, p in model.named_parameters()}
+    return {"param_names": [name_of[id(p)] for group in optimizer.param_groups for p in group["params"]]}
+
+
 def save_checkpoint(checkpoint_path: str, epoch: int, global_step: int, model, optimizer=None,
                     prefix: str = "physics", **metadata) -> str:
     """Write ``{prefix}_{epoch}.pth`` and its copy ``{prefix}_latest.pth`` into ``checkpoint_path``.
 
     ``model`` is the ``PhysicsNet`` or its state_dict, ``optimizer`` the torch optimizer, its
     state_dict or None; the metadata keyword arguments go into the bundle beside them (plain
-    Python values, which ``torch.load(weights_only=True)`` reads).  Returns the epoch file."""
+    Python values, which ``torch.load(weights_only=True)`` reads).  Given the model and the optimizer
+    themselves, the bundle also names the optimizer's parameters (``param_names``).  Returns the
+    epoch file."""
     os.makedirs(checkpoint_path, exist_ok=True)
     payload = {"model": _cpu(_state(model)), "epoch": epoch, "gobal_step": global_step,  # [sic], the reference's key
-               "optimizer": _cpu(_state(optimizer))}
+               "optimizer": _cpu(_state(optimizer)), **_param_names(model, optimizer)}
     payload.update(metadata)
     ckpt_file = os.path.join(checkpoint_path, f"{prefix}_{epoch}.pth")
     tmp = f"{ckpt_file}.{os.getpid()}.tmp"
@@ -156,6 +175,7 @@ class AsyncCheckpointer:
                prefix: str = "physics", **metadata) -> None:
         self._w.wait()  # at most one snapshot alive
         model_c, opt_c = _clone(_state(model)), _clone(_state(optimizer))
+        metadata = {**_param_names(model, optimizer), **metadata}
         self._w.submit(lambda: save_checkpoint(checkpoint_path, epoch, global_step, model_c, opt_c,
                                                prefix=prefix, **metadata))
 
@@ -249,3 +269,56 @@ def gather_key_from_state(key: str, state_dict: dict, default):
         return state_dict[key]
     print(f"cannot find {key}, use it as default")
     return default
+
+
+def restore_train_state(state, payload: Dict[str, Any], allow_partial_resume: bool = False):
+    """Resume ``state`` (``train/train_step.py::TrainState``: the model and its torch optimizer) in
+    place from a ``load_checkpoint`` payload: the parameters, then the optimizer's state.
+
+    * The port's own files: the optimizer's state_dict, its entries matched to the model's
+      parameters by ``param_names``.
+    * A reference ``.pth``: no ``param_names``; its optimizer state (if any) indexes the reference
+      model's ``parameters()`` order, which the repository does not establish, so only the
+      parameters load and the optimizer starts afresh, with a warning.
+    * A JAX pickle: optax's ``ScaleByAdamState`` (``count``, ``mu``, ``nu``) becomes the Adam
+      state of every parameter (``train/torch_import.py::load_adam_moments``).
+
+    An optimizer state that does not fit the optimizer (another optimizer, other parameters or
+    shapes) raises, as the JAX interface does, unless ``allow_partial_resume``
+    (``train_cfg.tpu.allow_partial_resume``): then the optimizer starts afresh, with a warning."""
+    model, optimizer = state.model, state.optimizer
+    model.load_state_dict(payload["model"], strict=True)
+    try:
+        if payload.get("optimizer") is not None:
+            names = payload.get("param_names")
+            if names is None:
+                print("warning: the checkpoint's optimizer state indexes the reference model's parameter "
+                      "order, which the port cannot map; resuming from the parameters alone (fresh Adam moments)")
+                optimizer.state.clear()
+                return state
+            saved = payload["optimizer"]
+            params = dict(model.named_parameters())
+            by_name = {n: i for i, n in enumerate(names)}
+            position = {id(params[n]): by_name[n] for n in params}  # KeyError: a parameter the file lacks
+            if len(names) != len(params):
+                raise ValueError(f"the checkpoint's optimizer holds {len(names)} parameters, the model {len(params)}")
+            wanted = {"exp_avg", "exp_avg_sq"} if isinstance(optimizer, torch.optim.Adam) else set()
+            if any(not wanted <= set(st) for st in saved["state"].values()):
+                raise ValueError(f"the checkpoint's optimizer state is not that of {type(optimizer).__name__}")
+            groups = [dict(g, params=[position[id(p)] for p in live["params"]])
+                      for g, live in zip(saved["param_groups"], optimizer.param_groups)]
+            optimizer.load_state_dict({"state": saved["state"], "param_groups": groups})
+        elif payload.get("opt_state") is not None:
+            adam = find_jax_objects(payload["opt_state"], "ScaleByAdamState")
+            if len(adam) != 1:
+                raise ValueError(f"the JAX optimizer state holds {len(adam)} ScaleByAdamState, not one")
+            count, mu, nu = adam[0]
+            load_adam_moments(model, optimizer, mu, nu, int(count))
+    except (KeyError, ValueError, TypeError) as e:
+        if not allow_partial_resume:
+            raise RuntimeError("checkpoint optimizer state does not match the current optimizer structure; pass "
+                               "train_cfg.tpu.allow_partial_resume=True to resume from parameters only "
+                               "(reinitialized Adam moments)") from e
+        print(f"warning: optimizer state not restored ({e!r}); reinitializing (allow_partial_resume)")
+        optimizer.state.clear()
+    return state

@@ -102,15 +102,27 @@ def load_train_state(state, params: Mapping[str, Any], mu: Mapping[str, Any],
     leaves are numpy arrays (or convertible).  The optimizer must be
     ``torch.optim.Adam``, whose state per parameter is ``step`` / ``exp_avg`` /
     ``exp_avg_sq``."""
-    model, optimizer = state.model, state.optimizer
-    if not isinstance(optimizer, torch.optim.Adam):
-        raise TypeError(f"load_train_state needs torch.optim.Adam, got {type(optimizer).__name__}")
-    model.load_state_dict(state_dict_from_jax(params), strict=True)
-    moments = {"exp_avg": state_dict_from_jax(mu), "exp_avg_sq": state_dict_from_jax(nu)}
-    for name, p in model.named_parameters():
-        optimizer.state[p] = {
-            "step": torch.tensor(float(adam_count), dtype=torch.float32),
-            **{k: sd[name].to(p.device).clone() for k, sd in moments.items()},
-        }
+    state.model.load_state_dict(state_dict_from_jax(params), strict=True)
+    load_adam_moments(state.model, state.optimizer, mu, nu, adam_count)
     state.step = int(step)
     return state
+
+
+def load_adam_moments(model: torch.nn.Module, optimizer: torch.optim.Optimizer, mu: Mapping[str, Any],
+                      nu: Mapping[str, Any], adam_count: int) -> None:
+    """Set ``optimizer``'s state (``torch.optim.Adam``: ``step`` / ``exp_avg`` / ``exp_avg_sq`` per
+    parameter) to the moment trees ``mu`` / ``nu`` of an optax ``ScaleByAdamState`` (the structure
+    of the flax parameters) and its update count.  Raises ``TypeError`` for another optimizer and
+    ``KeyError`` / ``ValueError`` when the trees do not fit the model's parameters."""
+    if not isinstance(optimizer, torch.optim.Adam):
+        raise TypeError(f"Adam moments need torch.optim.Adam, got {type(optimizer).__name__}")
+    moments = {"exp_avg": state_dict_from_jax(mu), "exp_avg_sq": state_dict_from_jax(nu)}
+    state = {}
+    for name, p in model.named_parameters():
+        for k, sd in moments.items():
+            if sd[name].shape != p.shape:
+                raise ValueError(f"Adam {k} of {name} is {tuple(sd[name].shape)}, the parameter {tuple(p.shape)}")
+        state[p] = {"step": torch.tensor(float(adam_count), dtype=torch.float32),
+                    **{k: sd[name].to(p.device).clone() for k, sd in moments.items()}}
+    optimizer.state.clear()
+    optimizer.state.update(state)

@@ -5,7 +5,8 @@ optax optimizer state, written by ``deepphysinet_tpu.train.checkpoint.save_model
 ``run_inference`` and the port's ``run_inference(cfg, checkpoint_path=..., device="cpu")`` sweep the
 same hours and export the same files.  The port's own checkpoints round-trip, load into the JAX
 package, fall back past a corrupt ``latest`` and save off the caller's thread; the JAX pickles load
-without jax, flax or optax; the command line runs inference with ``--set`` overrides.
+without jax, flax or optax; the command line runs inference with ``--set`` overrides, and its test
+mode on the JAX checkpoint.
 """
 
 import datetime
@@ -233,7 +234,9 @@ def test_cli_runs_inference_with_overrides(world, tmp_path, monkeypatch):
     assert sorted(os.listdir(tmp_path)) == ["2008-01-01_07_00_00_q.tiff", "2008-01-01_08_00_00_q.tiff"]
     with pytest.raises(SystemExit, match="not a dict"):
         cli.main(args + ["--set", "inference_cfg.start_time.hour=3"])
-    with pytest.raises(NotImplementedError, match="A4"):
-        cli.main(["--config_file", os.path.join(REPO, "configs", "smoke_cpu_cfg.py"), "--mode", "train"])
-    with pytest.raises(NotImplementedError, match="A6"):
-        cli.main(["--config_file", os.path.join(REPO, "configs", "smoke_cpu_cfg.py"), "--mode", "test"])
+    with pytest.raises(NotImplementedError, match="A7"):
+        cli.main(["--config_file", os.path.join(REPO, "configs", "smoke_cpu_cfg.py"), "--mode", "train", "--dist"])
+    metrics = cli.main(["--config_file", os.path.join(REPO, "configs", "smoke_cpu_cfg.py"), "--mode", "test",
+                        "--device", "cpu", "--checkpoints_path", world.ckpt_dir])
+    assert (metrics["epoch"], metrics["global_step"], metrics["full_grid"]) == (4.0, 40.0, 1.0)
+    assert all(np.isfinite(metrics[f"rmse_{k}"]) for k in ("u10", "v10", "pres", "t2", "q2", "rio"))

@@ -370,6 +370,22 @@ cli_args = ["--config_file", "configs/DeepPhysiNet_NCEP_cfg.py", "--mode", "infe
 for item in sets:
     cli_args += ["--set", item]
 hours = cli.main(cli_args)
+# two training steps from scratch through the command line on the same tree (the second with the
+# PDE terms), saved in the port's layout
+d = "train_cfg.train_data."
+train_sets = [item.replace("train_cfg.valid_data.", d) for item in sets[:9]]
+train_sets[-1] = f"{d}end_time=2008-01-02_00_00_00"
+train_sets += [f"{p}{k}={v}" for p in (d, "train_cfg.valid_data.") for k, v in
+               (("label_batch_size", 48), ("batch_size_inter", 24))]
+train_sets += ["train_cfg.num_workers=1", "train_cfg.tpu.pde_start_step=1", "train_cfg.log.with_vis=False"]
+train_args = ["--config_file", "configs/DeepPhysiNet_NCEP_cfg.py", "--mode", "train", "--device", "cpu",
+              "--max_steps", "2", "--checkpoints_path", os.path.join(work, "trained"),
+              "--log_path", os.path.join(work, "log")]
+for item in sets[:-5] + train_sets:
+    train_args += ["--set", item]
+trained = cli.main(train_args)
+train = [trained.step, sorted(os.listdir(os.path.join(work, "trained"))),
+         all(bool(torch.isfinite(p).all()) for p in trained.model.parameters())]
 payload = load_checkpoint(os.environ["DPN_JAX_CKPT"])[0]
 disk = [len(hours), sorted(os.listdir(os.path.join(work, "out"))),
         all(bool(np.isfinite(g["T"]).all()) for _, g in hours),
@@ -389,7 +405,7 @@ print(json.dumps({"loaded": loaded, "T": list(grid["T"].shape), "pts": list(pts.
                   "sweeps_finite": all(np.isfinite(v) for v in sweeps.values()),
                   "sweep_hours": sweeps["n_hours"], "sweep_points": sweeps["n_points"],
                   "has_lead": "rmse_t2_f048" in sweeps and "weighted_total" in sweeps,
-                  "encoded": encoded, "v2": v2, "disk": disk}))
+                  "encoded": encoded, "v2": v2, "disk": disk, "train": train}))
 """
 
 
@@ -426,4 +442,5 @@ def test_port_runs_with_jax_blocked(tmp_path):
                    "sweep_hours": 5.0, "sweep_points": 5.0 * 37 * 65, "has_lead": True,
                    "encoded": {"pallas": True, "flash": True, "fused": True},
                    "v2": [2, "kernel", True, 7, True, True],
-                   "disk": [2, ["2008-01-01_11_00_00_T.tiff", "2008-01-01_12_00_00_T.tiff"], True, 1]}
+                   "disk": [2, ["2008-01-01_11_00_00_T.tiff", "2008-01-01_12_00_00_T.tiff"], True, 1],
+                   "train": [2, ["codes.zip", "physics_0.pth", "physics_latest.pth"], True]}
