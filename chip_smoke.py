@@ -132,7 +132,18 @@ Phases, each of which raises (exit code 1) on failure:
                step by host clock, split into waiting on the loader, the copy to the
                device, the step, the metric fetch, validation and the epoch save, and
                whether the loader keeps up with the step;
-21. timing  -- by CUDA events, medians, alternating order: each kernel and its
+21. device trainer -- training with the points sampled on the device
+               (``--set train_cfg.tpu.sample_mode=device``) through the command line on phase 19's
+               tree and checkpoint, the data in memory: 12 steps of the iid sampler (six epochs of
+               the two windows), 6 of the pool sampler and 2 resumed from the first run's
+               physics_latest, with the v4s kernels' launch counts, the logged losses finite, each
+               run's cube cache (two builds, then hits), two validations with the same parameters
+               identical, the resumed run's first step; on one sampled batch on the card the labels
+               and the pool's conditioning bit for bit, the conditioning against the host dataset's
+               float64 interpolation, the draws by chi-squared; the step split by host clock beside
+               phase 20's and the sampler alone by CUDA events; then the first run again with no
+               save until its last step, beside it;
+22. timing  -- by CUDA events, medians, alternating order: each kernel and its
                plain version at the main paths' sizes (the attention kernels beside one
                ``scaled_dot_product_attention`` call and a bound of three terms, the
                single-tile kernel also at 1,024 tokens; the primal, v4 pair, v4s pair,
@@ -150,7 +161,7 @@ Phases, each of which raises (exit code 1) on failure:
                clock around a synchronize: one frame, one training step of each
                kind, one residual sweep, split into their parts, and one encode
                through ``PhysicsNet.encode`` and ``encode_fused``;
-22. profile -- only with ``--profile``: ``torch.profiler`` over three steps of each
+23. profile -- only with ``--profile``: ``torch.profiler`` over three steps of each
                kind, three frames and three residual sweeps, for the device's busy share.
 
 The last three lines of standard output are a JSON object with each kernel's
@@ -252,9 +263,14 @@ RTOL_BWD = {torch.float32: 1e-4, torch.bfloat16: 2e-3}
 # lie that close, so at the 3-point size one of them does in a tenth of the runs).  The v4s,
 # v6 and v2 checks run on the training batch's points, of which 7 to 8% lie that close; at their
 # block-edge sizes (17 to 129 of the same first points) the count is printed and not held to
-# the share, which a handful of points cannot estimate (4 of the first 17 in bf16).
+# the share, which a handful of points cannot estimate (4 of the first 17 in bf16).  The v4s and v6
+# forward checks hold the share at KINK_SHARE_SIZES only (two of three points happened in a few
+# percent of runs, ROADMAP C36); their smaller calls run on the first n points of the largest call's
+# inputs and must give that call's first n rows bit for bit, so that every point is held, kink
+# points included (as ``point_major_check`` holds the v2 / v3 / v4pe / v5 checks).
 KINK_EPS = 2e-6
 KINK_SHARE = 0.2
+KINK_SHARE_SIZES = (20480, 4096, 1000)
 #
 # The residual sweep through the kernel against the same sweep through the plain
 # version, per returned number: the bar at which the CPU parity test holds the
@@ -1364,7 +1380,283 @@ def trainer_phase(dev, cfg, paths, seed_ckpt: str, tmp: str, launch_counts, rese
         f"in the run, {tc['num_workers']} workers deliver an item every {loader_ms:.3f} ms (an epoch's first wait over "
         f"its {windows} windows) against {work_ms:.3f} ms of copy and step: the host loader "
         f"{'keeps up with' if loader_ms <= work_ms else 'does NOT keep up with'} the step")
-    return dict(counts=counts, test_launches=test_launches)
+    return dict(counts=counts, test_launches=test_launches,
+                host=dict(loader_first=epoch_first, loader_later=within, copy=per_step["copy"], step=per_step["step"],
+                          pde=split_pde["PDE"], fetch=statistics.median(clock["fetch"]) * 1e3,
+                          pde_min=min(clock["step"][i] for i in range(TRAINER_PDE_START, TRAINER_STEPS)) * 1e3,
+                          valid=statistics.median(clock["valid"]) * 1e3))
+
+
+DEVICE_TRAINER_STEPS, DEVICE_POOL_STEPS, DEVICE_RESUMED_STEPS = 12, 6, 2  # six, three and one epochs
+
+
+def v4s_launches_expected(first: int, last: int) -> tuple:
+    """(forward, backward) v4s launches of the trainer's steps first..last (1-based global steps,
+    one run ending at ``last``): two forwards and two backwards a PDE step, two forwards a
+    validation batch with the PDE terms (at each log step and the last)."""
+    steps = range(first, last + 1)
+    pde = [s for s in steps if s - 1 >= TRAINER_PDE_START]
+    logged = [s for s in steps if s % TRAINER_LOG_STEP == 1 or s == last]
+    return 2 * len(pde) + 2 * len([s for s in logged if s in pde]), 2 * len(pde)
+
+
+def device_trainer_phase(dev, cfg, paths, seed_ckpt: str, tmp: str, launch_counts, reset_launch_counts,
+                         host: dict) -> dict:
+    """Training with the points sampled on the device (``train_cfg.tpu.sample_mode=device``) through
+    the command line, in process, on phase 19's tree (two windows) from its seeded checkpoint, at
+    flagship width and batch (20,480 + 4,096 points, bf16), the train and valid data in memory (as
+    the synthetic full-scale configurations set it), ``pde_start_step`` and ``log_step`` as phase
+    20: (a) the iid sampler for ``DEVICE_TRAINER_STEPS`` steps (six epochs), (b) the pool sampler for
+    ``DEVICE_POOL_STEPS``, (c) a resumed iid run of ``DEVICE_RESUMED_STEPS`` from the physics_latest
+    that (a) wrote; after the launch counts are read, (d) run (a) again with no save until its
+    last step, which shows what the epoch saves add to the steps beside them.  Holds:
+    every logged loss finite; the v4s launches (two forwards and two
+    backwards a PDE step, two forwards a PDE validation batch); each run's cube cache two builds,
+    then hits only, and no failed validation; two validations with the same parameters identical;
+    the resumed run's first step at the saved step.  On one sampled batch, on the card: the labels
+    the label cube's rows at the drawn indices bit for bit; the conditioning against the host
+    dataset's interpolation (float64) to float32 rounding; the pool's conditioning
+    (``attach_pool_nwp``) the per-step interpolator's on the pool's points bit for bit; the draws
+    uniform over x, y and slot (chi-squared, 20,480 draws, a fixed seed, p > 1e-6).  Prints by host
+    clock a step split into waiting on the loader, the cube lookup or build, the step and the
+    metric fetch, beside phase 20's host-sampled step, the loader wait in the first epoch against
+    later ones, and by CUDA events the sampler alone (the draws and the gathers and
+    interpolation of one step) of each sampler.  Returns the launch counts."""
+    import glob
+    import shutil
+
+    from scipy import stats
+
+    from deepphysinet_tpu_torch import cli
+    from deepphysinet_tpu_torch.interface import build as ibuild
+    from deepphysinet_tpu_torch.interface import interface_physics as ip
+    from deepphysinet_tpu_torch.ops.interp import trilinear_interp_table_batched
+    from deepphysinet_tpu_torch.train import checkpoint as ckpt
+    from deepphysinet_tpu_torch.train import device_sampling as ds
+
+    ckpt_dirs = {k: os.path.join(tmp, f"device_ckpt_{k}") for k in ("iid", "pool", "nosave")}
+    log_dir = os.path.join(tmp, "device_log")
+    for d in ckpt_dirs.values():
+        shutil.copytree(seed_ckpt, d)
+    tree = {k: paths[k] for k in ("input_path", "label_path", "constant_path", "in_coord_file", "out_coord_file")}
+    tree.update({"input_data_map_cfg.NCEP": paths["input_map_file"], "start_time": "2008-01-01_00_00_00",
+                 "end_time": "2008-01-02_00_00_00", "in_memory": True})
+    sets = [f"train_cfg.{split}.{k}={v}" for split, seed in (("train_data", 0), ("valid_data", 1))
+            for k, v in {**tree, "seed": seed}.items()]
+    sets += ["train_cfg.log.with_vis=False", f"train_cfg.log.log_step={TRAINER_LOG_STEP}",
+             f"train_cfg.tpu.pde_start_step={TRAINER_PDE_START}", "train_cfg.tpu.sample_mode=device"]
+
+    def args(run, sampler, steps, extra=()):
+        out = ["--config_file", FLAGSHIP_CFG, "--checkpoints_path", ckpt_dirs[run], "--mode", "train",
+               "--max_steps", str(steps), "--log_path", log_dir, "--set", f"train_cfg.tpu.ds_sampler={sampler}"]
+        for item in (*sets, *extra):
+            out += ["--set", item]
+        return out
+
+    built, first = [], []
+    build, make_step = ibuild.builder_models, ds.make_device_sampling_train_step
+
+    def recording_build(*a, **k):  # the command line's interface: its clock, caches and validation
+        built.append(build(*a, **k))
+        return built[-1]
+
+    def recording_make_step(step_cfg, scfg):  # each run's state at its first step
+        inner = make_step(step_cfg, scfg)
+
+        def step(state, batch, draws, with_pde):
+            if len(first) < len(built):
+                first.append(dict(step=state.step, device=batch.field.device, draws=draws.mx.device))
+            return inner(state, batch, draws, with_pde)
+
+        return step
+
+    ibuild.builder_models, ds.make_device_sampling_train_step = recording_build, recording_make_step
+    times = {}
+    try:
+        reset_launch_counts()
+        for name, run, sampler, steps, extra in (
+                ("iid", "iid", "iid", DEVICE_TRAINER_STEPS, ()), ("pool", "pool", "pool", DEVICE_POOL_STEPS, ()),
+                ("resumed", "iid", "iid", DEVICE_TRAINER_STEPS + DEVICE_RESUMED_STEPS, ()),
+                # (d), after the counts: run (a) again with no save until its last step, where
+                # (a) saves after each epoch while the next one's steps run
+                ("nosave", "nosave", "iid", DEVICE_TRAINER_STEPS, ("train_cfg.checkpoints.save_step=1000",))):
+            if name == "nosave":
+                counts = launch_counts()
+            t0 = time.perf_counter()
+            state = cli.main(args(run, sampler, steps, extra))
+            torch.cuda.synchronize()
+            times[name] = (time.perf_counter() - t0, state)
+    finally:
+        ibuild.builder_models, ds.make_device_sampling_train_step = build, make_step
+    runs = dict(zip(("iid", "pool", "resumed", "nosave"), built))
+
+    # every logged loss finite, the steps, the resume
+    losses = []
+    for path in sorted(glob.glob(os.path.join(log_dir, "log_*.txt"))):
+        for line in open(path):
+            fields = dict(f.split(":", 1) for f in line.strip().split(",") if ":" in f)
+            losses += [float(fields[k]) for k in ("train loss", "margin", "grad", "valid loss") if k in fields]
+    steps = [times[k][1].step for k in ("iid", "pool", "resumed", "nosave")]
+    want_steps = [DEVICE_TRAINER_STEPS, DEVICE_POOL_STEPS, DEVICE_TRAINER_STEPS + DEVICE_RESUMED_STEPS,
+                  DEVICE_TRAINER_STEPS]
+    _, next_epoch, saved_step = ckpt.load_checkpoint(ckpt_dirs["iid"])
+    log(f"[device trainer] the command line trained {steps[0]} steps (iid) in {times['iid'][0]:.1f} s and {steps[1]} "
+        f"(pool) in {times['pool'][0]:.1f} s, then resumed the iid run for {steps[2] - steps[0]} more in "
+        f"{times['resumed'][0]:.1f} s (first step at step {first[2]['step']}); cubes and draws on "
+        f"{first[0]['device']} / {first[0]['draws']}; {len(losses)} logged losses, grad norms and validation "
+        f"losses, all finite: {bool(losses) and all(np.isfinite(losses))}")
+    if not (losses and all(np.isfinite(losses))) or steps != want_steps or first[2]["step"] != DEVICE_TRAINER_STEPS \
+            or saved_step != steps[2] or any(f["device"] != dev or f["draws"] != dev for f in first):
+        raise AssertionError(f"device trainer: losses {losses}, steps {steps}, first steps {first}, saved {saved_step}")
+
+    # the launches: from counts of 0 before run (a) to after run (c)
+    want = [sum(x) for x in zip(v4s_launches_expected(1, DEVICE_TRAINER_STEPS),
+                                v4s_launches_expected(1, DEVICE_POOL_STEPS),
+                                v4s_launches_expected(DEVICE_TRAINER_STEPS + 1,
+                                                      DEVICE_TRAINER_STEPS + DEVICE_RESUMED_STEPS))]
+    got = [counts["fused_decode_jvp_v4s"], counts["decode_bwd_kernel_v4s"]]
+    others = {k: v for k, v in counts.items() if v and k not in ("fused_decode_jvp_v4s", "decode_bwd_kernel_v4s")}
+    # the caches: each run builds its two windows once (train) and its two valid windows once
+    caches = {k: (r.device_sampling.cubes.builds, r.device_sampling.cubes.hits, r._valid_cubes.builds,
+                  r._valid_cubes.hits, r.valid_failures) for k, r in runs.items()}
+    log(f"[device trainer] v4s forward / backward kernel launches {got[0]} / {got[1]} (expected {want[0]} / "
+        f"{want[1]}); other kernels {others}; cube caches (train builds, hits, valid builds, hits, failed "
+        f"validations): {caches}")
+    run_steps = dict(iid=DEVICE_TRAINER_STEPS, pool=DEVICE_POOL_STEPS, resumed=DEVICE_RESUMED_STEPS,
+                     nosave=DEVICE_TRAINER_STEPS)
+    if got != want or others or any(c[0] != 2 or c[1] != run_steps[k] - 2 or c[2] > 2 or c[4]
+                                    for k, c in caches.items()):
+        raise AssertionError(f"device trainer: launches {got}, expected {want}; others {others}; caches {caches}")
+
+    # two validations with the same parameters, and one sampled batch read back on the card
+    iface, state = runs["iid"], times["iid"][1]
+    sampled = iface.device_sampling
+    n_windows, cache_cap = len(iface._dataset(iface.train_cfg["train_data"])), sampled.cubes.cap
+    scfg, step_cfg, coord = sampled.scfg, sampled.cfg, sampled.cfg.coord_spec
+    valid_ds = iface._dataset(iface.train_cfg["valid_data"])
+    vals = []
+    for _ in range(2):
+        iface._valid_item = 0
+        vals.append(iface._device_mode_validation(valid_ds, step_cfg, scfg, state, True))
+    train_ds = iface._dataset(iface.train_cfg["train_data"])
+    item = train_ds.get_cube_item(0)
+    cube = sampled.cubes.get((item["input_file"],), lambda: None)
+    Hl, Wl, Tl = ds.label_grid_dims(scfg, coord)
+    cdims = ds.coarse_grid_dims(scfg, coord)
+    with torch.no_grad():
+        draws = ds.draw_points(torch.Generator(device=dev).manual_seed(2026), 1, scfg, coord)
+        margin, inter = ds.sample_window_points_batched(draws, cube.nwp_cube, cube.label_cube, scfg, coord)
+        labels_exact = torch.equal(margin.labels[0], cube.label_cube.view(Hl, Wl, Tl, -1)[draws.my[0], draws.mx[0],
+                                                                                         draws.slot[0]])
+        chi = {k: float(stats.chisquare(torch.bincount(getattr(draws, k)[0], minlength=n).cpu().numpy()).pvalue)
+               for k, n in (("mx", Wl), ("my", Hl), ("slot", Tl))}
+        # the points' coordinates as the sampler forms them (float32), interpolated on the host in float64
+        coords = (((scfg.begin_lon + draws.mx[0] * scfg.fine_step).float(),
+                   (scfg.begin_lat + draws.my[0] * scfg.fine_step).float(),
+                   (draws.slot[0] * scfg.label_time_step).float(), margin),
+                  (scfg.begin_lon + draws.ix[0] * (Wl - 1) * scfg.fine_step,
+                   scfg.begin_lat + draws.iy[0] * (Hl - 1) * scfg.fine_step, draws.it[0].float(), inter))
+        cond_err = 0.0
+        for lon, lat, t_h, pts in coords:
+            host_cond = train_ds._interp_cube_at(item["nwp_cube"], *(a.double().cpu().numpy() for a in (lon, lat, t_h)))
+            err = np.abs(pts.nwp[0].double().cpu().numpy() - host_cond) / (1e-5 * (1.0 + np.abs(host_cond)))
+            cond_err = max(cond_err, float(err.max()))
+        pool_cube = runs["pool"].device_sampling.cubes.get((item["input_file"],), lambda: None)
+        mx, my, slot = ds._decode_pool_idx(pool_cube.pool_idx[0].long(), scfg, coord)
+        per_step = trilinear_interp_table_batched(
+            pool_cube.nwp_cube, cdims, (scfg.begin_lon + mx * scfg.fine_step).float()[None],
+            (scfg.begin_lat + my * scfg.fine_step).float()[None], (slot * scfg.label_time_step).float()[None],
+            **ds._interp_kw(scfg))
+        pool_exact = torch.equal(per_step[0], pool_cube.pool_nwp[0])
+    log(f"[device trainer] two validations with the same parameters identical: {vals[0] == vals[1]} (valid loss "
+        f"{vals[0]['total_loss']:.6g}); one sampled batch ({scfg.n_margin} + {scfg.n_inter} points): the labels the "
+        f"label cube's rows at the drawn indices bit for bit: {labels_exact}; the conditioning against the host "
+        f"dataset's float64 interpolation at most {cond_err:.3f} of the bound 1e-5 (1 + |host|); the pool's "
+        f"conditioning the per-step interpolator's on its {pool_cube.pool_idx.shape[1]} points bit for bit: "
+        f"{pool_exact}; chi-squared p of x, y, slot: " + ", ".join(f"{k} {v:.3g}" for k, v in chi.items()))
+    if not (vals[0] is not None and vals[0] == vals[1] and labels_exact and cond_err <= 1.0 and pool_exact
+            and min(chi.values()) > 1e-6):
+        raise AssertionError(f"device trainer: validations {vals}, labels {labels_exact}, conditioning {cond_err}, "
+                             f"pool {pool_exact}, chi-squared {chi}")
+
+    # by host clock (medians over the steps after the first), and the sampler alone by CUDA events
+    def med(xs):
+        return statistics.median(xs) * 1e3 if xs else float("nan")
+
+    split = {}
+    for name in ("iid", "pool", "nosave"):
+        clock = runs[name].step_clock
+        n = len(clock["step"])
+        split[name] = dict(loader_first=med(clock["loader"][:2]), loader_later=med(clock["loader"][2:]),
+                           cube_build=med(clock["cube"][:2]), cube_hit=med(clock["cube"][2:]),
+                           step=med(clock["step"][1:]), pde=med(clock["step"][TRAINER_PDE_START:n]),
+                           pde_min=min(clock["step"][TRAINER_PDE_START:n]) * 1e3, fetch=med(clock["fetch"]),
+                           # an epoch is two steps: its first follows the last epoch's save (off the loop's
+                           # thread, which the host loader's wait hides in phase 20), its second does not
+                           pde_first=med([clock["step"][i] for i in range(TRAINER_PDE_START, n) if i % 2 == 0]),
+                           pde_second=med([clock["step"][i] for i in range(TRAINER_PDE_START, n) if i % 2 == 1]),
+                           valid_build=med(clock["valid"][:2]), valid=med(clock["valid"][2:]),
+                           saves=len(clock["save"]), pde_steps=[v * 1e3 for v in clock["step"][TRAINER_PDE_START:n]])
+    sampler_ms = {}
+    for name in ("iid", "pool"):
+        c = runs[name].device_sampling.cubes.get((item["input_file"],), lambda: None)
+        g = torch.Generator(device=dev).manual_seed(7)
+
+        def sample(c=c, g=g):
+            return ds.sample_batch(c, ds.draw_points(g, 1, scfg, coord), scfg, coord, dev)
+
+        sample()
+        sampler_ms[name] = statistics.median(cuda_ms(sample, 20) for _ in range(3))
+    # the step alone, outside the loop (no loader threads, no saves): the host-sampled step on the
+    # flagship's synthetic batch (on the device already) and the device-sampled steps, in turns
+    from deepphysinet_tpu_torch.data.window import synthetic_batch
+    from deepphysinet_tpu_torch.train import train_step as ts
+
+    batch = ts.batch_to_device(synthetic_batch(cfg, seed=0), device=dev)
+    host_step = ts.make_train_step(step_cfg)
+    ds_step = ds.make_device_sampling_train_step(step_cfg, scfg)
+    pool_cube = runs["pool"].device_sampling.cubes.get((item["input_file"],), lambda: None)
+    g = torch.Generator(device=dev).manual_seed(11)
+    kinds = dict(host=lambda: host_step(state, batch, True),
+                 iid=lambda: ds_step(state, cube, ds.draw_points(g, 1, scfg, coord), True),
+                 pool=lambda: ds_step(state, pool_cube, ds.draw_points(g, 1, scfg, coord), True))
+    alone = {k: [] for k in kinds}
+    for _ in range(6):
+        for k, fn in kinds.items():
+            alone[k].append(host_ms(fn))
+    alone = {k: statistics.median(v[1:]) for k, v in alone.items()}
+    log("[device trainer] one PDE step alone by host clock around a synchronize, ms (median of 5 after one, in "
+        "turns, from run (a)'s state): " + ", ".join(f"{k} {v:.3f}" for k, v in alone.items())
+        + " (host: the synthetic batch already on the device)")
+    for name in ("iid", "pool"):
+        sp = split[name]
+        log(f"[device trainer] {name}: one step by host clock, ms (medians): waiting on the loader in the first epoch "
+            f"{sp['loader_first']:.3f}, in later epochs {sp['loader_later']:.3f}; the cube "
+            f"{sp['cube_build']:.3f} built, {sp['cube_hit']:.3f} from the cache; the step {sp['step']:.3f} (PDE "
+            f"{sp['pde']:.3f}, least {sp['pde_min']:.3f}; an epoch's first step {sp['pde_first']:.3f}, its second "
+            f"{sp['pde_second']:.3f}); at a log step the validation {sp['valid_build']:.3f} with its "
+            f"window's cube built, {sp['valid']:.3f} from the cache, and the metric fetch {sp['fetch']:.3f}; "
+            f"the sampler alone (draws, gathers, interpolation; CUDA events) {sampler_ms[name]:.3f}, "
+            f"{100 * sampler_ms[name] / sp['pde']:.1f}% of a PDE step; with {n_windows} windows, all held in the "
+            f"{cache_cap}-window cube cache, the loop "
+            f"{'still waits' if sp['loader_later'] > 0.1 * sp['step'] else 'no longer waits'} on its loader "
+            f"(an epoch of more windows than the cache builds every cube it meets)")
+    sp, sa = split["nosave"], split["iid"]
+    if sp["saves"] != 1:
+        raise AssertionError(f"device trainer: run (d) saved {sp['saves']} times, expected once, at its end")
+    log(f"[device trainer] run (a) again with no save until its last step (d; {sp['saves']} save against "
+        f"{sa['saves']} in (a)): the PDE step {sp['pde']:.3f} (an epoch's first {sp['pde_first']:.3f}, "
+        f"its second {sp['pde_second']:.3f}) against (a)'s {sa['pde']:.3f} ({sa['pde_first']:.3f}, "
+        f"{sa['pde_second']:.3f}) and the step alone {alone['iid']:.3f}; the PDE steps in order, ms: (a) "
+        + " ".join(f"{v:.1f}" for v in sa["pde_steps"]) + "; (d) " + " ".join(f"{v:.1f}" for v in sp["pde_steps"]))
+    log(f"[device trainer] beside phase 20's host-sampled step, ms: loader wait at an epoch's first step "
+        f"{host['loader_first']:.3f}, at its second {host['loader_later']:.3f} (device-sampled, later epochs: iid "
+        f"{split['iid']['loader_later']:.3f}, pool {split['pool']['loader_later']:.3f}); copy {host['copy']:.3f} "
+        f"against the cube from the cache {split['iid']['cube_hit']:.3f}; the PDE step {host['pde']:.3f} (least "
+        f"{host['pde_min']:.3f}) against {split['iid']['pde']:.3f} ({split['iid']['pde_min']:.3f}, iid) and "
+        f"{split['pool']['pde']:.3f} ({split['pool']['pde_min']:.3f}, pool); the validation batch {host['valid']:.3f} "
+        f"against {split['iid']['valid']:.3f} (iid, from the cache)")
+    return dict(counts=counts, split=split, sampler_ms=sampler_ms, alone=alone)
 
 
 def attention_and_encoder_timing(dev, cd, model, field, fh_norm: float, stage_builds: dict) -> dict:
@@ -1728,17 +2020,32 @@ def main() -> int:
     def v4s_w1(fw6):  # the primal layer-1 rows of the v4s / v6 weights, [6, in_ch, hid]
         return fw6.w1g.reshape(n_vars, -1, fw6.w1g.shape[-1])
 
+    def first_rows(n, largest, p, t, point_axis):
+        """The C36 check: a call on the first n points gives the largest call's first n rows (the
+        points' axis ``point_axis`` of p, the next of t) bit for bit; returns the log text."""
+        if largest is None:
+            return ""
+        p1, t1 = largest
+        same = torch.equal(p, p1.narrow(point_axis, 0, n)) and torch.equal(t, t1.narrow(point_axis + 1, 0, n))
+        if not same:
+            raise AssertionError(f"the kernel's rows at N={n} differ from the N={p1.shape[point_axis]} call's")
+        return f"; the first {n} rows of the N={p1.shape[point_axis]} call bit-equal: {same}"
+
     # ---- 4. v4s forward kernel against plain version -------------------------------------------
     fwd_err, fwd_rel, bwd_err, bwd_rel = {}, {}, {}, {}
     for dtype in (torch.bfloat16, torch.float32):
+        fw6, pe_all, cd_all, ref_all = v4s_inputs(V4S_SIZES[0], dtype)
+        largest = None
         for n in V4S_SIZES:
-            fw6, pe_cm, cd_pe, ref_t = v4s_inputs(n, dtype)
+            pe_cm, cd_pe, ref_t = pe_all[:n].contiguous(), cd_all[:n].contiguous(), ref_all[:, :n].contiguous()
             near = near_kink(fw6, pe_cm, v4s_w1(fw6), cd_pe, dtype)
             left_out = f"; {int(near.sum())} of {n} points near a relu's kink left out"
-            if n not in BLOCK_EDGE_SIZES and int(near.sum()) > max(1, KINK_SHARE * n):
+            if n in KINK_SHARE_SIZES and int(near.sum()) > max(1, KINK_SHARE * n):
                 raise AssertionError(f"v4s checks: {left_out} ({dtype})")
             p, t = dk.fused_decode_jvp_v4s(fw6, pe_cm, cd_pe, ref_t, dtype)
             torch.cuda.synchronize()
+            left_out += first_rows(n, largest, p, t, 1)
+            largest = largest or (p, t)
             p0, t0_ = dk.decode_jvp_v4s_ref(fw6, pe_cm, cd_pe, ref_t, dtype)
             fwd_err[(dtype, n)], fwd_rel[(dtype, n)] = forward_check("forward", dtype, n, p, t, p0, t0_, left_out,
                                                                      keep=~near)
@@ -2193,8 +2500,11 @@ def main() -> int:
 
     v6_fwd_err, v6_fwd_rel, v6_bwd_err, v6_bwd_rel = {}, {}, {}, {}
     for dtype in (torch.bfloat16, torch.float32):
+        fw6, trig_all, cd_all, ref_all, pe_all, ref_t_all = v6_inputs(V4S_SIZES[0], dtype)
+        largest = None
         for n in V4S_SIZES:
-            fw6, trig, cd_pe, ref, pe_cm, ref_t = v6_inputs(n, dtype)
+            trig, cd_pe, ref = trig_all[:, :n].contiguous(), cd_all[:n].contiguous(), ref_all[:n].contiguous()
+            pe_cm, ref_t = pe_all[:n].contiguous(), ref_t_all[:, :n].contiguous()
             p, t = dk.fused_decode_jvp_v6(fw6, trig, cd_pe, ref, dtype)
             p_s, t_s = dk.fused_decode_jvp_v4s(fw6, pe_cm, cd_pe, ref_t, dtype)
             torch.cuda.synchronize()
@@ -2206,12 +2516,14 @@ def main() -> int:
             # by now the model has taken training steps whose atomic adds differ from run to
             # run, so which points lie on a relu's kink does too: left out as in the v4 checks
             near = near_kink(fw6, pe_cm, v4s_w1(fw6), cd_pe, dtype)
-            if n not in BLOCK_EDGE_SIZES and int(near.sum()) > max(1, KINK_SHARE * n):
+            if n in KINK_SHARE_SIZES and int(near.sum()) > max(1, KINK_SHARE * n):
                 raise AssertionError(f"v6 checks: {int(near.sum())} of {n} points near a relu's kink ({dtype})")
+            rows = first_rows(n, largest, p, t, 0)
+            largest = largest or (p, t)
             v6_fwd_err[(dtype, n)], v6_fwd_rel[(dtype, n)] = forward_check(
                 "v6 forward", dtype, n, p.t(), t.transpose(1, 2), p0.t(), t0_.transpose(1, 2),
                 f"; bit-equal to the v4s kernel on the same points; {int(near.sum())} of {n} points near a "
-                "relu's kink left out", keep=~near)
+                "relu's kink left out" + rows, keep=~near)
             g_p, g_t = cotangents(n, seed=n + 2)
             g_p[:, near], g_t[:, :, near] = 0.0, 0.0
             g_p, g_t = point_major(g_p, g_t)
@@ -2728,11 +3040,16 @@ def main() -> int:
 
         # ---- 20. training from disk: the trainer, its resume and --mode test -------------------------
         trainer = trainer_phase(dev, cfg, disk_paths, disk_ckpt, disk_tmp, launch_counts, reset_launch_counts)
+        torch.cuda.empty_cache()
+
+        # ---- 21. training with the points sampled on the device: both samplers and a resume ---------
+        device_trainer = device_trainer_phase(dev, cfg, disk_paths, disk_ckpt, disk_tmp, launch_counts,
+                                              reset_launch_counts, trainer["host"])
     finally:
         shutil.rmtree(disk_tmp, ignore_errors=True)
     torch.cuda.empty_cache()
 
-    # ---- 21. timing --------------------------------------------------------------------------------
+    # ---- 22. timing --------------------------------------------------------------------------------
     hid, in_ch = cfg["net_cfg"]["hidden_channels"], cfg["net_cfg"]["in_channels"]
     two_f = in_ch // 3
 
@@ -3264,7 +3581,7 @@ def main() -> int:
     enc_timing = attention_and_encoder_timing(dev, cd, model, field, window.forecast_h / dcfg.forecast_time_period,
                                               enc_stage_builds)
 
-    # ---- 22. profile (only with --profile): the device's busy share and its largest kernels ----
+    # ---- 23. profile (only with --profile): the device's busy share and its largest kernels ----
     if "--profile" in sys.argv[1:]:
         from torch.profiler import ProfilerActivity, profile
 
@@ -3403,6 +3720,7 @@ def main() -> int:
         {"name": "fused_decode_jvp_v4s", "route": "cuda", "source": csrc + "decode_jvp_v4s.cu",
          "replaces": f"{jax_file}:2358",
          "launches": fwd_launches, "launches_trainer": trainer["counts"]["fused_decode_jvp_v4s"],
+         "launches_device_trainer": device_trainer["counts"]["fused_decode_jvp_v4s"],
          "max_abs_err": fwd_err[(cd, main_n)],
          "max_rel_err": fwd_rel[(cd, main_n)], "points": main_n,
          "ms": t["fwd"], "plain_ms": t["fwd_plain"], "bound_ms": t["fwd_bound"][0],
@@ -3410,6 +3728,7 @@ def main() -> int:
         {"name": "decode_bwd_kernel_v4s", "route": "cuda", "source": csrc + "decode_bwd_v4s.cu",
          "replaces": f"{jax_file}:2508",
          "launches": bwd_launches, "launches_trainer": trainer["counts"]["decode_bwd_kernel_v4s"],
+         "launches_device_trainer": device_trainer["counts"]["decode_bwd_kernel_v4s"],
          "max_abs_err": bwd_err[(cd, main_n)],
          "max_rel_err": bwd_rel[(cd, main_n)], "points": main_n,
          "ms": t["bwd"], "plain_ms": t["bwd_plain"], "bound_ms": t["bwd_bound"][0],

@@ -7,8 +7,9 @@ configuration (``config/config.py``), applies ``--set key.path=value`` overrides
 
 * ``train``: ``InterfacePhysics.run_train_interface`` (``--max_steps``, ``--log_path``,
   ``--checkpoints_path``), after a snapshot of the port's sources into the checkpoint directory
-  (``codes.zip``, as ``train.py`` zips the repository's); ``--dist`` (several GPUs) waits for
-  ROADMAP A7;
+  (``codes.zip``, as ``train.py`` zips the repository's); ``--set train_cfg.tpu.sample_mode=device``
+  samples the points on the device (``--set train_cfg.tpu.ds_sampler=pool`` for the pool sampler);
+  ``--dist`` (several GPUs, with either sampling) waits for ROADMAP A7;
 * ``test``: ``run_test_interface`` (held-out RMSE of a checkpoint), printed as one JSON line;
 * ``inference``: ``run_inference_interface`` (a checkpoint and a GeoTIFF tree in, GeoTIFFs and jpg
   renders out).
@@ -93,8 +94,8 @@ def main(argv: Optional[Sequence[str]] = None):
                              "(values parsed as python literals when possible)")
     args = parser.parse_args(argv)
     if args.dist:
-        raise NotImplementedError("--dist (data-parallel training over several GPUs) is not ported yet: it waits for "
-                                  "ROADMAP A7")
+        raise NotImplementedError("--dist (data-parallel training over several GPUs, with host or device sampling) is "
+                                  "not ported yet: it waits for ROADMAP A7")
     from deepphysinet_tpu_torch.interface.build import builder_models
 
     cfg = Config.fromfile(args.config_file)

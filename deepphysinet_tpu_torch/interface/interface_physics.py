@@ -1,10 +1,18 @@
 """InterfacePhysics: the training, test and inference runtime of the port.
 
 Counterpart of ``deepphysinet_tpu/interface/interface_physics.py`` on one device and in one
-process, with the host sampling the flagship configuration uses (``sample_mode="host"``).
-Orchestration stays on the host: datasets, epochs, logging, checkpoints.  Each batch of the
-``PrefetchLoader`` goes to the device and through the training step (``train/train_step.py``),
-which on a GPU launches the step's decode kernels.
+process.  Orchestration stays on the host: datasets, epochs, logging, checkpoints.  Two ways to
+feed the step, by ``train_cfg.tpu.sample_mode``:
+
+* ``"host"`` (the flagship's): each batch of the ``PrefetchLoader`` (points drawn and interpolated
+  by ``PhysicsDataset.__getitem__``) goes to the device and through the training step
+  (``train/train_step.py``), which on a GPU launches the step's decode kernels;
+* ``"device"``: the loader delivers a window's cubes (``get_cube_item``), which stay on the device in
+  an LRU of ``tpu.device_cube_cache`` windows, and every step draws fresh points there
+  (``train/device_sampling.py``, ``tpu.ds_sampler`` ``'iid'`` or ``'pool'``) from one
+  ``torch.Generator`` seeded ``global_step + 1``; validation draws a valid window's points on the
+  device from a generator seeded 7919 at each call (the same points every time), rotating over
+  ``tpu.valid_windows`` cached windows (``tpu.device_valid`` turns it off).
 
 Kept from the JAX interface: the ``pde_start_step`` curriculum, the per-epoch learning rate of
 ``train/schedules.py`` written into the optimizer at every epoch end and at the resumed epoch, one
@@ -22,14 +30,18 @@ Differences:
 * checkpoints are the ``.pth`` bundles of ``train/checkpoint.py`` (``ckpt_backend`` ``'pickle'``);
   the orbax backend is not ported;
 * the SIGTERM handler that a run installs is taken down when the run ends;
-* ``step_clock`` holds each step's host-clock split (loader, copy to the device, step, metric
-  fetch, validation, checkpoint save), for ``chip_smoke.py``;
-* not ported: ``run_train_interface_dist`` (ROADMAP A7), device sampling (``sample_mode="device"``,
-  ROADMAP A5) and the mesh helpers.
+* ``step_clock`` holds each step's host-clock split (loader, copy to the device or cube lookup,
+  step, metric fetch, validation, checkpoint save), for ``chip_smoke.py``;
+* the device-sampled loop logs and validates on the loop's thread (JAX hands the metric fetch to a
+  worker thread and drops a log event when that thread falls behind), and it draws from a
+  ``torch.Generator`` where JAX splits keys in blocks of 8,192 (ROADMAP C37);
+* not ported: ``run_train_interface_dist`` (ROADMAP A7, with the device-sampled loop's mesh
+  branch) and the mesh helpers.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import os
 import signal
@@ -47,6 +59,7 @@ from deepphysinet_tpu_torch.device import resolve_device
 from deepphysinet_tpu_torch.models.physics_net import PhysicsNet
 from deepphysinet_tpu_torch.registry import INTERFACES
 from deepphysinet_tpu_torch.train import checkpoint as ckpt
+from deepphysinet_tpu_torch.train import device_sampling as ds
 from deepphysinet_tpu_torch.train.optim import set_learning_rate
 from deepphysinet_tpu_torch.train.schedules import build_lr_schedule
 from deepphysinet_tpu_torch.train.train_step import (
@@ -55,7 +68,7 @@ from deepphysinet_tpu_torch.train.train_step import (
 from deepphysinet_tpu_torch.utils.time_metric import TimeMetric
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "f32": torch.float32, "bf16": torch.bfloat16}
-STEP_PARTS = ("loader", "copy", "step", "fetch", "valid", "save")
+STEP_PARTS = ("loader", "copy", "cube", "step", "fetch", "valid", "save")
 
 
 class _NullWriter:
@@ -80,6 +93,101 @@ def _summary_writer(log_path: str):
         return _NullWriter()
 
 
+class _CubeView:
+    """A dataset's windows as ``get_cube_item`` dicts, for the loader of the device-sampled loop."""
+
+    def __init__(self, dataset):
+        self.dataset = dataset
+
+    def __len__(self):
+        return len(self.dataset)
+
+    def __getitem__(self, i):
+        return self.dataset.get_cube_item(i)
+
+
+def sampler_config(dataset) -> ds.SamplerConfig:
+    """The device sampler's geometry and point counts of a dataset's split."""
+    return ds.SamplerConfig(
+        n_margin=dataset.label_batch_size, n_inter=dataset.inter_batch_size,
+        window_h=dataset.input_time_step * dataset.input_time_step_nums, input_time_step=dataset.input_time_step,
+        label_time_step=int(dataset.label_time_step), begin_lat=dataset.begin_lat, begin_lon=dataset.begin_lon,
+        fine_step=float(dataset.out_lon[1] - dataset.out_lon[0]),
+        coarse_step=float(dataset.in_lon[1] - dataset.in_lon[0]))
+
+
+class _DeviceSampledSteps:
+    """What the device-sampled loop adds to the epochs: the loader of window cubes (two threads, a
+    window a batch), the device's cube cache (``cubes``: ``tpu.device_cube_cache`` windows), the
+    generator of the draws (seeded ``global_step + 1``) and the step.  With ``DPN_LOOP_PROF`` set,
+    the loop's time a step by part after 200 steps of warm-up, printed at its end."""
+
+    def __init__(self, iface, train_dataset, cfg, global_step: int):
+        tpu_cfg = iface.train_cfg.get("tpu", {})
+        self.device = iface.device
+        self.cfg = cfg
+        self.scfg = sampler_config(train_dataset)
+        self.use_pool = iface.ds_sampler == "pool"
+        self.train_step = ds.make_device_sampling_train_step(cfg, self.scfg)
+        self.generator = torch.Generator(device=self.device).manual_seed(int(global_step) + 1)
+        self.loader = PrefetchLoader(_CubeView(train_dataset), batch_size=1, shuffle=True, drop_last=True,
+                                     num_workers=2)
+        self.cubes = ds.DeviceLRU(int(tpu_cfg.get("device_cube_cache", 8)))
+        self.prof = (dict(loader=0.0, cube=0.0, key=0.0, dispatch=0.0, steps=0)
+                     if os.environ.get("DPN_LOOP_PROF") else None)
+
+    def cube(self, data) -> ds.CubeBatch:
+        """A loader batch's window on the device, from the cache or built once (with the pool and
+        its conditioning under ``ds_sampler='pool'``)."""
+        scfg, coord_spec = self.scfg, self.cfg.coord_spec
+
+        def build():
+            cube = ds.cube_batch_host(
+                data["field_data"], data["forecast_h"], data["nwp_cube"], data["label_cube"],
+                pool_pad=scfg.n_margin if self.use_pool else None,
+                pool_seeds=[ds._pool_seed_of(f) for f in data["input_file"]] if self.use_pool else None,
+                keep_label_cube=not self.use_pool, expect_dims=ds.expected_cube_dims(scfg, coord_spec))
+            cube = ds.cube_to_device(cube, self.device)
+            return ds.attach_pool_nwp(cube, scfg, coord_spec) if self.use_pool else cube
+
+        return self.cubes.get(tuple(data["input_file"]), build)
+
+    def step(self, state, cube: ds.CubeBatch, with_pde: bool):
+        t0 = time.perf_counter()
+        draws = ds.draw_points(self.generator, cube.field.shape[0], self.scfg, self.cfg.coord_spec)
+        t1 = time.perf_counter()
+        out = self.train_step(state, cube, draws, with_pde)
+        if self.prof is not None:
+            self.prof["key"] += t1 - t0
+            self.prof["dispatch"] += time.perf_counter() - t1
+        return out
+
+    def profile(self, loader_s: float, cube_s: float, end: float) -> None:
+        prof = self.prof
+        if prof is None:
+            return
+        prof["loader"] += loader_s
+        prof["cube"] += cube_s
+        prof["steps"] += 1
+        prof["_end"] = end  # leaves out the final epoch save
+        if prof["steps"] == 200 and "_start" not in prof:  # cut the warm-up
+            for k in ("loader", "cube", "key", "dispatch"):
+                prof[k] = 0.0
+            prof["steps"] = 0
+            prof["_start"] = time.perf_counter()
+
+    def print_profile(self) -> None:
+        prof = self.prof
+        if prof is None or prof["steps"] == 0 or "_start" not in prof:
+            return
+        n = prof["steps"]
+        total = (prof["_end"] - prof["_start"]) / n * 1e3
+        parts = {k: prof[k] / n * 1e3 for k in ("loader", "cube", "key", "dispatch")}
+        print("[loop-prof] steps:%d total:%.3f ms/step  loader:%.3f cube:%.3f key:%.3f dispatch:%.3f other:%.3f"
+              % (n, total, parts["loader"], parts["cube"], parts["key"], parts["dispatch"],
+                 total - sum(parts.values())))
+
+
 @INTERFACES.register("InterfacePhysics")
 class InterfacePhysics:
     def __init__(self, meta_cfg: dict, net_cfg: dict, obs_norm_cfg: dict, variable_cfg: dict, train_cfg: dict,
@@ -99,6 +207,12 @@ class InterfacePhysics:
         self.attn_impl = tpu_cfg.get("attn_impl")
         self.pde_start_step = int(tpu_cfg.get("pde_start_step", 2000))
         self.sample_mode = str(tpu_cfg.get("sample_mode", "host"))
+        # the device sampler's margin draw: 'iid' = the reference's per-point uniform draw (a row
+        # gather each point), 'pool' = one contiguous slice of a per-window permuted label pool
+        self.ds_sampler = str(tpu_cfg.get("ds_sampler", "iid"))
+        # device-mode validation at every log step (False isolates the loop's own throughput)
+        self.device_valid = bool(tpu_cfg.get("device_valid", True))
+        self.valid_failures = 0  # device-mode validations that failed (each reported, three in a row fatal)
         self.kernel_version = int(tpu_cfg.get("kernel_version", 7))
         self.packed_assembly = bool(tpu_cfg.get("packed_assembly", True))
         self.ckpt_backend = str(tpu_cfg.get("ckpt_backend", "pickle"))
@@ -160,9 +274,8 @@ class InterfacePhysics:
         """Train from ``train_cfg``: resume from ``physics_latest`` in the checkpoint directory or
         start afresh, then the epochs; stop after ``max_steps`` optimizer steps if given.  Returns the
         final ``TrainState``."""
-        if self.sample_mode == "device":
-            raise NotImplementedError("sample_mode='device' (sampling on the device) is not ported yet: it waits "
-                                      "for ROADMAP A5; the flagship samples on the host (sample_mode='host')")
+        if self.sample_mode not in ("host", "device"):
+            raise ValueError(f"unknown sample_mode {self.sample_mode!r} (host|device)")
         tc = self.train_cfg
         tpu_cfg = dict(tc.get("tpu", {}))
         batch_size = tc["batch_size"]
@@ -217,9 +330,16 @@ class InterfacePhysics:
         set_learning_rate(state.optimizer, lr)
         print("set lr to:", lr)
 
-        train_step = make_train_step(cfg)
-        eval_step = make_eval_step(cfg)
+        device_mode = self.sample_mode == "device"
+        if device_mode:
+            sampled = self.device_sampling = _DeviceSampledSteps(self, train_dataset, cfg, global_step)
+            loader = sampled.loader
+        else:
+            train_step = make_train_step(cfg)
+            eval_step = make_eval_step(cfg)
+            loader = train_loader
         time_metric = TimeMetric()
+        loop_metric = TimeMetric()  # never reset: the device-sampled log line's t:
         # SIGTERM: finish the step, save physics_latest, stop (the reference resumes at epoch ends only)
         preempted = {"flag": False}
         previous_handler = self._install_preemption_handler(preempted)
@@ -247,20 +367,35 @@ class InterfacePhysics:
                 if stop:
                     break
                 t0 = time.perf_counter()
-                for batch_id, data in enumerate(train_loader):
+                for batch_id, data in enumerate(loader):
                     t1 = time.perf_counter()
                     with_pde = bool(tc.get("with_pde", True)) and global_step >= self.pde_start_step
                     global_step += 1
-                    batch = self._to_batch(data)
-                    t2 = time.perf_counter()
-                    state, metrics = train_step(state, batch, with_pde)
+                    if device_mode:
+                        cube = sampled.cube(data)
+                        t2 = time.perf_counter()
+                        state, metrics = sampled.step(state, cube, with_pde)
+                        clock["cube"].append(t2 - t1)
+                    else:
+                        batch = self._to_batch(data)
+                        t2 = time.perf_counter()
+                        state, metrics = train_step(state, batch, with_pde)
+                        clock["copy"].append(t2 - t1)
                     t3 = time.perf_counter()
                     clock["loader"].append(t1 - t0)
-                    clock["copy"].append(t2 - t1)
                     clock["step"].append(t3 - t2)
+                    if device_mode:
+                        sampled.profile(t1 - t0, t2 - t1, t3)
                     steps_since_log += 1
 
-                    if global_step % log_step == 1 or (max_steps and global_step >= max_steps):
+                    if device_mode and (global_step % log_step == 1 or (max_steps and global_step >= max_steps)):
+                        fps = time_metric.get_fps(steps_since_log)
+                        time_metric.reset()
+                        steps_since_log = 0
+                        self._log_device_sampled(sampled, valid_dataset, cfg, state, metrics, with_pde, epoch,
+                                                 num_epoch, global_step, fps, loop_metric.get_time(), log_fp,
+                                                 summary, clock, t3)
+                    elif global_step % log_step == 1 or (max_steps and global_step >= max_steps):
                         fps = time_metric.get_fps(steps_since_log * batch_size)
                         time_metric.reset()
                         steps_since_log = 0
@@ -318,10 +453,13 @@ class InterfacePhysics:
                 lr = schedule(epoch + 1)
                 set_learning_rate(state.optimizer, lr)
                 if (epoch % save_step == 0 or is_last) and not preemption_saved:
-                    summary.add_scalar("learning_rate", lr, global_step)
+                    if not device_mode:  # the JAX device-sampled loop writes no rate summary
+                        summary.add_scalar("learning_rate", lr, global_step)
                     t_save = time.perf_counter()
                     self._epoch_save(async_ckpt, is_last, checkpoint_path, epoch, global_step, state, meta_kwargs)
                     clock["save"].append(time.perf_counter() - t_save)
+            if device_mode:
+                sampled.print_profile()
             if async_ckpt is not None:
                 async_ckpt.close()  # drain in-flight saves
         finally:
@@ -333,6 +471,102 @@ class InterfacePhysics:
             summary.close()
             self._restore_preemption_handler(previous_handler)
         return state
+
+    def _log_device_sampled(self, sampled, valid_dataset, cfg, state, metrics, with_pde, epoch, num_epoch,
+                            global_step, fps, elapsed, log_fp, summary, clock, t_step) -> None:
+        """A log step of the device-sampled loop: its validation, then one device-to-host copy of
+        the train and valid scalars, the ``[device-sampled]`` line and the summaries."""
+        vm_arrays = None
+        if self.device_valid and len(valid_dataset) > 0:
+            vm_arrays = self._device_mode_validation(valid_dataset, cfg, sampled.scfg, state, with_pde, fetch=False)
+        t_valid = time.perf_counter()
+        fetch = dict(metrics)
+        if vm_arrays is not None:
+            fetch.update({"valid:" + k: v for k, v in vm_arrays.items()})
+        got = self._fetch_metrics(fetch)
+        clock["valid"].append(t_valid - t_step)
+        clock["fetch"].append(time.perf_counter() - t_valid)
+        m = {k: v for k, v in got.items() if not k.startswith("valid:")}
+        vm = {k[6:]: v for k, v in got.items() if k.startswith("valid:")} or None
+        line = (f"[device-sampled] epoch:{epoch}/{num_epoch},iter:{global_step},train loss:{m['total_loss']:.6f},"
+                f"margin:{m['margin_loss']:.6f},grad:{m['grad_norm']:.3e},fps:{fps:.3f},t:{elapsed:.1f}s")
+        print(line)
+        log_fp.write(line + "\n")
+        log_fp.flush()
+        for k, v in m.items():
+            summary.add_scalar(f"training/{k}", v, global_step)
+        if vm is not None:
+            vline = f"valid loss:{vm['total_loss']:.6f}"
+            print(vline)
+            log_fp.write(vline + "\n")
+            for k, v in vm.items():
+                summary.add_scalar(f"validation/{k}", v, global_step)
+
+    _MAX_CONSECUTIVE_VALID_FAILURES = 3
+
+    def _valid_windows_cap(self, valid_dataset, floor: int = 1) -> int:
+        """How many valid windows the device-mode validation rotates over: ``tpu.valid_windows``
+        (8), each window's cube cached on the device, so that after the first round a validation
+        reads nothing from the host."""
+        cap = int(self.train_cfg.get("tpu", {}).get("valid_windows", 8))
+        return min(len(valid_dataset), max(floor, cap))
+
+    @staticmethod
+    def _valid_scfg(scfg, valid_dataset):
+        """The valid split's own point counts (its label_batch_size and batch_size_inter)."""
+        return dataclasses.replace(scfg, n_margin=valid_dataset.label_batch_size,
+                                   n_inter=valid_dataset.inter_batch_size)
+
+    def _device_valid_cube(self, valid_dataset, idx, cap, scfg_v=None, cfg=None):
+        """Valid window ``idx`` on the device, from an LRU of ``cap`` windows; under
+        ``ds_sampler='pool'`` with its pool, as the training loop's cubes."""
+        if not hasattr(self, "_valid_cubes"):
+            self._valid_cubes = ds.DeviceLRU(cap)
+        use_pool = self.ds_sampler == "pool" and scfg_v is not None
+
+        def build():
+            cube = ds.cube_batch_from_items(
+                [valid_dataset.get_cube_item(idx)], pool_pad=scfg_v.n_margin if use_pool else None,
+                keep_label_cube=not use_pool,
+                expect_dims=(ds.expected_cube_dims(scfg_v, cfg.coord_spec)
+                             if scfg_v is not None and cfg is not None else None))
+            cube = ds.cube_to_device(cube, self.device)
+            return ds.attach_pool_nwp(cube, scfg_v, cfg.coord_spec) if use_pool else cube
+
+        return self._valid_cubes.get(idx, build)
+
+    def _device_mode_validation(self, valid_dataset, cfg, scfg, state, with_pde, fetch: bool = True):
+        """One device-sampled validation window: its points drawn on the device from a generator
+        seeded 7919 at each call, so that repeated validations score the same points; rotation over
+        ``_valid_windows_cap`` cached windows; the valid split's point counts.  ``fetch=False``
+        returns the metrics as device tensors.  A failure is reported and skipped, three in a row
+        fail the run (``valid_failures`` counts them all)."""
+        try:
+            if not hasattr(self, "_valid_eval_step"):
+                self._valid_eval_step = ds.make_device_sampling_eval_step(cfg, self._valid_scfg(scfg, valid_dataset))
+                self._valid_item = 0
+                self._valid_failures = 0
+                self._n_valid_rot = self._valid_windows_cap(valid_dataset)
+            idx = self._valid_item % self._n_valid_rot
+            self._valid_item += 1
+            scfg_v = self._valid_scfg(scfg, valid_dataset)
+            cube = self._device_valid_cube(valid_dataset, idx, self._n_valid_rot, scfg_v=scfg_v, cfg=cfg)
+            generator = torch.Generator(device=self.device).manual_seed(7919)
+            draws = ds.draw_points(generator, cube.field.shape[0], scfg_v, cfg.coord_spec)
+            out = self._valid_eval_step(state.model, cube, draws, with_pde)
+            if fetch:
+                out = self._fetch_metrics(out)
+            self._valid_failures = 0
+            return out
+        except Exception as e:
+            self._valid_failures = getattr(self, "_valid_failures", 0) + 1
+            self.valid_failures += 1
+            if self._valid_failures >= self._MAX_CONSECUTIVE_VALID_FAILURES:
+                raise RuntimeError(f"device-mode validation failed {self._valid_failures} times in a row; "
+                                   "failing the run") from e
+            print(f"warning: device-mode validation failed ({e}); "
+                  f"{self._valid_failures}/{self._MAX_CONSECUTIVE_VALID_FAILURES}")
+            return None
 
     @staticmethod
     def _install_preemption_handler(flag: dict):

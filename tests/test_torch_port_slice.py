@@ -386,6 +386,14 @@ for item in sets[:-5] + train_sets:
 trained = cli.main(train_args)
 train = [trained.step, sorted(os.listdir(os.path.join(work, "trained"))),
          all(bool(torch.isfinite(p).all()) for p in trained.model.parameters())]
+# two steps with the points sampled on the device, each sampler (the cubes, the draws, the pool)
+device = []
+for sampler in ("iid", "pool"):
+    out_dir = os.path.join(work, f"trained_{sampler}")
+    args = [out_dir if a == os.path.join(work, "trained") else a for a in train_args]
+    trained = cli.main(args + ["--set", "train_cfg.tpu.sample_mode=device", "--set", f"train_cfg.tpu.ds_sampler={sampler}"])
+    device.append([trained.step, sorted(os.listdir(out_dir)),
+                   all(bool(torch.isfinite(p).all()) for p in trained.model.parameters())])
 payload = load_checkpoint(os.environ["DPN_JAX_CKPT"])[0]
 disk = [len(hours), sorted(os.listdir(os.path.join(work, "out"))),
         all(bool(np.isfinite(g["T"]).all()) for _, g in hours),
@@ -405,7 +413,7 @@ print(json.dumps({"loaded": loaded, "T": list(grid["T"].shape), "pts": list(pts.
                   "sweeps_finite": all(np.isfinite(v) for v in sweeps.values()),
                   "sweep_hours": sweeps["n_hours"], "sweep_points": sweeps["n_points"],
                   "has_lead": "rmse_t2_f048" in sweeps and "weighted_total" in sweeps,
-                  "encoded": encoded, "v2": v2, "disk": disk, "train": train}))
+                  "encoded": encoded, "v2": v2, "disk": disk, "train": train, "device": device}))
 """
 
 
@@ -443,4 +451,5 @@ def test_port_runs_with_jax_blocked(tmp_path):
                    "encoded": {"pallas": True, "flash": True, "fused": True},
                    "v2": [2, "kernel", True, 7, True, True],
                    "disk": [2, ["2008-01-01_11_00_00_T.tiff", "2008-01-01_12_00_00_T.tiff"], True, 1],
-                   "train": [2, ["codes.zip", "physics_0.pth", "physics_latest.pth"], True]}
+                   "train": [2, ["codes.zip", "physics_0.pth", "physics_latest.pth"], True],
+                   "device": [[2, ["codes.zip", "physics_0.pth", "physics_latest.pth"], True]] * 2}

@@ -223,12 +223,15 @@ def test_unported_modes_name_their_roadmap_items(tmp_path):
     cfg_file = os.path.join(REPO, "configs", "DeepPhysiNet_NCEP_cfg.py")
     with pytest.raises(NotImplementedError, match="A7"):
         cli.main(["--config_file", cfg_file, "--mode", "train", "--dist", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="A7"):  # several GPUs with the points sampled on the device
+        cli.main(["--config_file", cfg_file, "--mode", "train", "--dist", "--device", "cpu",
+                  "--set", "train_cfg.tpu.sample_mode=device"])
     from deepphysinet_tpu_torch.config import Config
 
     cfg = Config.fromfile(cfg_file)["config"]
-    cfg["train_cfg"]["tpu"]["sample_mode"] = "device"
     before = signal.getsignal(signal.SIGTERM)
-    with pytest.raises(NotImplementedError, match="A5"):
+    cfg["train_cfg"]["tpu"]["sample_mode"] = "devices"
+    with pytest.raises(ValueError, match="unknown sample_mode"):
         InterfacePhysics(**cfg, device="cpu").run_train_interface(checkpoint_path=str(tmp_path))
     cfg["train_cfg"]["tpu"]["ckpt_backend"] = "orbax"
     with pytest.raises(NotImplementedError, match="orbax"):
