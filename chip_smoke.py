@@ -143,7 +143,16 @@ Phases, each of which raises (exit code 1) on failure:
                float64 interpolation, the draws by chi-squared; the step split by host clock beside
                phase 20's and the sampler alone by CUDA events; then the first run again with no
                save until its last step, beside it;
-22. timing  -- by CUDA events, medians, alternating order: each kernel and its
+22. tools   -- the port's command-line tools (``deepphysinet_tpu_torch/tools/``) in process on
+               phase 19's tree and phase 20's checkpoint: ``evaluate --off_lattice`` (its primal
+               launches, one a slot and set; the generator's defaults against the evaluator's;
+               the closed-form truth against the tree's labels; one window's off-lattice decode
+               against the plain decode), ``--full_grid --per_lead``, ``--residuals`` and the
+               subsampled mode (25 primal or v4t launches a window, none), ``--save_maps``
+               naming matplotlib where it is missing; ``infer_stations`` (its rows, each bit for
+               bit against ``predict_points``); ``derive_products --vs_model`` (its GeoTIFFs read
+               back, finite statistics, one primal launch); each tool's host-clock seconds;
+23. timing  -- by CUDA events, medians, alternating order: each kernel and its
                plain version at the main paths' sizes (the attention kernels beside one
                ``scaled_dot_product_attention`` call and a bound of three terms, the
                single-tile kernel also at 1,024 tokens; the primal, v4 pair, v4s pair,
@@ -161,7 +170,7 @@ Phases, each of which raises (exit code 1) on failure:
                clock around a synchronize: one frame, one training step of each
                kind, one residual sweep, split into their parts, and one encode
                through ``PhysicsNet.encode`` and ``encode_fused``;
-23. profile -- only with ``--profile``: ``torch.profiler`` over three steps of each
+24. profile -- only with ``--profile``: ``torch.profiler`` over three steps of each
                kind, three frames and three residual sweeps, for the device's busy share.
 
 The last three lines of standard output are a JSON object with each kernel's
@@ -1659,6 +1668,233 @@ def device_trainer_phase(dev, cfg, paths, seed_ckpt: str, tmp: str, launch_count
     return dict(counts=counts, split=split, sampler_ms=sampler_ms, alone=alone)
 
 
+TOOLS_WINDOWS = 2  # phase 19's tree: both init times
+TOOLS_STATIONS = ("name,lon,lat,t_hours\n"  # on and off the 0.25-degree lattice; one fractional hour, one every hour
+                  "on_grid,100.0,36.0,6\nhalf_cell,88.125,30.375,\nfractional,121.37,44.61,13.75\n"
+                  "corner,136.0,54.0,0\n")
+
+
+def tools_phase(dev, cd, cfg, paths, ckpt_dir: str, tmp: str, launch_counts, reset_launch_counts) -> dict:
+    """The port's command-line tools (``deepphysinet_tpu_torch/tools/``), each ``main(argv)`` called in
+    process on phase 19's tree (both windows) and the checkpoint that phase 20 trained, as a user
+    would call them on the flagship configuration (``--set`` for the tree's paths):
+
+    * ``evaluate --off_lattice``: its metrics finite, one primal launch a (slot, on/off) decode; the
+      tree's generator defaults equal the evaluator's ``synth_start`` and ``synth_seed``; ``_truth_at``
+      against the tree's label rasters at lattice points and labelled hours (rtol 2e-4, atol 1e-5 on
+      the normalized-back labels, as the JAX test); one window's off-lattice decode through the
+      kernel (``collapsed_decode``) against ``decode_primal_v4t_ref`` on the same inputs, at phase 3's
+      bound;
+    * ``evaluate --full_grid --per_lead``, ``--residuals`` and the subsampled mode: finite metrics,
+      25 primal (full grid) or 25 v4t (residuals) launches a window, none in the subsampled mode
+      (its plain per-variable decode); ``--residuals --save_maps`` raises, naming matplotlib;
+    * ``infer_stations`` on a CSV written here (on- and off-grid stations, one at a fractional hour,
+      one at every hour): the row count, one primal launch a window, and each row bit for bit
+      against ``predict_points`` on the same queries;
+    * ``derive_products --vs_model`` (no ``--vis``: no matplotlib): every written GeoTIFF read back,
+      finite statistics, one primal launch.
+
+    Each tool's host-clock seconds go on a line of their own.  Returns the tools' launches of the
+    primal, v4t and v4 kernels."""
+    import argparse
+    import contextlib
+    import csv
+    import datetime
+    import importlib.util
+    import inspect
+    import io
+
+    from deepphysinet_tpu_torch.data.geotiff import read_full_image
+    from deepphysinet_tpu_torch.data.synthetic import generate_synthetic_dataset
+    from deepphysinet_tpu_torch.data.window import Window
+    from deepphysinet_tpu_torch.eval import offlattice
+    from deepphysinet_tpu_torch.inference import runner
+    from deepphysinet_tpu_torch.ops import decode_kernel as dk
+    from deepphysinet_tpu_torch.ops.interp import trilinear_interp_cube
+    from deepphysinet_tpu_torch.ops.normalization import OBS_NAME_ORDER, norm_specs_from_cfg
+    from deepphysinet_tpu_torch.physics import engine
+    from deepphysinet_tpu_torch.tools import build_interface, derive_products, evaluate, infer_stations
+
+    tree = {k: paths[k] for k in ("input_path", "label_path", "constant_path", "in_coord_file", "out_coord_file")}
+    tree.update({"input_data_map_cfg.NCEP": paths["input_map_file"], "start_time": "2008-01-01_00_00_00",
+                 "end_time": "2008-01-02_00_00_00"})
+    base = ["--config_file", FLAGSHIP_CFG]
+    for split in ("train_data", "valid_data"):
+        for k, v in tree.items():
+            base += ["--set", f"train_cfg.{split}.{k}={v}"]
+    seconds, launches = {}, {}
+
+    def run(name, module, argv):
+        """One tool in process, its output kept quiet; returns its result and its kernel launches."""
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            out = module.main(base + argv)
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        launches[name] = {k: v for k, v in launch_counts().items() if v}
+        return out
+
+    def expect(name, want):
+        if launches[name] != want:
+            raise AssertionError(f"tools: {name} launched {launches[name]}, expected {want}")
+
+    def finite(name, metrics):
+        bad = {k: v for k, v in metrics.items() if isinstance(v, float) and not np.isfinite(v)}
+        if bad:
+            raise AssertionError(f"tools: {name} gave non-finite metrics {bad}")
+
+    # ---- evaluate --off_lattice
+    gen = inspect.signature(generate_synthetic_dataset).parameters
+    ev = inspect.signature(offlattice.evaluate_offlattice).parameters
+    if (gen["start"].default, gen["seed"].default) != (ev["synth_start"].default, ev["synth_seed"].default):
+        raise AssertionError(f"tools: the generator's defaults ({gen['start'].default}, {gen['seed'].default}) are "
+                             f"not the evaluator's ({ev['synth_start'].default}, {ev['synth_seed'].default})")
+    off = run("evaluate --off_lattice", evaluate, ["--checkpoint", ckpt_dir, "--off_lattice"])
+    times = ev["times_per_window"].default
+    expect("evaluate --off_lattice", {"decode_primal_v4t": TOOLS_WINDOWS * times * 2})
+    finite("evaluate --off_lattice", off)
+    log(f"[tools] evaluate --off_lattice on the {TOOLS_WINDOWS} windows, phase 20's checkpoint (step "
+        f"{off['global_step']}): {off['n_points']:.0f} paired points, "
+        + ", ".join(f"{k} {off['rmse_' + k]:.4g} / {off['rmse_' + k + '_ongrid']:.4g} (ratio {off['ratio_' + k]:.3f})"
+                    for k in offlattice.VAR_NAMES)
+        + f"; {launches['evaluate --off_lattice']['decode_primal_v4t']} primal launches (one a slot and set); "
+          f"the tree's generator and the evaluator both start at {ev['synth_start'].default}, seed "
+          f"{ev['synth_seed'].default}")
+
+    # the closed-form truth against the tree's labels, at lattice points and labelled hours; the dataset,
+    # model and step configuration as the tools build them
+    interface = build_interface(argparse.Namespace(config_file=FLAGSHIP_CFG, device=None,
+                                                   overrides=[a for a in base[2:] if a != "--set"]))
+    ds = interface._dataset(interface.train_cfg["valid_data"])
+    model = interface.load_physics_net(ckpt_dir)[0]
+    scfg = interface._step_cfg(float(ds.input_time_step * ds.input_time_step_nums * 3600), ds.forecast_time_period)
+    specs = norm_specs_from_cfg(cfg["obs_norm_cfg"])
+    rng = np.random.RandomState(22)
+    truth_err = 0.0
+    for f in ds.input_files:
+        labels = ds.get_label_cube(f)
+        _, date_str, fh, _ = ds._parse_item(f)
+        base_h = (datetime.datetime.strptime(date_str, "%Y-%m-%d-%H-%M-%S")
+                  - datetime.datetime(2008, 1, 1)).total_seconds() / 3600.0 + fh
+        xs, ys = rng.randint(0, len(ds.out_lon), 256), rng.randint(0, len(ds.out_lat), 256)
+        for slot in (0, 7, 24):
+            truth = offlattice._truth_at(ds.begin_lon + xs * ds.fine_lon_step, ds.begin_lat + ys * ds.fine_lat_step,
+                                         base_h + slot, 0)
+            for i, key in enumerate(OBS_NAME_ORDER):
+                mean, std = specs[key].norm_factor
+                lab = labels[i, ys, xs, slot].astype(np.float64) * std + mean
+                excess = np.abs(lab - truth[:, i]) - (1e-5 + 2e-4 * np.abs(truth[:, i]))
+                truth_err = max(truth_err, float(excess.max()))
+    log(f"[tools] _truth_at against the tree's label rasters at 256 lattice points and hours 0, 7, 24 of each "
+        f"window: largest excess over rtol 2e-4, atol 1e-5: {truth_err:.3e} (must be <= 0)")
+    if truth_err > 0:
+        raise AssertionError(f"tools: the closed-form truth disagrees with the tree's labels by {truth_err}")
+
+    # one window's off-lattice decode through the kernel against the plain decode on the same inputs
+    window = Window.from_dataset(ds, ds.input_files[0], labels=False)
+    n = 5120
+    xq, yq = rng.randint(0, len(ds.out_lon) - 1, n) + 0.5, rng.randint(0, len(ds.out_lat) - 1, n) + 0.5
+    t_h = float(rng.randint(0, 24)) + 0.5
+    with torch.no_grad():
+        fh_norm = torch.tensor([window.forecast_h / ds.forecast_time_period], device=dev)
+        tokens = model.encode(torch.from_numpy(window.field[None]).to(dev), fh_norm[None, :])[0]
+        cube6 = torch.from_numpy(window.nwp_cube).to(dev)
+        put = lambda a: torch.as_tensor(np.asarray(a, np.float32)).to(dev)  # noqa: E731
+        nwp = trilinear_interp_cube(cube6, put(ds.begin_lon + xq * ds.fine_lon_step),
+                                    put(ds.begin_lat + yq * ds.fine_lat_step), put(np.full(n, t_h)),
+                                    lon0=float(ds.in_lon[0]), dlon=float(ds.in_lon[1] - ds.in_lon[0]),
+                                    lat0=float(ds.in_lat[0]), dlat=float(ds.in_lat[1] - ds.in_lat[0]),
+                                    t0=0.0, dt=float(ds.input_time_step)).t()
+        coords = torch.stack([put(xq * ds.dx), put(yq * ds.dy), put(np.full(n, t_h * 3600.0))], dim=-1)
+        got = engine.collapsed_decode(model, tokens, coords, nwp, fh_norm, scfg.coord_spec)
+        weights, pe, _, cd_pe = engine._kernel_inputs(model, tokens, coords, nwp, fh_norm, scfg.coord_spec,
+                                                      tangents=False)
+        want = dk.decode_primal_v4t_ref(dk.fuse_decode_weights(weights), pe, cd_pe, nwp.t().contiguous(), cd).t()
+    err, limit = float((got - want).abs().max()), TOL[cd] * (1.0 + float(want.abs().max()))
+    log(f"[tools] one window's off-lattice decode ({n} points at half-cell offsets, hour {t_h}) through the kernel "
+        f"against the plain decode: max error {err:.3e} normalized units (bound {limit:.3e})")
+    if not (torch.isfinite(got).all() and err <= limit):
+        raise AssertionError(f"tools: the off-lattice decode disagrees with the plain decode: {err} > {limit}")
+
+    # ---- evaluate's other modes
+    full = run("evaluate --full_grid --per_lead", evaluate, ["--checkpoint", ckpt_dir, "--full_grid", "--per_lead"])
+    expect("evaluate --full_grid --per_lead", {"decode_primal_v4t": 25 * TOOLS_WINDOWS})
+    res = run("evaluate --residuals", evaluate, ["--checkpoint", ckpt_dir, "--residuals"])
+    expect("evaluate --residuals", {"fused_decode_jvp_v4t": 25 * TOOLS_WINDOWS})
+    sub = run("evaluate", evaluate, ["--checkpoint", ckpt_dir])
+    expect("evaluate", {})
+    for name, metrics in (("--full_grid", full), ("--residuals", res), ("subsampled", sub)):
+        finite(f"evaluate {name}", metrics)
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            evaluate.main(base + ["--checkpoint", ckpt_dir, "--residuals", "--save_maps", os.path.join(tmp, "maps")])
+        maps_error = None
+    except ImportError as e:
+        maps_error = str(e)
+    log(f"[tools] evaluate --full_grid --per_lead: {full['n_points']:.0f} points, RMSE "
+        + ", ".join(f"{k} {full['rmse_' + k]:.4g}" for k in offlattice.VAR_NAMES)
+        + f", {sum(1 for k in full if k.startswith('rmse_t2_f'))} leads; --residuals: weighted total "
+          f"{res['weighted_total']:.4g}; subsampled: {sub['n_points']:.0f} points, RMSE t2 {sub['rmse_t2']:.4g}; "
+          f"launches {launches['evaluate --full_grid --per_lead']} / {launches['evaluate --residuals']} / none; "
+          f"--residuals --save_maps: {maps_error}")
+    if importlib.util.find_spec("matplotlib") is None and (maps_error is None or "matplotlib" not in maps_error):
+        raise AssertionError(f"tools: --save_maps without matplotlib did not name it: {maps_error}")
+
+    # ---- infer_stations
+    stations = os.path.join(tmp, "stations.csv")
+    with open(stations, "w") as fp:
+        fp.write(TOOLS_STATIONS)
+    out_csv = os.path.join(tmp, "stations_out.csv")
+    rows = run("infer_stations", infer_stations, ["--checkpoint", ckpt_dir, "--stations", stations, "--out", out_csv,
+                                                   "--max_windows", str(TOOLS_WINDOWS)])
+    expect("infer_stations", {"decode_primal_v4t": TOOLS_WINDOWS})
+    with open(out_csv) as fp:
+        written = list(csv.DictReader(fp))
+    per_window = sum(1 if line.split(",")[3] else 25 for line in TOOLS_STATIONS.splitlines()[1:])
+    keys = ("u10", "v10", "psfc", "t2", "q2", "rho")
+    same = len(written) == len(rows) == TOOLS_WINDOWS * per_window
+    for w in range(TOOLS_WINDOWS):
+        wrows = written[w * per_window:(w + 1) * per_window]
+        window = Window.from_dataset(ds, ds.input_files[w], labels=False)
+        want = runner.predict_points(model, scfg, window, window.field[None], window.forecast_h,
+                                     np.array([float(r["lon"]) for r in wrows]), np.array([float(r["lat"]) for r in wrows]),
+                                     np.array([float(r["t_hours"]) for r in wrows]), device=dev)
+        got = np.array([[np.float32(r[k]) for k in keys] for r in wrows], np.float32)
+        same = same and np.array_equal(got, want)
+    log(f"[tools] infer_stations: {len(written)} rows ({per_window} a window: a station without hours at each "
+        f"of 25), {launches['infer_stations']} primal launches; every row bit for bit against predict_points on "
+        f"the same queries: {same}")
+    if not same:
+        raise AssertionError("tools: infer_stations disagrees with predict_points")
+
+    # ---- derive_products --vs_model
+    out_dir = os.path.join(tmp, "products")
+    summary = run("derive_products --vs_model", derive_products,
+                  ["--vs_model", ckpt_dir, "--times", "1", "--output", out_dir,
+                   "--products", "slp,t2,td2,u10m,v10m,rh_p850,wd10m,rh2"])
+    expect("derive_products --vs_model", {"decode_primal_v4t": 1})
+    tiffs = sorted(f for f in os.listdir(out_dir) if f.endswith(".tiff"))
+    arrays = [read_full_image(os.path.join(out_dir, f)) for f in tiffs]
+    stats = summary["vs_model"]["pairs"]
+    nwp_grid = (1, len(ds.in_lat), len(ds.in_lon))
+    ok = (len(tiffs) == summary["written"] == 8 and all(a.shape == nwp_grid and np.isfinite(a).all() for a in arrays)
+          and sorted(stats) == ["t2", "wd10m"] and all(np.isfinite(v) for s in stats.values() for v in s.values()))
+    log(f"[tools] derive_products --vs_model: {len(tiffs)} GeoTIFFs read back, finite {nwp_grid[1]} x {nwp_grid[2]} "
+        f"rasters (the NWP grid); product "
+        f"against model: " + "; ".join(f"{k} RMSE {s['rmse']:.4g}, bias {s['bias']:.4g}" for k, s in stats.items())
+        + f"; {launches['derive_products --vs_model']} primal launch")
+    if not ok:
+        raise AssertionError(f"tools: derive_products wrote {tiffs}, stats {stats}")
+
+    log("[tools] host clock, s: " + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items()))
+    total = {}
+    for counts in launches.values():
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    return dict(launches=total, seconds=seconds)
+
+
 def attention_and_encoder_timing(dev, cd, model, field, fh_norm: float, stage_builds: dict) -> dict:
     """CUDA-event times of the attention kernels (and one scaled_dot_product_attention call, the
     library yardstick the port never calls) and of the fused encoder kernel, each beside its plain
@@ -3045,11 +3281,16 @@ def main() -> int:
         # ---- 21. training with the points sampled on the device: both samplers and a resume ---------
         device_trainer = device_trainer_phase(dev, cfg, disk_paths, disk_ckpt, disk_tmp, launch_counts,
                                               reset_launch_counts, trainer["host"])
+        torch.cuda.empty_cache()
+
+        # ---- 22. the tools: evaluate's modes, stations and products on phase 19's tree -------------
+        tools = tools_phase(dev, cd, cfg, disk_paths, os.path.join(disk_tmp, "trainer_ckpt"), disk_tmp,
+                            launch_counts, reset_launch_counts)
     finally:
         shutil.rmtree(disk_tmp, ignore_errors=True)
     torch.cuda.empty_cache()
 
-    # ---- 22. timing --------------------------------------------------------------------------------
+    # ---- 23. timing --------------------------------------------------------------------------------
     hid, in_ch = cfg["net_cfg"]["hidden_channels"], cfg["net_cfg"]["in_channels"]
     two_f = in_ch // 3
 
@@ -3581,7 +3822,7 @@ def main() -> int:
     enc_timing = attention_and_encoder_timing(dev, cd, model, field, window.forecast_h / dcfg.forecast_time_period,
                                               enc_stage_builds)
 
-    # ---- 23. profile (only with --profile): the device's busy share and its largest kernels ----
+    # ---- 24. profile (only with --profile): the device's busy share and its largest kernels ----
     if "--profile" in sys.argv[1:]:
         from torch.profiler import ProfilerActivity, profile
 
@@ -3713,6 +3954,7 @@ def main() -> int:
          "replaces": f"{jax_file}:956",
          "launches": primal_launches, "launches_eval": eval_launches["decode_primal_v4t"],
          "launches_disk": disk_launches, "launches_test": trainer["test_launches"],
+         "launches_tools": tools["launches"].get("decode_primal_v4t", 0),
          "max_abs_err": errs[(cd, GRID_POINTS)], "max_rel_err": rel_errs[(cd, GRID_POINTS)],
          "points": GRID_POINTS,
          "ms": k_ms, "plain_ms": p_ms, "bound_ms": primal_bound[0], "bound_by": primal_bound[1],
@@ -3734,10 +3976,13 @@ def main() -> int:
          "ms": t["bwd"], "plain_ms": t["bwd_plain"], "bound_ms": t["bwd_bound"][0],
          "bound_by": t["bwd_bound"][1], "library_ms": None, **v4s_extra("bwd", v4s_ms)},
         # the [N, 6] and [6, N] forms share one source; the sweeps decode one frame per launch
+        # launches_tools: the [N, 6] form runs under evaluate --residuals --save_maps, which needs matplotlib
         {**v4_entry("fused_decode_jvp_v4", "decode_jvp_v4.cu", 781, False, GRID_POINTS, "fwd", v4_fwd_err,
-                    v4_fwd_rel), "products": tc_products},
+                    v4_fwd_rel), "products": tc_products,
+         "launches_tools": tools["launches"].get("fused_decode_jvp_v4", 0)},
         {**v4_entry("fused_decode_jvp_v4t", "decode_jvp_v4.cu", 855, True, GRID_POINTS, "fwd", v4_fwd_err,
-                    v4_fwd_rel), "products": tc_products},
+                    v4_fwd_rel), "products": tc_products,
+         "launches_tools": tools["launches"].get("fused_decode_jvp_v4t", 0)},
         {**v4_entry("decode_bwd_kernel_v4", "decode_bwd_v4.cu", 1562, False, main_n, "bwd", v4_bwd_err, v4_bwd_rel),
          **v4_bwd_extra(False)},
         {**v4_entry("decode_bwd_kernel_v4t", "decode_bwd_v4.cu", 1642, True, main_n, "bwd", v4_bwd_err, v4_bwd_rel),

@@ -66,7 +66,9 @@ def evaluate_residuals(model, cfg, windows: Sequence, max_windows: Optional[int]
     dev = model_device(model, device)
     sums = np.zeros(6, np.float64)
     n_win = n_windows(windows, max_windows)
-    for window in windows[:n_win]:
+    first = windows[0] if len(windows) else None  # a DatasetWindows reads its rasters at each access
+    for w in range(n_win):
+        window = first if w == 0 else windows[w]
         grid = LabelGrid.of(window, dev)
         sums += _window_mses(model, cfg, window, grid, dev).cpu().numpy().astype(np.float64)
     mean = sums / max(n_win, 1)
@@ -78,9 +80,9 @@ def evaluate_residuals(model, cfg, windows: Sequence, max_windows: Optional[int]
         out[f"weighted_{k}"] = wv
         weighted_total += wv
     out["weighted_total"] = weighted_total
-    if len(windows):  # what the JAX function reads off its dataset
-        out["n_points_per_hour"] = float(len(windows[0].out_lat) * len(windows[0].out_lon))
-        out["n_hours"] = float(windows[0].n_label_hours)
+    if first is not None:  # what the JAX function reads off its dataset
+        out["n_points_per_hour"] = float(len(first.out_lat) * len(first.out_lon))
+        out["n_hours"] = float(first.n_label_hours)
     out["n_windows"] = float(n_win)
     return out
 

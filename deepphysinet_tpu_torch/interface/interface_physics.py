@@ -641,6 +641,21 @@ class InterfacePhysics:
 
     # ---- evaluation ----
 
+    def load_physics_net(self, checkpoint_path: Optional[str] = None):
+        """``(model, epoch, global_step)``: the configuration's ``PhysicsNet`` on the run's device in
+        eval mode, with the weights of the checkpoint at ``checkpoint_path`` (default
+        ``train_cfg.checkpoints.checkpoints_path``; the port's ``.pth``, a reference ``.pth`` or a JAX
+        pickle, ``train/checkpoint.py``); ``epoch`` is the checkpoint's next epoch."""
+        ckpt_path = checkpoint_path or self.train_cfg["checkpoints"]["checkpoints_path"]
+        payload, epoch, step = ckpt.load_checkpoint(ckpt_path, prefix="physics")
+        if payload is None:
+            raise FileNotFoundError(f"no checkpoint at {ckpt_path}")
+        model = PhysicsNet(self.meta_cfg, self.net_cfg, compute_dtype=self.compute_dtype, device=self.device,
+                           attn_impl=self.attn_impl)
+        model.load_state_dict(payload["model"], strict=True)
+        model.eval()
+        return model, epoch, step
+
     def run_test_interface(self, checkpoint_path: Optional[str] = None, max_windows: Optional[int] = None,
                            full_grid: bool = True, **kwargs) -> Dict[str, float]:
         """Held-out RMSE of a checkpoint over ``test_cfg.test_data`` (when it names a dataset) or
@@ -652,15 +667,8 @@ class InterfacePhysics:
         tc = self.train_cfg
         self.dx = float(tc["dx"])
         self.dy = float(tc["dy"])
-        ckpt_path = (checkpoint_path or self.test_cfg.get("checkpoints", {}).get("checkpoints_path")
-                     or tc["checkpoints"]["checkpoints_path"])
-        payload, epoch, step = ckpt.load_checkpoint(ckpt_path, prefix="physics")
-        if payload is None:
-            raise FileNotFoundError(ckpt_path)
-        model = PhysicsNet(self.meta_cfg, self.net_cfg, compute_dtype=self.compute_dtype, device=self.device,
-                           attn_impl=self.attn_impl)
-        model.load_state_dict(payload["model"], strict=True)
-        model.eval()
+        model, epoch, step = self.load_physics_net(
+            checkpoint_path or self.test_cfg.get("checkpoints", {}).get("checkpoints_path"))
 
         data_cfg = self.test_cfg.get("test_data")
         if not (isinstance(data_cfg, dict) and data_cfg.get("input_path")):

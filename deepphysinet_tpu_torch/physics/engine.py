@@ -212,6 +212,13 @@ def collapsed_decode_t(
     return decode_primal_v4t(fw, pe, cd_pe, ref_t, compute_dtype=model.compute_dtype)
 
 
+def collapsed_decode(model, tokens, coords, coord_data, fore_h, coord_spec) -> torch.Tensor:
+    """Normalized primal decode ``[N, 6]``: ``collapsed_decode_t`` transposed, so on a GPU the
+    primal kernel.  JAX computes it through its XLA twin ``decode_xla_v4_primal``, the same
+    function, which may round bf16 in other places."""
+    return collapsed_decode_t(model, tokens, coords, coord_data, fore_h, coord_spec).t()
+
+
 def _check_engine(engine: str) -> None:
     if engine not in ("kernel", "jvp"):
         raise ValueError(f"unknown engine {engine!r}; expected 'kernel' or 'jvp'")

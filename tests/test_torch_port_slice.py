@@ -394,6 +394,26 @@ for sampler in ("iid", "pool"):
     trained = cli.main(args + ["--set", "train_cfg.tpu.sample_mode=device", "--set", f"train_cfg.tpu.ds_sampler={sampler}"])
     device.append([trained.step, sorted(os.listdir(out_dir)),
                    all(bool(torch.isfinite(p).all()) for p in trained.model.parameters())])
+# the three tools on the same tree and JAX checkpoint: evaluate's modes (the maps need matplotlib),
+# stations (one at a fractional hour, one at every hour of the window) and products beside the model
+from deepphysinet_tpu_torch.tools import derive_products, evaluate, infer_stations
+tool_args = ["--config_file", "configs/DeepPhysiNet_NCEP_cfg.py", "--device", "cpu"]
+for item in sets:
+    tool_args += ["--set", item]
+jax_ckpt = os.environ["DPN_JAX_CKPT"]
+scores = [evaluate.main(tool_args + ["--checkpoint", jax_ckpt] + mode)
+          for mode in (["--points_per_window", "128"], ["--full_grid", "--per_lead"],
+                       ["--off_lattice", "--points_per_window", "256"], ["--residuals"])]
+with open(os.path.join(work, "stations.csv"), "w") as fp:
+    fp.write("name,lon,lat,t_hours\nA,75.37,19.61,2.5\nB,80.0,22.0,\n")
+rows = infer_stations.main(tool_args + ["--checkpoint", jax_ckpt, "--stations", os.path.join(work, "stations.csv"),
+                                        "--out", os.path.join(work, "stations_out.csv")])
+summary = derive_products.main(tool_args + ["--split", "valid_data", "--times", "1", "--products", "t2,slp,wd10m",
+                                            "--output", os.path.join(work, "products"), "--vs_model", jax_ckpt])
+tools = [all(np.isfinite(v) for s in scores for v in s.values() if isinstance(v, float)),
+         [s["global_step"] for s in scores], scores[1]["n_points"], scores[2]["n_points"], len(rows),
+         all(np.isfinite(float(r[k])) for r in rows for k in ("u10", "t2", "rho")), summary["written"],
+         sorted(summary["vs_model"]["pairs"])]
 payload = load_checkpoint(os.environ["DPN_JAX_CKPT"])[0]
 disk = [len(hours), sorted(os.listdir(os.path.join(work, "out"))),
         all(bool(np.isfinite(g["T"]).all()) for _, g in hours),
@@ -413,7 +433,8 @@ print(json.dumps({"loaded": loaded, "T": list(grid["T"].shape), "pts": list(pts.
                   "sweeps_finite": all(np.isfinite(v) for v in sweeps.values()),
                   "sweep_hours": sweeps["n_hours"], "sweep_points": sweeps["n_points"],
                   "has_lead": "rmse_t2_f048" in sweeps and "weighted_total" in sweeps,
-                  "encoded": encoded, "v2": v2, "disk": disk, "train": train, "device": device}))
+                  "encoded": encoded, "v2": v2, "disk": disk, "train": train, "device": device,
+                  "tools": tools}))
 """
 
 
@@ -452,4 +473,5 @@ def test_port_runs_with_jax_blocked(tmp_path):
                    "v2": [2, "kernel", True, 7, True, True],
                    "disk": [2, ["2008-01-01_11_00_00_T.tiff", "2008-01-01_12_00_00_T.tiff"], True, 1],
                    "train": [2, ["codes.zip", "physics_0.pth", "physics_latest.pth"], True],
-                   "device": [[2, ["codes.zip", "physics_0.pth", "physics_latest.pth"], True]] * 2}
+                   "device": [[2, ["codes.zip", "physics_0.pth", "physics_latest.pth"], True]] * 2,
+                   "tools": [True, [12] * 4, 25.0 * 37 * 65, 256.0, 1 + 25, True, 3, ["t2", "wd10m"]]}
