@@ -152,6 +152,20 @@ Phases, each of which raises (exit code 1) on failure:
                naming matplotlib where it is missing; ``infer_stations`` (its rows, each bit for
                bit against ``predict_points``); ``derive_products --vs_model`` (its GeoTIFFs read
                back, finite statistics, one primal launch); each tool's host-clock seconds;
+22b. etl    -- the ETL tools (``deepphysinet_tpu_torch/tools/``) from raw archives to a tree, and the
+               main path on it: phase 19's tree written as users download it (one GRIB2 file an
+               init time, leads 0 to 24 h: sp, 2t, 2d, 10u, 10v and u, v, t, gh, q at five levels;
+               ERA5 single-level NetCDF-3 files, packed int16), then ``run_etl`` (each tool's
+               ``main(argv)`` in process, the README's order) into a fresh tree with phase 19's
+               constants and coordinate pickles, the label extraction again with two workers (the
+               same files byte for byte); every raster held to phase 19's at
+               its codec's error (half a GRIB packing quantum from each message's own E and D, half
+               an int16 quantum, q2 and rio through their formulas from those allowances), the index
+               keys equal; ``--mode train`` on it from phase 19's seeded checkpoint (host-sampled, the
+               PDE terms on) with the v4s launch counts phase 20 expects for the same steps;
+               ``--mode inference`` on two hours (primal launches) and ``--mode test`` on the
+               checkpoint it saved; one loader item of the same window from each tree by host clock
+               (alternating, 3 each) with the tiles each item decodes;
 23. timing  -- by CUDA events, medians, alternating order: each kernel and its
                plain version at the main paths' sizes (the attention kernels beside one
                ``scaled_dot_product_attention`` call and a bound of three terms, the
@@ -1222,6 +1236,19 @@ TRAINER_META = ("dx", "dy", "dt", "pred_x_span", "pred_y_span", "pred_t_span", "
                 "end_time")
 
 
+def logged_losses(log_dir: str) -> list:
+    """The losses, gradient norms and validation losses of the trainer's log files in ``log_dir``."""
+    import glob
+
+    losses = []
+    for path in sorted(glob.glob(os.path.join(log_dir, "log_*.txt"))):
+        for line in open(path):
+            fields = dict(f.split(":", 1) for f in line.strip().split(",") if ":" in f)
+            losses += [float(fields[k]) for k in ("train loss", "margin_loss", "grad", "valid loss", "margin")
+                       if k in fields]
+    return losses
+
+
 def trainer_phase(dev, cfg, paths, seed_ckpt: str, tmp: str, launch_counts, reset_launch_counts) -> dict:
     """Training from disk at flagship width through the port's command line (``--mode train``, in
     process): phase 19's tree (two windows an epoch) and its seeded model's checkpoint, the
@@ -1239,7 +1266,6 @@ def trainer_phase(dev, cfg, paths, seed_ckpt: str, tmp: str, launch_counts, rese
     window's item read alone, and says whether the loader keeps up with the step: each epoch's
     loader starts its two windows side by side, so the wait at an epoch's first step over two is
     what an item costs the workers.  Returns the launch counts."""
-    import glob
     import importlib.util
     import shutil
     import warnings
@@ -1303,12 +1329,7 @@ def trainer_phase(dev, cfg, paths, seed_ckpt: str, tmp: str, launch_counts, rese
         ibuild.builder_models, ip.make_train_step = build, make_step
 
     # every logged loss finite
-    losses = []
-    for path in sorted(glob.glob(os.path.join(log_dir, "log_*.txt"))):
-        for line in open(path):
-            fields = dict(f.split(":", 1) for f in line.strip().split(",") if ":" in f)
-            losses += [float(fields[k]) for k in ("train loss", "margin_loss", "grad", "valid loss", "margin")
-                       if k in fields]
+    losses = logged_losses(log_dir)
     tb_missing = importlib.util.find_spec("tensorboardX") is None
     warned = any("tensorboardX unavailable" in str(w.message) for w in caught)
     log(f"[trainer] the command line trained {state.step} steps from phase 19's seeded checkpoint in {run_s:.1f} s, "
@@ -1893,6 +1914,310 @@ def tools_phase(dev, cd, cfg, paths, ckpt_dir: str, tmp: str, launch_counts, res
         for k, v in counts.items():
             total[k] = total.get(k, 0) + v
     return dict(launches=total, seconds=seconds)
+
+
+ETL_STEPS = 6  # the ETL-built tree's training run: 3 epochs of its two windows, the PDE terms from step 5
+ETL_HOURS = ("2008-01-01_06_00_00", "2008-01-01_07_00_00")  # the inference run's two hours
+ETL_LOADER_ITEMS = 3  # loader items of each tree, alternating
+GRIB_LEVELS = {"PSFC": ("sp", 0.0), "t2": ("t2m", 2.0), "u10": ("u10", 10.0), "v10": ("v10", 10.0),
+               "UU": ("u", None), "VV": ("v", None), "TT": ("t", None), "GHT": ("gh", None), "QQ": ("q", None)}
+
+
+def grib_half_quanta(path: str) -> dict:
+    """{(init, lead, short name, level): half the packing quantum, 2^E / 10^D / 2} of each field of
+    a GRIB2 file, E and D read from the field's own section 5."""
+    import struct
+
+    from deepphysinet_tpu_torch.data import grib2
+
+    with open(path, "rb") as f:
+        buf = f.read()
+    halves, pos = [], 0
+    while (pos := buf.find(b"GRIB", pos)) >= 0:
+        p, end = pos + 16, pos + struct.unpack_from(">Q", buf, pos + 8)[0]
+        while buf[p:p + 4] != b"7777":
+            n, number = struct.unpack_from(">IB", buf, p)
+            if number == 5:
+                _, _, e, d, _ = grib2._parse_packing(buf[p:p + n])
+                halves.append(2.0 ** e / 10.0 ** d / 2)
+            p += n
+        pos = end
+    messages = grib2.read_messages(path)
+    if len(messages) != len(halves):
+        raise AssertionError(f"{path}: {len(messages)} fields, {len(halves)} data representation sections")
+    return {(m.ref_time, m.forecast_hours, m.short_name, m.level): h for m, h in zip(messages, halves)}
+
+
+def propagated(fn, values, allowances) -> np.ndarray:
+    """max over the corners of the allowance box of |fn(values +- allowances) - fn(values)|: the
+    first-order error of ``fn`` (monotone in each argument) from errors within ``allowances``."""
+    import itertools
+
+    base = fn(*values)
+    worst = np.zeros_like(base)
+    for signs in itertools.product((-1.0, 1.0), repeat=len(values)):
+        worst = np.maximum(worst, np.abs(fn(*[v + s * a for v, s, a in zip(values, signs, allowances)]) - base))
+    return worst
+
+
+def ulp32(x) -> float:
+    return float(np.spacing(np.float32(np.max(np.abs(x)))))
+
+
+def rio_formula(p, t, q):
+    return p / ((1 + 0.608 * q) * 287.0) / t  # tools/calc_rio.py
+
+
+def etl_raster_errors(paths, etl_paths, grib_files, era5_files) -> dict:
+    """Every raster of the ETL-built tree against phase 19's: {variable: (largest error, the error
+    and the allowance where error / allowance is largest, that share)}, inputs and labels apart.  Inputs: half the GRIB packing
+    quantum of the raster's message plus one float32 ulp (the reference value and the decoded value
+    are each rounded to float32); labels: half the file's int16 ``scale_factor`` plus one ulp (the
+    decode's float32 roundings); q2 and rio: those allowances carried through the dew point (or the
+    gas law) to first order, plus the formula's float32 roundings."""
+    import datetime
+    import pickle
+
+    from deepphysinet_tpu_torch.data.geotiff import read_full_image
+    from deepphysinet_tpu_torch.data.netcdf_classic import NetCDFClassicFile
+    from deepphysinet_tpu_torch.physics.thermo import dewpoint_from_specific_humidity, specific_humidity_from_dewpoint
+
+    def raster(path):
+        return read_full_image(path, as_rgb=False, normalize=False, data_format="NUMPY_FORMAT").astype(np.float64)
+
+    worst = {}
+
+    def hold(key, got, want, allowance):
+        err = np.abs(got - want)
+        shares = err / allowance
+        i = np.unravel_index(np.argmax(shares), err.shape)
+        largest = max(float(err.max()), worst.get(key, (0.0,))[0])
+        if key not in worst or shares[i] > worst[key][3]:
+            worst[key] = (largest, float(err[i]), float(np.broadcast_to(allowance, err.shape)[i]), float(shares[i]))
+        else:
+            worst[key] = (largest,) + worst[key][1:]
+
+    halves = {}
+    for path in grib_files:
+        halves.update(grib_half_quanta(path))
+    with open(paths["input_map_file"], "rb") as fp:
+        index = pickle.load(fp)
+    groups = sorted({k.rsplit("_", 1)[0] for k in index})  # GFS_<init>_f<lead>
+    fmt = "%Y-%m-%d-%H-%M-%S"
+    for group in groups:
+        init, lead = datetime.datetime.strptime(group[4:23], fmt), int(group[-3:])
+        ref = {v: raster(os.path.join(paths["input_path"], index[f"{group}_{v}"] + ".tiff"))
+               for v in ("PSFC", "t2", "u10", "v10", "q2", "rio", "UU", "VV", "TT", "GHT", "QQ")}
+        got = {v: raster(os.path.join(etl_paths["input_path"], index[f"{group}_{v}"] + ".tiff")) for v in ref}
+        allow = {}
+        for v in ("PSFC", "t2", "u10", "v10", "UU", "VV", "TT", "GHT", "QQ"):
+            name, level = GRIB_LEVELS[v]
+            levels = [level] if level is not None else [float(lv) for lv in (1000, 925, 850, 700, 500)]
+            allow[v] = np.array([halves[(init, lead, name, lv)] + ulp32(ref[v][:, :, k])
+                                 for k, lv in enumerate(levels)])
+            hold(f"input {v}", got[v], ref[v], allow[v])
+        td = dewpoint_from_specific_humidity(ref["PSFC"], ref["q2"])
+        a_td = halves[(init, lead, "d2m", 2.0)] + ulp32(td)
+        allow["q2"] = propagated(specific_humidity_from_dewpoint, (ref["PSFC"], td), (allow["PSFC"], a_td)) + ulp32(
+            ref["q2"])
+        hold("input q2", got["q2"], ref["q2"], allow["q2"])
+        want_rio = rio_formula(*(ref[v].astype(np.float32) for v in ("PSFC", "t2", "q2")))
+        a_rio = propagated(rio_formula, (ref["PSFC"], ref["t2"], ref["q2"]),
+                           (allow["PSFC"], allow["t2"], allow["q2"])) + 4 * ulp32(want_rio)
+        hold("input rio", got["rio"], want_rio, a_rio)
+
+    half_scale = {}
+    for path in era5_files:
+        variables = NetCDFClassicFile(path).variables
+        for hours in variables["time"][:]:
+            t = datetime.datetime(1900, 1, 1) + datetime.timedelta(hours=int(hours))
+            half_scale[t] = {k: float(variables[k].attributes["scale_factor"]) / 2
+                             for k in ("sp", "t2m", "u10", "v10", "d2m")}
+    for t, scales in sorted(half_scale.items()):
+        stamp = t.strftime(fmt)
+        ref = {v: raster(os.path.join(paths["label_path"], f"ERA5_{stamp}_{v}.tiff"))
+               for v in ("PSFC", "t2", "u10", "v10", "q2", "rio")}
+        got = {v: raster(os.path.join(etl_paths["label_path"], f"ERA5_{stamp}_{v}.tiff")) for v in ref}
+        allow = {}
+        for v, name in (("PSFC", "sp"), ("t2", "t2m"), ("u10", "u10"), ("v10", "v10")):
+            allow[v] = scales[name] + ulp32(ref[v])
+            hold(f"label {v}", got[v], ref[v], allow[v])
+        td = dewpoint_from_specific_humidity(ref["PSFC"], ref["q2"])
+        allow["q2"] = propagated(specific_humidity_from_dewpoint, (ref["PSFC"], td),
+                                 (allow["PSFC"], scales["d2m"] + ulp32(td))) + ulp32(ref["q2"])
+        hold("label q2", got["q2"], ref["q2"], allow["q2"])
+        want_rio = rio_formula(*(ref[v].astype(np.float32) for v in ("PSFC", "t2", "q2")))
+        a_rio = propagated(rio_formula, (ref["PSFC"], ref["t2"], ref["q2"]),
+                           (allow["PSFC"], allow["t2"], allow["q2"])) + 4 * ulp32(want_rio)
+        hold("label rio", got["rio"], want_rio, a_rio)
+    return dict(worst=worst, input_groups=len(groups), label_hours=len(half_scale))
+
+
+def etl_phase(dev, cfg, paths, seed_ckpt: str, tmp: str, launch_counts, reset_launch_counts) -> dict:
+    """The ETL tools from raw archives to a tree, and the main path on that tree.  Phase 19's tree is
+    written as users download it (``data/raw_archive.py``: one GRIB2 file an init time, ERA5 NetCDF-3
+    files packed int16), ``tools.run_etl`` runs every tool's ``main(argv)`` in process into
+    ``tmp/etl`` (phase 19's constants and coordinate pickles copied beside, which no tool makes), the
+    label extraction runs again with two spawned workers (the same files byte for byte), and
+    ``etl_raster_errors`` holds every raster to phase 19's.  Then the command line:
+    ``--mode train`` from phase 19's seeded checkpoint for ``ETL_STEPS`` steps (the v4s launches as
+    ``v4s_launches_expected``), ``--mode inference`` on ``ETL_HOURS`` (one primal launch an hour) and
+    ``--mode test`` on the checkpoint the run saved (one primal launch a labelled hour).  Last, one
+    ``PhysicsDataset`` item of the first window from each tree by host clock, alternating, and the
+    tiles each decodes.  Returns the launch counts and the readings."""
+    import datetime
+    import filecmp
+    import pickle
+    import shutil
+
+    from deepphysinet_tpu_torch import cli
+    from deepphysinet_tpu_torch.data import geotiff
+    from deepphysinet_tpu_torch.data.dataset import PhysicsDataset
+    from deepphysinet_tpu_torch.data.raw_archive import write_era5_netcdf, write_gfs_grib2
+    from deepphysinet_tpu_torch.tools import extract_variable_from_ERA5, run_etl
+
+    t_phase = time.perf_counter()
+    raw = os.path.join(tmp, "etl_raw")
+    grib_files = write_gfs_grib2(paths, os.path.join(raw, "grib"))
+    era5_files = write_era5_netcdf(paths, os.path.join(raw, "era5"))
+    raw_s = time.perf_counter() - t_phase
+    root = os.path.join(tmp, "etl")
+    etl = run_etl(os.path.join(raw, "grib"), os.path.join(raw, "era5"), root, datetime.datetime(2008, 1, 1),
+                  datetime.datetime(2008, 1, 2), 24, 24)
+    # C46: the label extraction again with two spawned workers writes the same files byte for byte
+    t0 = time.perf_counter()
+    pooled = extract_variable_from_ERA5.main(["--data_path", os.path.join(raw, "era5"), "--result_path",
+                                              os.path.join(tmp, "etl_labels_2"), "--num_threads", "2",
+                                              "--end_time", "2008-01-03-00:00:00"])
+    pooled_s = time.perf_counter() - t0
+    single = etl["results"]["extract_variable_from_ERA5"]
+    same = sorted(map(os.path.basename, pooled)) == sorted(map(os.path.basename, single)) and all(
+        filecmp.cmp(a, os.path.join(etl["paths"]["label_path"], os.path.basename(a)), shallow=False) for a in pooled)
+    tree_root = os.path.dirname(paths["input_path"])
+    for name in ("constant", "coord_1d.pickle", "coord_0p25d.pickle"):
+        src = os.path.join(tree_root, name)
+        (shutil.copytree if os.path.isdir(src) else shutil.copy)(src, os.path.join(root, name))
+    etl_paths = dict(paths, **etl["paths"], constant_path=os.path.join(root, "constant"),
+                     in_coord_file=os.path.join(root, "coord_1d.pickle"),
+                     out_coord_file=os.path.join(root, "coord_0p25d.pickle"))
+    counts = {k: len(v) for k, v in etl["results"].items()}
+    log(f"[etl] raw archives written in {raw_s:.1f} s: {len(grib_files)} GRIB2 files "
+        f"({sum(os.path.getsize(f) for f in grib_files)} bytes) and {len(era5_files)} ERA5 NetCDF-3 files "
+        f"({sum(os.path.getsize(f) for f in era5_files)} bytes); the tools in process, host clock s and outputs: "
+        + ", ".join(f"{k} {etl['seconds'][k]:.2f} ({counts[k]})" for k in etl["seconds"])
+        + f"; extract_variable_from_ERA5 again with --num_threads 2 (spawned workers) {pooled_s:.2f} s, its "
+        f"{len(pooled)} files byte for byte those of the run without workers: {same}")
+    with open(paths["input_map_file"], "rb") as a, open(etl_paths["input_map_file"], "rb") as b:
+        want_keys, got_keys = sorted(pickle.load(a)), sorted(pickle.load(b))
+    if got_keys != want_keys or counts["extract_variable_from_ERA5"] != 49 * 5 or counts["calc_mean_std"] != 11 \
+            or not same:
+        raise AssertionError(f"etl: index keys equal {got_keys == want_keys}, outputs {counts}, two workers' files "
+                             f"the same: {same}")
+
+    t0 = time.perf_counter()
+    checked = etl_raster_errors(paths, etl_paths, grib_files, era5_files)
+    worst = checked["worst"]
+    log(f"[etl] every raster of the ETL-built tree against phase 19's ({checked['input_groups']} input times x 11 "
+        f"variables, {checked['label_hours']} label hours x 6, {time.perf_counter() - t0:.1f} s): largest error, "
+        "then at the largest share of its allowance: error / allowance (share): "
+        + "; ".join(f"{k} {m:.3e}, {e:.3e} / {a:.3e} ({r:.3f})" for k, (m, e, a, r) in worst.items()))
+    if len(worst) != 17 or any(r > 1.0 for *_, r in worst.values()):
+        raise AssertionError(f"etl: rasters out of their codec's allowance: {worst}")
+
+    # the command line on the ETL-built tree: train, infer two hours, test
+    ckpt_dir, log_dir = os.path.join(tmp, "etl_ckpt"), os.path.join(tmp, "etl_log")
+    shutil.copytree(seed_ckpt, ckpt_dir)
+    tree = {k: etl_paths[k] for k in ("input_path", "label_path", "constant_path", "in_coord_file", "out_coord_file")}
+    tree.update({"input_data_map_cfg.NCEP": etl_paths["input_map_file"], "start_time": "2008-01-01_00_00_00",
+                 "end_time": "2008-01-02_00_00_00"})
+    sets = [f"train_cfg.{split}.{k}={v}" for split, seed in (("train_data", 0), ("valid_data", 1))
+            for k, v in {**tree, "seed": seed}.items()]
+    sets += ["train_cfg.log.with_vis=False", f"train_cfg.log.log_step={TRAINER_LOG_STEP}",
+             f"train_cfg.tpu.pde_start_step={TRAINER_PDE_START}", f"inference_cfg.start_time={ETL_HOURS[0]}",
+             f"inference_cfg.end_time={ETL_HOURS[1]}", "inference_cfg.log.with_vis=False",
+             f"inference_cfg.log.vis_path={os.path.join(tmp, 'etl_out')}"]
+    base = ["--config_file", FLAGSHIP_CFG, "--checkpoints_path", ckpt_dir]
+    for item in sets:
+        base += ["--set", item]
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    state = cli.main(base + ["--mode", "train", "--max_steps", str(ETL_STEPS), "--log_path", log_dir])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_counts = launch_counts()
+    losses = logged_losses(log_dir)
+    want = v4s_launches_expected(1, ETL_STEPS)
+    got = (train_counts["fused_decode_jvp_v4s"], train_counts["decode_bwd_kernel_v4s"])
+    log(f"[etl] --mode train on the ETL-built tree from phase 19's seeded checkpoint: {state.step} steps in "
+        f"{train_s:.1f} s, {len(losses)} logged losses, grad norms and validation losses, all finite: "
+        f"{bool(losses) and all(np.isfinite(losses))}; v4s forward / backward launches {got[0]} / {got[1]} (phase 20's "
+        f"count for steps 1-{ETL_STEPS}: {want[0]} / {want[1]})")
+    if state.step != ETL_STEPS or not (losses and all(np.isfinite(losses))) or got != want:
+        raise AssertionError(f"etl: training gave step {state.step}, losses {losses}, v4s launches {got} not {want}")
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    hours = cli.main(base + ["--mode", "inference"])
+    torch.cuda.synchronize()
+    infer_s = time.perf_counter() - t0
+    infer_launches = launch_counts()["decode_primal_v4t"]
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    metrics = cli.main(base + ["--mode", "test"])
+    torch.cuda.synchronize()
+    test_s = time.perf_counter() - t0
+    test_launches = launch_counts()["decode_primal_v4t"]
+    labelled = int(metrics["n_points"]) // GRID_POINTS
+    rmse = {k[5:]: v for k, v in metrics.items() if k.startswith("rmse_")}
+    log(f"[etl] --mode inference on {len(hours)} hours in {infer_s:.1f} s, {infer_launches} primal launches, grids "
+        f"finite: {all(np.isfinite(g['T']).all() for _, g in hours)}; --mode test on the saved checkpoint (step "
+        f"{metrics['global_step']:.0f}) in {test_s:.1f} s: {labelled} labelled hours, {test_launches} primal "
+        "launches; RMSE " + ", ".join(f"{k} {v:.4g}" for k, v in rmse.items()))
+    if len(hours) != 2 or infer_launches != 2 or not all(np.isfinite(g["T"]).all() for _, g in hours) \
+            or test_launches != labelled or metrics["global_step"] != ETL_STEPS \
+            or not (len(rmse) == 6 and all(np.isfinite(list(rmse.values())))):
+        raise AssertionError(f"etl: inference {len(hours)} hours / {infer_launches} launches; test {metrics} with "
+                             f"{test_launches} launches")
+
+    # one loader item of the first window from each tree, alternating, and the tiles each decodes
+    tc = cfg["train_cfg"]
+    datasets = {}
+    for name, p in (("etl", etl_paths), ("synthetic", paths)):
+        data_cfg = dict(tc["train_data"], input_path=p["input_path"], label_path=p["label_path"],
+                        constant_path=p["constant_path"], in_coord_file=p["in_coord_file"],
+                        out_coord_file=p["out_coord_file"], input_data_map_cfg=dict(NCEP=p["input_map_file"]),
+                        start_time="2008-01-01_00_00_00", end_time="2008-01-02_00_00_00", seed=0)
+        datasets[name] = PhysicsDataset(**data_cfg, input_variable_cfg=cfg["variable_cfg"],
+                                        out_variable_cfg=cfg["obs_norm_cfg"], dx=float(tc["dx"]), dy=float(tc["dy"]))
+    decode = geotiff._segment_to_values
+    tiles = {}
+    for name, ds in datasets.items():
+        n = [0]
+
+        def counting(*a, **k):
+            n[0] += 1
+            return decode(*a, **k)
+
+        geotiff._segment_to_values = counting
+        try:
+            ds[0]
+        finally:
+            geotiff._segment_to_values = decode
+        tiles[name] = n[0]
+    item_ms = {name: [] for name in datasets}
+    for _ in range(ETL_LOADER_ITEMS):
+        for name, ds in datasets.items():
+            item_ms[name].append(host_ms(lambda: ds[0]))
+    med = {k: statistics.median(v) for k, v in item_ms.items()}
+    log(f"[etl] one loader item of the first window by host clock, ms (median of {ETL_LOADER_ITEMS}, alternating): "
+        f"ETL-built tree (256 x 256 tiles) {med['etl']:.3f} {[round(t, 3) for t in item_ms['etl']]}, {tiles['etl']} "
+        f"tiles decoded; phase 19's tree (16 x 16 tiles) {med['synthetic']:.3f} "
+        f"{[round(t, 3) for t in item_ms['synthetic']]}, {tiles['synthetic']} tiles; ratio "
+        f"{med['etl'] / med['synthetic']:.3f}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"[etl] the phase took {phase_s:.1f} s by host clock")
+    return dict(counts=train_counts, infer_launches=infer_launches, test_launches=test_launches,
+                loader_ms=med, tiles=tiles, seconds=phase_s)
 
 
 def attention_and_encoder_timing(dev, cd, model, field, fh_norm: float, stage_builds: dict) -> dict:
@@ -3286,6 +3611,10 @@ def main() -> int:
         # ---- 22. the tools: evaluate's modes, stations and products on phase 19's tree -------------
         tools = tools_phase(dev, cd, cfg, disk_paths, os.path.join(disk_tmp, "trainer_ckpt"), disk_tmp,
                             launch_counts, reset_launch_counts)
+        torch.cuda.empty_cache()
+
+        # ---- 22b. the ETL tools from raw GRIB2 and NetCDF, and the main path on the tree they write --
+        etl = etl_phase(dev, cfg, disk_paths, disk_ckpt, disk_tmp, launch_counts, reset_launch_counts)
     finally:
         shutil.rmtree(disk_tmp, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -3955,6 +4284,7 @@ def main() -> int:
          "launches": primal_launches, "launches_eval": eval_launches["decode_primal_v4t"],
          "launches_disk": disk_launches, "launches_test": trainer["test_launches"],
          "launches_tools": tools["launches"].get("decode_primal_v4t", 0),
+         "launches_etl": etl["infer_launches"] + etl["test_launches"],
          "max_abs_err": errs[(cd, GRID_POINTS)], "max_rel_err": rel_errs[(cd, GRID_POINTS)],
          "points": GRID_POINTS,
          "ms": k_ms, "plain_ms": p_ms, "bound_ms": primal_bound[0], "bound_by": primal_bound[1],
@@ -3963,6 +4293,7 @@ def main() -> int:
          "replaces": f"{jax_file}:2358",
          "launches": fwd_launches, "launches_trainer": trainer["counts"]["fused_decode_jvp_v4s"],
          "launches_device_trainer": device_trainer["counts"]["fused_decode_jvp_v4s"],
+         "launches_etl": etl["counts"]["fused_decode_jvp_v4s"],
          "max_abs_err": fwd_err[(cd, main_n)],
          "max_rel_err": fwd_rel[(cd, main_n)], "points": main_n,
          "ms": t["fwd"], "plain_ms": t["fwd_plain"], "bound_ms": t["fwd_bound"][0],
@@ -3971,6 +4302,7 @@ def main() -> int:
          "replaces": f"{jax_file}:2508",
          "launches": bwd_launches, "launches_trainer": trainer["counts"]["decode_bwd_kernel_v4s"],
          "launches_device_trainer": device_trainer["counts"]["decode_bwd_kernel_v4s"],
+         "launches_etl": etl["counts"]["decode_bwd_kernel_v4s"],
          "max_abs_err": bwd_err[(cd, main_n)],
          "max_rel_err": bwd_rel[(cd, main_n)], "points": main_n,
          "ms": t["bwd"], "plain_ms": t["bwd_plain"], "bound_ms": t["bwd_bound"][0],

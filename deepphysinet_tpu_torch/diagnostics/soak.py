@@ -19,6 +19,12 @@ step the optimizer), the device-mode validations that failed (their warnings in 
 evaluations' metrics.  The final model's weights (without the optimizer state) are saved into
 ``{out}/model`` so that it can be scored again.  ``--set key.path=value`` passes an override to
 every command (a rehearsal on the CPU shrinks the widths with it and passes ``--device cpu``).
+
+``--seed N`` draws the initial weights from a generator seeded ``N`` (the trainer draws its own
+from seed 0): where the checkpoint directory holds no ``physics_latest`` yet, they are written there
+as a checkpoint of epoch -1, step 0, without an optimizer state, from which the trainer starts as
+from scratch (epoch 0, step 0, fresh Adam moments).  The device draws of the points are seeded by
+the step, as the JAX trainer's are, so the initial weights are what another seed changes.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ def main(argv=None) -> int:
     parser.add_argument("--out", type=str, default="soak_out")
     parser.add_argument("--device", type=str, default=None)
     parser.add_argument("--set", dest="overrides", action="append", default=[], metavar="KEY=VALUE")
+    parser.add_argument("--seed", type=int, default=None, help="the initial weights' seed (the trainer's: 0)")
     args = parser.parse_args(argv)
 
     from deepphysinet_tpu_torch.tools import build_interface, evaluate
@@ -56,6 +63,18 @@ def main(argv=None) -> int:
     common = ["--config_file", CONFIG] + (["--device", args.device] if args.device else [])
     for item in args.overrides:
         common += ["--set", item]
+
+    interface = build_interface(argparse.Namespace(config_file=CONFIG, overrides=args.overrides, device=args.device))
+    ckpt_dir = interface.train_cfg["checkpoints"]["checkpoints_path"]
+    if args.seed is not None and ckpt.load_checkpoint(ckpt_dir)[0] is None:
+        import torch
+
+        from deepphysinet_tpu_torch.train.train_step import create_train_state
+
+        seeded = create_train_state(interface.meta_cfg, interface.net_cfg, dict(interface.train_cfg["optimizer"]),
+                                    torch.Generator().manual_seed(args.seed), compute_dtype=interface.compute_dtype,
+                                    device=interface.device, attn_impl=interface.attn_impl).model
+        ckpt.save_checkpoint(ckpt_dir, -1, 0, seeded, None)
 
     train_log = os.path.join(args.out, "soak_train.log")
     t0 = time.perf_counter()
@@ -71,8 +90,6 @@ def main(argv=None) -> int:
               for m in map(_LOG_LINE.match, text.splitlines()) if m]
     failed_validations = text.count("device-mode validation failed")
 
-    interface = build_interface(argparse.Namespace(config_file=CONFIG, overrides=args.overrides, device=args.device))
-    ckpt_dir = interface.train_cfg["checkpoints"]["checkpoints_path"]
     payload, epoch, step = ckpt.load_checkpoint(ckpt_dir)
     adam_steps = sorted({int(v["step"]) for v in payload["optimizer"]["state"].values()})
 
@@ -94,6 +111,7 @@ def main(argv=None) -> int:
     print(json.dumps({"steps": step, "epoch": epoch - 1, "wall_s": wall_s, "steps_per_s_process": step / wall_s,
                       "steps_per_s_loop": loop, "log_lines": len(logged), "adam_steps": adam_steps,
                       "skipped_nonfinite": step - max(adam_steps), "failed_validations": failed_validations,
+                      "seed": args.seed,
                       **scores}))
     return 0
 

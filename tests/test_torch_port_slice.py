@@ -354,6 +354,16 @@ from deepphysinet_tpu_torch.data.synthetic import generate_synthetic_dataset
 from deepphysinet_tpu_torch.train.checkpoint import find_jax_objects, load_checkpoint
 work = os.environ["DPN_BLOCKED_WORK"]
 paths = generate_synthetic_dataset(os.path.join(work, "tree"), n_init_times=2, bbox=(72.0, 18.0, 88.0, 27.0))
+# the ETL tools on the tree written back out as raw archives (GRIB2, ERA5 NetCDF): the same index
+import datetime, pickle
+from deepphysinet_tpu_torch.data.raw_archive import write_era5_netcdf, write_gfs_grib2
+from deepphysinet_tpu_torch.tools import run_etl
+raw_grib, raw_era5 = write_gfs_grib2(paths, os.path.join(work, "grib")), write_era5_netcdf(paths, os.path.join(work, "era5"))
+etl_run = run_etl(os.path.join(work, "grib"), os.path.join(work, "era5"), os.path.join(work, "etl"),
+                  datetime.datetime(2008, 1, 1), datetime.datetime(2008, 1, 2), 24, 24)
+with open(paths["input_map_file"], "rb") as a, open(etl_run["paths"]["input_map_file"], "rb") as b:
+    etl = [len(raw_grib), len(raw_era5), pickle.load(a) == pickle.load(b),
+           len(etl_run["results"]["extract_variable_from_ERA5"]), len(etl_run["results"]["calc_mean_std"])]
 d = "train_cfg.valid_data."
 sets = [f"{d}input_path={paths['input_path']}", f"{d}label_path={paths['label_path']}",
         f"{d}constant_path={paths['constant_path']}", f"{d}in_coord_file={paths['in_coord_file']}",
@@ -434,7 +444,7 @@ print(json.dumps({"loaded": loaded, "T": list(grid["T"].shape), "pts": list(pts.
                   "sweep_hours": sweeps["n_hours"], "sweep_points": sweeps["n_points"],
                   "has_lead": "rmse_t2_f048" in sweeps and "weighted_total" in sweeps,
                   "encoded": encoded, "v2": v2, "disk": disk, "train": train, "device": device,
-                  "tools": tools}))
+                  "tools": tools, "etl": etl}))
 """
 
 
@@ -474,4 +484,5 @@ def test_port_runs_with_jax_blocked(tmp_path):
                    "disk": [2, ["2008-01-01_11_00_00_T.tiff", "2008-01-01_12_00_00_T.tiff"], True, 1],
                    "train": [2, ["codes.zip", "physics_0.pth", "physics_latest.pth"], True],
                    "device": [[2, ["codes.zip", "physics_0.pth", "physics_latest.pth"], True]] * 2,
-                   "tools": [True, [12] * 4, 25.0 * 37 * 65, 256.0, 1 + 25, True, 3, ["t2", "wd10m"]]}
+                   "tools": [True, [12] * 4, 25.0 * 37 * 65, 256.0, 1 + 25, True, 3, ["t2", "wd10m"]],
+                   "etl": [2, 3, True, 49 * 5, 11]}
