@@ -166,7 +166,17 @@ Phases, each of which raises (exit code 1) on failure:
                ``--mode inference`` on two hours (primal launches) and ``--mode test`` on the
                checkpoint it saved; one loader item of the same window from each tree by host clock
                (alternating, 3 each) with the tiles each item decodes;
-23. timing  -- by CUDA events, medians, alternating order: each kernel and its
+23. options -- the encoder's model options at flagship width, bf16 (``--set meta_cfg.attn_type=prob
+               --set meta_cfg.fused_qkv=True``): one encode of the seeded model, each layer's
+               ProbSparse rows against full attention with the same roundings, the other rows the
+               value mean, the key sample the numpy copy of JAX's draw, the selected queries against
+               a float32 run, fused q/k/v against the three projections (float32); ``--mode train``
+               on phase 19's tree (host-sampled, on the device, resumed) with the v4s launch counts,
+               ``--mode inference`` on two hours and ``--mode test`` (primal launches); fused q/k/v
+               under ``attn_impl='pallas'`` (one encode and one PDE step, the single-tile kernel
+               against its plain version); readings of encodes, ProbSparse attention at 4,096 tokens
+               beside the flash kernel and PDE steps; ResNet-50 on the card against the CPU;
+24. timing  -- by CUDA events, medians, alternating order: each kernel and its
                plain version at the main paths' sizes (the attention kernels beside one
                ``scaled_dot_product_attention`` call and a bound of three terms, the
                single-tile kernel also at 1,024 tokens; the primal, v4 pair, v4s pair,
@@ -184,7 +194,7 @@ Phases, each of which raises (exit code 1) on failure:
                clock around a synchronize: one frame, one training step of each
                kind, one residual sweep, split into their parts, and one encode
                through ``PhysicsNet.encode`` and ``encode_fused``;
-24. profile -- only with ``--profile``: ``torch.profiler`` over three steps of each
+25. profile -- only with ``--profile``: ``torch.profiler`` over three steps of each
                kind, three frames and three residual sweeps, for the device's busy share.
 
 The last three lines of standard output are a JSON object with each kernel's
@@ -1420,12 +1430,13 @@ def trainer_phase(dev, cfg, paths, seed_ckpt: str, tmp: str, launch_counts, rese
 DEVICE_TRAINER_STEPS, DEVICE_POOL_STEPS, DEVICE_RESUMED_STEPS = 12, 6, 2  # six, three and one epochs
 
 
-def v4s_launches_expected(first: int, last: int) -> tuple:
+def v4s_launches_expected(first: int, last: int, pde_start: int = TRAINER_PDE_START) -> tuple:
     """(forward, backward) v4s launches of the trainer's steps first..last (1-based global steps,
-    one run ending at ``last``): two forwards and two backwards a PDE step, two forwards a
-    validation batch with the PDE terms (at each log step and the last)."""
+    one run ending at ``last``, the PDE terms from step ``pde_start`` + 1): two forwards and two
+    backwards a PDE step, two forwards a validation batch with the PDE terms (at each log step and
+    the last)."""
     steps = range(first, last + 1)
-    pde = [s for s in steps if s - 1 >= TRAINER_PDE_START]
+    pde = [s for s in steps if s - 1 >= pde_start]
     logged = [s for s in steps if s % TRAINER_LOG_STEP == 1 or s == last]
     return 2 * len(pde) + 2 * len([s for s in logged if s in pde]), 2 * len(pde)
 
@@ -2218,6 +2229,384 @@ def etl_phase(dev, cfg, paths, seed_ckpt: str, tmp: str, launch_counts, reset_la
     log(f"[etl] the phase took {phase_s:.1f} s by host clock")
     return dict(counts=train_counts, infer_launches=infer_launches, test_launches=test_launches,
                 loader_ms=med, tiles=tiles, seconds=phase_s)
+
+
+# phase 23: the encoder's model options (meta_cfg.attn_type='prob', meta_cfg.fused_qkv=True) at flagship width
+OPTION_SETS = ("meta_cfg.attn_type=prob", "meta_cfg.fused_qkv=True")
+OPTION_PDE_START = 1  # the PDE terms from the second step of each run from the seeded checkpoint
+OPTION_HOST_STEPS = 2  # host-sampled from phase 19's seeded checkpoint
+OPTION_DEVICE_STEPS, OPTION_RESUMED_STEPS = 2, 2  # sampled on the device, then resumed to step 4
+OPTION_HOURS = ("2008-01-01_06_00_00", "2008-01-01_07_00_00")  # the inference run's two hours
+# fused q/k/v against the three projections in float32 with TF32 off: JAX's own bar (test_models.py:119)
+TOL_FUSED_QKV = 1e-5
+PROB_TIMED_TOKENS = 4096  # ProbSparse attention alone beside the flash kernel
+OPTION_TIMING_ROUNDS = 3  # encodes and PDE steps timed in turns, medians
+# ResNet-50 on the card against the same module on the CPU, float32 (TF32 off), eval mode: each
+# endpoint within TOL_RESNET of its largest value (cuDNN's and oneDNN's float32 sums in other orders)
+RESNET_INPUT = (1, 145, 257, 64)
+TOL_RESNET = 1e-4
+
+
+def model_options_phase(dev, cd, cfg, window, dcfg, scfg, field, batch, paths, seed_ckpt: str, tmp: str,
+                        launch_counts, reset_launch_counts) -> dict:
+    """The encoder's model options at flagship width, bf16 (``--set meta_cfg.attn_type=prob --set
+    meta_cfg.fused_qkv=True``, which every entry point reads through ``PhysicsNet``'s meta_cfg):
+    (a) one encode of the seeded model: in each layer, on that layer's input, ProbSparse attention's
+    u rows of each head against full attention with the same roundings (the attention checks' bf16
+    bar) and against the plain path (``attention_xla``, a reading), every other row the value mean
+    bit for bit, the key sample the numpy draw of JAX's ``randint`` and the same tensor on every
+    call (C47), the selected queries against a float32 run on the same layer input (a query may
+    change sides only where its float32 m lies within twice the head's largest bf16-float32
+    difference of m of the cut: counted), fused q/k/v against the three projections in float32;
+    (b) ``--mode train`` through the command line on phase 19's tree from its seeded checkpoint:
+    ``OPTION_HOST_STEPS`` host-sampled steps, ``OPTION_DEVICE_STEPS`` sampled on the device, then
+    that run resumed for ``OPTION_RESUMED_STEPS`` more (the PDE terms from each run's second step
+    from the seeded checkpoint), with the v4s launches of
+    ``v4s_launches_expected``, every logged loss finite, and the options' code run (ProbSparse
+    attention and the fused product counted, once each a layer and encode); (c) ``--mode
+    inference`` on ``OPTION_HOURS`` and ``--mode test`` with the checkpoints (b) wrote, one primal
+    launch an hour; (d) ``fused_qkv=True`` with ``attn_impl='pallas'``: one encode and one PDE step
+    (the single-tile kernel once a layer and forward, the v4s pair), each layer's tile kernel
+    against its plain version on that layer's q, k, v, the tokens against the default model's
+    (``encoder_close``) and the step's loss against the unfused 'pallas' model's; (e) readings by
+    CUDA events and host clock: an encode at 287 tokens under full attention (plain, 'pallas',
+    'flash') and ProbSparse, each with and without fused q/k/v; ProbSparse attention alone at
+    ``PROB_TIMED_TOKENS`` tokens beside the flash kernel; a PDE step with both options against the
+    default; (f) ResNet-50 at ``RESNET_INPUT`` (NHWC), eval mode, on the card against the same
+    module on the CPU, float32.  Returns the launch counts and the readings."""
+    import shutil
+
+    from deepphysinet_tpu_torch import cli
+    from deepphysinet_tpu_torch.inference import runner
+    from deepphysinet_tpu_torch.models import backbone
+    from deepphysinet_tpu_torch.models import transformer_net as tn
+    from deepphysinet_tpu_torch.ops import attention as at
+    from deepphysinet_tpu_torch.ops import prob_attention as pa
+    from deepphysinet_tpu_torch.train import train_step as ts
+
+    t_phase = time.perf_counter()
+    meta_opts = dict(cfg["meta_cfg"], attn_type="prob", fused_qkv=True)
+    fh_norm = window.forecast_h / dcfg.forecast_time_period
+    n_layers = int(cfg["meta_cfg"]["e_layers"])
+
+    def fresh(meta, dtype=cd, impl=None):
+        return ts.create_train_state(meta, cfg["net_cfg"], cfg["train_cfg"]["optimizer"],
+                                     torch.Generator().manual_seed(0), compute_dtype=dtype, device=dev,
+                                     attn_impl=impl)
+
+    def attention_layers(model):
+        return [layer.attention for layer in model.meta_net.model.encoder.attn_layers]
+
+    def encode_with_inputs(model):
+        """One encode of the window and each attention layer's input in it."""
+        xs = []
+        hooks = [att.register_forward_pre_hook(lambda mod, a: xs.append(a[0].detach()))
+                 for att in attention_layers(model)]
+        try:
+            tokens = runner._encode(model, field, fh_norm)
+            torch.cuda.synchronize()
+        finally:
+            for h in hooks:
+                h.remove()
+        return tokens, xs
+
+    def heads(att, x):
+        b, length, d = x.shape
+        return [t.reshape(b, length, att.n_heads, d // att.n_heads) for t in att.qkv(x)]
+
+    # ---- (a) one encode at flagship width, bf16
+    model = fresh(meta_opts).model.eval()
+    model32 = fresh(meta_opts, torch.float32).model.eval()
+    tokens, xs = encode_with_inputs(model)
+    length = xs[0].shape[1]
+    u, u_part = pa.top_counts(length, length)
+    sample = pa.sample_indices(length, u_part, length, dev)
+    draw_same = sample is pa.sample_indices(length, u_part, length, dev) and np.array_equal(
+        sample.cpu().numpy(), pa.randint(pa.prng_key(0), (length, u_part), 0, length))
+    readings, swapped, unexplained, fused_err = [], 0, [], 0.0
+    with torch.no_grad():
+        for i, (att, att32, x) in enumerate(zip(attention_layers(model), attention_layers(model32), xs)):
+            q, k, v = heads(att, x)
+            scale = q.shape[-1] ** -0.5
+            got = pa.prob_attention(q, k, v, scale=scale).transpose(1, 2)  # [B, H, L, E]
+            top = pa.top_queries(q, k)  # [B, H, u]
+            qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+            scores = pa._einsum_round(qh, kh.transpose(-1, -2), q.dtype) * torch.tensor(scale, dtype=q.dtype).item()
+            full_same = pa._einsum_round(pa._softmax_like_jax(scores), vh, v.dtype)  # every row attended fully
+            full_plain = at.attention_xla(q, k, v, scale).transpose(1, 2)
+            selected = torch.zeros(got.shape[:3], dtype=torch.bool, device=dev).scatter_(2, top, True)
+            sel = selected[..., None].expand_as(got)
+            mean = pa._mean_round(vh, 2, keepdim=True).expand_as(got)
+            rest_exact = bool((got[~sel] == mean[~sel]).all())
+            err_same = float((got.float() - full_same.float())[sel].abs().max())
+            err_plain = float((got.float() - full_plain.float())[sel].abs().max())
+            step = bf16_step(full_same.float())
+            # how many rows left at the value mean also lie within the bar of full attention
+            near = int(((mean.float() - full_same.float()).abs().amax(-1) <= step)[~selected].sum())
+            q32, k32, v32 = heads(att32, x.float())
+            top32 = pa.top_queries(q32, k32)
+            m16, m32 = pa.sparsity_measure(q, k).float(), pa.sparsity_measure(q32, k32)
+            for h in range(q.shape[2]):
+                a, b = set(top[0, h].tolist()), set(top32[0, h].tolist())
+                cut = float(torch.sort(m32[0, h], descending=True).values[u - 1])
+                delta = 2.0 * float((m16[0, h] - m32[0, h]).abs().max())
+                swapped += len(a - b)
+                unexplained += [(i, h, l) for l in a ^ b if abs(float(m32[0, h, l]) - cut) > delta]
+            fused = att32.qkv(x.float())
+            att32.fused_qkv = False
+            try:
+                three = att32.qkv(x.float())
+            finally:
+                att32.fused_qkv = True
+            fused_err = max(fused_err, max(float((a_ - b_).abs().max()) for a_, b_ in zip(fused, three)))
+            readings.append(dict(err_same=err_same, err_plain=err_plain, step=step, rest_exact=rest_exact, near=near))
+            log(f"[options] layer {i}: ProbSparse attention, {u} of {length} rows of each of {q.shape[2]} heads attended "
+                f"fully; those rows against full attention with the same roundings max {err_same:.3e} (bound one bf16 "
+                f"step of the largest, {step:.3e}), against the plain path (attention_xla) {err_plain:.3e} (a reading); "
+                f"the other rows the value mean bit for bit: {rest_exact} ({near} of them also within the bound of "
+                f"their full-attention row)")
+    log(f"[options] the key sample [{length}, {u_part}] on the card is the numpy draw of JAX's randint(PRNGKey(0)) and "
+        f"the same tensor on a second call: {draw_same}; selected queries, bf16 against float32 on each layer's "
+        f"input: {swapped} of {n_layers * q.shape[2] * u} changed sides, {len(unexplained)} of them outside twice the "
+        f"head's bf16-float32 spread of m about the cut {unexplained[:4]}; fused q/k/v against the three projections "
+        f"(float32, TF32 off) max {fused_err:.3e} (bound {TOL_FUSED_QKV:.0e}); tokens {tuple(tokens.shape)} finite "
+        f"{bool(torch.isfinite(tokens).all())}")
+    if not (draw_same and not unexplained and fused_err <= TOL_FUSED_QKV and bool(torch.isfinite(tokens).all())
+            and all(r["rest_exact"] and r["err_same"] <= r["step"] for r in readings)):
+        raise AssertionError(f"options: one encode failed its checks: {readings}, draw {draw_same}, unexplained "
+                             f"{unexplained}, fused {fused_err}")
+    del model, model32, xs
+
+    # ---- (b) --mode train and (c) --mode inference / --mode test through the command line
+    dirs = {k: os.path.join(tmp, f"options_ckpt_{k}") for k in ("host", "device")}
+    log_dir = os.path.join(tmp, "options_log")
+    for d in dirs.values():
+        shutil.copytree(seed_ckpt, d)
+    tree = {k: paths[k] for k in ("input_path", "label_path", "constant_path", "in_coord_file", "out_coord_file")}
+    tree.update({"input_data_map_cfg.NCEP": paths["input_map_file"], "start_time": "2008-01-01_00_00_00",
+                 "end_time": "2008-01-02_00_00_00"})
+    sets = [f"train_cfg.{split}.{k}={v}" for split, seed in (("train_data", 0), ("valid_data", 1))
+            for k, v in {**tree, "seed": seed}.items()]
+    sets += ["train_cfg.log.with_vis=False", f"train_cfg.log.log_step={TRAINER_LOG_STEP}",
+             f"train_cfg.tpu.pde_start_step={OPTION_PDE_START}", f"inference_cfg.start_time={OPTION_HOURS[0]}",
+             f"inference_cfg.end_time={OPTION_HOURS[1]}", "inference_cfg.log.with_vis=False",
+             f"inference_cfg.log.vis_path={os.path.join(tmp, 'options_out')}", *OPTION_SETS]
+    device_sets = ["train_cfg.tpu.sample_mode=device", "train_cfg.train_data.in_memory=True",
+                   "train_cfg.valid_data.in_memory=True"]
+
+    def args(run, *extra):
+        out = ["--config_file", FLAGSHIP_CFG, "--checkpoints_path", dirs[run], *extra]
+        for item in sets + (device_sets if run == "device" else []):
+            out += ["--set", item]
+        return out
+
+    calls = {"prob": 0, "fused": 0}
+    prob_fn, qkv_fn = tn.prob_attention, tn.AttentionLayer.qkv
+
+    def counting_prob(*a, **k):
+        calls["prob"] += 1
+        return prob_fn(*a, **k)
+
+    def counting_qkv(self, x):
+        calls["fused"] += int(self.fused_qkv)
+        return qkv_fn(self, x)
+
+    tn.prob_attention, tn.AttentionLayer.qkv = counting_prob, counting_qkv
+    seconds, runs_calls = {}, {}
+    try:
+        reset_launch_counts()
+        for name, run, steps in (("host", "host", OPTION_HOST_STEPS), ("device", "device", OPTION_DEVICE_STEPS),
+                                 ("resumed", "device", OPTION_DEVICE_STEPS + OPTION_RESUMED_STEPS)):
+            t0 = time.perf_counter()
+            state = cli.main(args(run, "--mode", "train", "--max_steps", str(steps), "--log_path", log_dir))
+            torch.cuda.synchronize()
+            seconds[name] = time.perf_counter() - t0
+            runs_calls[name] = dict(calls, step=state.step)
+        train_counts = launch_counts()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        hours = cli.main(args("host", "--mode", "inference"))
+        torch.cuda.synchronize()
+        seconds["inference"] = time.perf_counter() - t0
+        infer_launches = launch_counts()["decode_primal_v4t"]
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        metrics = cli.main(args("device", "--mode", "test"))
+        torch.cuda.synchronize()
+        seconds["test"] = time.perf_counter() - t0
+        test_launches = launch_counts()["decode_primal_v4t"]
+    finally:
+        tn.prob_attention, tn.AttentionLayer.qkv = prob_fn, qkv_fn
+    losses = logged_losses(log_dir)
+    want = [sum(x) for x in zip(v4s_launches_expected(1, OPTION_HOST_STEPS, OPTION_PDE_START),
+                                v4s_launches_expected(1, OPTION_DEVICE_STEPS, OPTION_PDE_START),
+                                v4s_launches_expected(OPTION_DEVICE_STEPS + 1,
+                                                      OPTION_DEVICE_STEPS + OPTION_RESUMED_STEPS, OPTION_PDE_START))]
+    got = [train_counts["fused_decode_jvp_v4s"], train_counts["decode_bwd_kernel_v4s"]]
+    steps = [runs_calls[k]["step"] for k in ("host", "device", "resumed")]
+    labelled = int(metrics["n_points"]) // GRID_POINTS
+    rmse = {k[5:]: v for k, v in metrics.items() if k.startswith("rmse_")}
+    log(f"[options] --mode train with {' '.join('--set ' + s_ for s_ in OPTION_SETS)}: {steps[0]} host-sampled steps in "
+        f"{seconds['host']:.1f} s, {steps[1]} sampled on the device in {seconds['device']:.1f} s, resumed to step "
+        f"{steps[2]} in {seconds['resumed']:.1f} s; {len(losses)} logged losses, grad norms and validation losses, all "
+        f"finite: {bool(losses) and all(np.isfinite(losses))}; v4s forward / backward launches {got[0]} / {got[1]} "
+        f"(expected {want[0]} / {want[1]}); ProbSparse attention and fused q/k/v calls after each run "
+        f"{[(runs_calls[k]['prob'], runs_calls[k]['fused']) for k in ('host', 'device', 'resumed')]}")
+    log(f"[options] --mode inference on {len(hours)} hours with the host run's checkpoint in {seconds['inference']:.1f} s, "
+        f"{infer_launches} primal launches, grids finite: {all(np.isfinite(g['T']).all() for _, g in hours)}; --mode "
+        f"test with the resumed run's (step {metrics['global_step']:.0f}) in {seconds['test']:.1f} s: {labelled} "
+        f"labelled hours, {test_launches} primal launches; RMSE " + ", ".join(f"{k} {v:.4g}" for k, v in rmse.items())
+        + f"; ProbSparse attention and fused q/k/v calls in all {calls}")
+    options_used = calls["prob"] == calls["fused"] and calls["prob"] % n_layers == 0 and all(
+        runs_calls[a]["prob"] > (runs_calls[b]["prob"] if b else 0)
+        for a, b in (("host", None), ("device", "host"), ("resumed", "device")))
+    if not (losses and all(np.isfinite(losses))) or got != want or steps != [OPTION_HOST_STEPS, OPTION_DEVICE_STEPS,
+                                                                            OPTION_DEVICE_STEPS + OPTION_RESUMED_STEPS] \
+            or not options_used or calls["prob"] <= runs_calls["resumed"]["prob"]:
+        raise AssertionError(f"options: training gave steps {steps}, losses {losses}, v4s launches {got} not {want}, "
+                             f"option calls {runs_calls} / {calls}")
+    if len(hours) != 2 or infer_launches != 2 or not all(np.isfinite(g["T"]).all() for _, g in hours) \
+            or test_launches != labelled or metrics["global_step"] != steps[2] \
+            or not (len(rmse) == 6 and all(np.isfinite(list(rmse.values())))):
+        raise AssertionError(f"options: inference {len(hours)} hours / {infer_launches} launches; test {metrics} with "
+                             f"{test_launches} launches")
+
+    # ---- (d) fused q/k/v with attn_impl='pallas': one encode and one PDE step
+    meta_fused = dict(cfg["meta_cfg"], fused_qkv=True)
+    state_p = fresh(meta_fused, impl="pallas")
+    state_p.model.eval()
+    reset_launch_counts()
+    tokens_p, xs_p = encode_with_inputs(state_p.model)
+    with torch.no_grad():  # each layer's q, k, v before the step moves the weights
+        qkvs = [heads(att, x) for att, x in zip(attention_layers(state_p.model), xs_p)]
+    state_p.model.train()
+    state_p, step_metrics = ts.make_train_step(scfg)(state_p, batch, True)
+    torch.cuda.synchronize()
+    d_counts = {k: v for k, v in launch_counts().items() if v}
+    d_want = {"attention_tile": 2 * n_layers, "fused_decode_jvp_v4s": 2, "decode_bwd_kernel_v4s": 2}
+    tile_errs = []
+    for q, k, v in qkvs:
+        scale = q.shape[-1] ** -0.5
+        got_t = at.attention_tile(q, k, v, scale)
+        torch.cuda.synchronize()
+        want_t = at.attention_tile_ref(q, k, v, scale)
+        tile_errs.append((float((got_t.float() - want_t.float()).abs().max()), bf16_step(want_t.float())))
+    with torch.no_grad():
+        base_tokens = runner._encode(fresh(cfg["meta_cfg"]).model.eval(), field, fh_norm)
+    t_err, t_mean, t_ok = encoder_close(tokens_p, base_tokens, cd)
+    unfused = fresh(cfg["meta_cfg"], impl="pallas").model
+    unfused_loss = float(ts.make_loss_fn(unfused, scfg)(batch, True)[0].detach())
+    del unfused
+    loss = float(step_metrics["total_loss"])
+    loss_rel = abs(loss - unfused_loss) / abs(unfused_loss)
+    log(f"[options] fused_qkv=True, attn_impl='pallas': kernel launches in one encode and one PDE step {d_counts} "
+        f"(expected {d_want}); each layer's single-tile kernel against its plain version on that layer's q, k, v: "
+        + ", ".join(f"{e:.3e} (bound {b:.3e})" for e, b in tile_errs)
+        + f"; tokens against the default model's at most {t_err:.3e} (mean {t_mean:.3f} bf16 steps of the largest; "
+        f"bounds as the encoder kernel's); the step's total loss {loss:.8g} against the unfused 'pallas' model's "
+        f"{unfused_loss:.8g} (relative {loss_rel:.1e}, bound {RTOL_VERSIONS_LOSS[cd]:.0e})")
+    if d_counts != d_want or not all(e <= b for e, b in tile_errs) or not t_ok \
+            or not np.isfinite(loss) or loss_rel > RTOL_VERSIONS_LOSS[cd] or float(step_metrics["skipped_nonfinite"]):
+        raise AssertionError(f"options: fused q/k/v under attn_impl='pallas' failed: launches {d_counts}, tile "
+                             f"{tile_errs}, tokens {t_err}, loss {loss} / {unfused_loss}")
+    del state_p, qkvs, xs_p
+
+    # ---- (e) readings: encodes, ProbSparse attention alone, PDE steps
+    enc_model = fresh(cfg["meta_cfg"]).model.eval()
+    variants = [(attn_type, impl, fused) for attn_type, impl in (("full", "xla"), ("full", "pallas"),
+                                                                 ("full", "flash"), ("prob", None))
+                for fused in (False, True)]
+
+    def encode_as(attn_type, impl, fused):
+        for att in attention_layers(enc_model):
+            att.attn_type, att.attn_impl, att.fused_qkv = attn_type, impl, fused
+        return lambda: runner._encode(enc_model, field, fh_norm)
+
+    enc_times = {v_: {"device": [], "host": []} for v_ in variants}
+    for v_ in variants:
+        encode_as(*v_)()
+    for _ in range(OPTION_TIMING_ROUNDS):
+        for v_ in variants:
+            fn = encode_as(*v_)
+            enc_times[v_]["device"].append(cuda_ms(fn, 20))
+            enc_times[v_]["host"].append(host_ms(fn))
+    enc_ms = {v_: {k: statistics.median(t_) for k, t_ in d_.items()} for v_, d_ in enc_times.items()}
+    del enc_model
+    log("[options] one encode at 287 tokens, ms (medians of " + str(OPTION_TIMING_ROUNDS) + " in turns; CUDA events "
+        "over 20 calls / host clock around one call): " + "; ".join(
+            f"{a}{'' if a == 'prob' else ' ' + i}{' fused' if f else ''} {enc_ms[(a, i, f)]['device']:.3f} / "
+            f"{enc_ms[(a, i, f)]['host']:.3f}" for a, i, f in variants))
+    g = torch.Generator().manual_seed(17)
+    qkv_long = [torch.randn(1, PROB_TIMED_TOKENS, ATTN_HEADS, ATTN_HEAD_DIM, generator=g).to(dev, cd) for _ in range(3)]
+    scale = ATTN_HEAD_DIM ** -0.5
+    t0 = time.perf_counter()
+    pa.prob_attention(*qkv_long, scale=scale)  # the first call at this length: the key sample drawn and copied
+    torch.cuda.synchronize()
+    first_ms = 1e3 * (time.perf_counter() - t0)
+    prob_long = lambda: pa.prob_attention(*qkv_long, scale=scale)  # noqa: E731
+    flash_long = lambda: at.attention_flash(*qkv_long, scale)  # noqa: E731
+    long_ms = {"prob": cuda_ms(prob_long, 20), "flash": cuda_ms(flash_long, 20),
+               "prob_device": device_ms(prob_long, 20), "flash_device": device_ms(flash_long, 20)}
+    u_long, _ = pa.top_counts(PROB_TIMED_TOKENS, PROB_TIMED_TOKENS)
+    log(f"[options] at {PROB_TIMED_TOKENS} tokens ({ATTN_HEADS} heads of {ATTN_HEAD_DIM}, bf16): ProbSparse attention "
+        f"({u_long} rows a head attend fully) {long_ms['prob']:.4f} ms a call, {long_ms['prob_device']:.4f} ms on the "
+        f"device alone (first call {first_ms:.1f} ms, the key sample drawn on the host); the flash kernel "
+        f"{long_ms['flash']:.4f} / {long_ms['flash_device']:.4f} ms")
+    del qkv_long
+    step = ts.make_train_step(scfg)
+    states = {"default": fresh(cfg["meta_cfg"]), "options": fresh(meta_opts)}
+    step_times = {k: [] for k in states}
+    def one_step(name):
+        states[name] = step(states[name], batch, True)[0]
+
+    for name in states:
+        one_step(name)
+    for _ in range(OPTION_TIMING_ROUNDS):
+        for name in ("default", "options", "options", "default"):
+            step_times[name].append(host_ms(lambda: one_step(name)))
+    step_ms = {k: statistics.median(v_) for k, v_ in step_times.items()}
+    del states
+    log(f"[options] one PDE step by host clock, ms (median of {2 * OPTION_TIMING_ROUNDS}, in turns): default "
+        f"{step_ms['default']:.3f}, with ProbSparse attention and fused q/k/v {step_ms['options']:.3f} "
+        f"({[round(t_, 3) for t_ in step_times['default']]} / {[round(t_, 3) for t_ in step_times['options']]})")
+
+    # ---- (f) ResNet-50 on the card against the CPU, float32
+    keys = ("C1", "C2", "C3", "C4", "C5")
+    torch.manual_seed(0)
+    net = backbone.build_backbone("resnet50", out_keys=keys, in_channels=RESNET_INPUT[-1])
+    gen = torch.Generator().manual_seed(5)
+    for name, buf in net.named_buffers():  # running statistics away from their (0, 1) start
+        if name.endswith("running_mean"):
+            buf.copy_(0.1 * torch.randn(buf.shape, generator=gen))
+        elif name.endswith("running_var"):
+            buf.copy_(1.0 + 0.1 * torch.rand(buf.shape, generator=gen))
+    x = torch.randn(*RESNET_INPUT, generator=gen)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        want_r = net(x)
+    cpu_s = time.perf_counter() - t0
+    net = net.to(dev)
+    xd = x.to(dev)
+    with torch.no_grad():
+        got_r = net(xd)
+        torch.cuda.synchronize()
+        resnet_ms = cuda_ms(lambda: net(xd), 10)
+    r_errs = {k: float((got_r[k].cpu() - want_r[k]).abs().max()) / float(want_r[k].abs().max()) for k in keys}
+    log(f"[options] ResNet-50, input {RESNET_INPUT} NHWC, eval mode, float32: endpoints "
+        + ", ".join(f"{k} {tuple(got_r[k].shape)}" for k in keys) + "; on the card against the CPU, max error over "
+        "the endpoint's largest: " + ", ".join(f"{k} {e:.2e}" for k, e in r_errs.items())
+        + f" (bound {TOL_RESNET:.0e}); {resnet_ms:.3f} ms a forward on the card (CUDA events), {cpu_s:.2f} s on the CPU")
+    if any(e > TOL_RESNET for e in r_errs.values()) or any(tuple(got_r[k].shape) != tuple(want_r[k].shape)
+                                                          for k in keys):
+        raise AssertionError(f"options: ResNet-50 on the card disagrees with the CPU: {r_errs}")
+    del net, xd, got_r
+    phase_s = time.perf_counter() - t_phase
+    log(f"[options] the phase took {phase_s:.1f} s by host clock")
+    return dict(launches={"decode_primal_v4t": infer_launches + test_launches,
+                          "fused_decode_jvp_v4s": got[0] + d_counts["fused_decode_jvp_v4s"],
+                          "decode_bwd_kernel_v4s": got[1] + d_counts["decode_bwd_kernel_v4s"],
+                          "attention_tile": d_counts["attention_tile"]},
+                encode_ms=enc_ms, long_ms=long_ms, step_ms=step_ms, resnet_ms=resnet_ms, seconds=phase_s)
 
 
 def attention_and_encoder_timing(dev, cd, model, field, fh_norm: float, stage_builds: dict) -> dict:
@@ -3615,11 +4004,16 @@ def main() -> int:
 
         # ---- 22b. the ETL tools from raw GRIB2 and NetCDF, and the main path on the tree they write --
         etl = etl_phase(dev, cfg, disk_paths, disk_ckpt, disk_tmp, launch_counts, reset_launch_counts)
+        torch.cuda.empty_cache()
+
+        # ---- 23. the encoder's model options: ProbSparse attention and fused q/k/v through the paths --
+        options = model_options_phase(dev, cd, cfg, window, dcfg, scfg, field, batch, disk_paths, disk_ckpt,
+                                      disk_tmp, launch_counts, reset_launch_counts)
     finally:
         shutil.rmtree(disk_tmp, ignore_errors=True)
     torch.cuda.empty_cache()
 
-    # ---- 23. timing --------------------------------------------------------------------------------
+    # ---- 24. timing --------------------------------------------------------------------------------
     hid, in_ch = cfg["net_cfg"]["hidden_channels"], cfg["net_cfg"]["in_channels"]
     two_f = in_ch // 3
 
@@ -4151,7 +4545,7 @@ def main() -> int:
     enc_timing = attention_and_encoder_timing(dev, cd, model, field, window.forecast_h / dcfg.forecast_time_period,
                                               enc_stage_builds)
 
-    # ---- 24. profile (only with --profile): the device's busy share and its largest kernels ----
+    # ---- 25. profile (only with --profile): the device's busy share and its largest kernels ----
     if "--profile" in sys.argv[1:]:
         from torch.profiler import ProfilerActivity, profile
 
@@ -4285,6 +4679,7 @@ def main() -> int:
          "launches_disk": disk_launches, "launches_test": trainer["test_launches"],
          "launches_tools": tools["launches"].get("decode_primal_v4t", 0),
          "launches_etl": etl["infer_launches"] + etl["test_launches"],
+         "launches_options": options["launches"]["decode_primal_v4t"],
          "max_abs_err": errs[(cd, GRID_POINTS)], "max_rel_err": rel_errs[(cd, GRID_POINTS)],
          "points": GRID_POINTS,
          "ms": k_ms, "plain_ms": p_ms, "bound_ms": primal_bound[0], "bound_by": primal_bound[1],
@@ -4294,6 +4689,7 @@ def main() -> int:
          "launches": fwd_launches, "launches_trainer": trainer["counts"]["fused_decode_jvp_v4s"],
          "launches_device_trainer": device_trainer["counts"]["fused_decode_jvp_v4s"],
          "launches_etl": etl["counts"]["fused_decode_jvp_v4s"],
+         "launches_options": options["launches"]["fused_decode_jvp_v4s"],
          "max_abs_err": fwd_err[(cd, main_n)],
          "max_rel_err": fwd_rel[(cd, main_n)], "points": main_n,
          "ms": t["fwd"], "plain_ms": t["fwd_plain"], "bound_ms": t["fwd_bound"][0],
@@ -4303,6 +4699,7 @@ def main() -> int:
          "launches": bwd_launches, "launches_trainer": trainer["counts"]["decode_bwd_kernel_v4s"],
          "launches_device_trainer": device_trainer["counts"]["decode_bwd_kernel_v4s"],
          "launches_etl": etl["counts"]["decode_bwd_kernel_v4s"],
+         "launches_options": options["launches"]["decode_bwd_kernel_v4s"],
          "max_abs_err": bwd_err[(cd, main_n)],
          "max_rel_err": bwd_rel[(cd, main_n)], "points": main_n,
          "ms": t["bwd"], "plain_ms": t["bwd_plain"], "bound_ms": t["bwd_bound"][0],
@@ -4327,7 +4724,8 @@ def main() -> int:
         residual_entry("fused_residual_sums_v6", 6, 127),
         residual_entry("fused_residual_sums_v4", 4, 48),
         # the attention kernels at the encoder's 287 tokens: the paths' shape
-        attention_entry("attention_tile", 48, attn_launches["attention_tile"]),
+        {**attention_entry("attention_tile", 48, attn_launches["attention_tile"]),
+         "launches_options": options["launches"]["attention_tile"]},
         attention_entry("attention_flash", 95, attn_launches["attention_flash"]),
         {"name": "fused_encoder_forward", "route": "cuda", "source": csrc + "encoder.cu",
          "replaces": "deepphysinet_tpu/ops/encoder_kernel.py:132", "launches": enc["launches"],

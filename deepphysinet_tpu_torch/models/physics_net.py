@@ -17,6 +17,7 @@ from torch import nn
 from deepphysinet_tpu_torch.device import resolve_device
 from deepphysinet_tpu_torch.models.transformer_net import TransformerNet
 from deepphysinet_tpu_torch.models.variable_net import VariableNet
+from deepphysinet_tpu_torch.registry import MODELS
 
 # Output stacking order (reference physics_net.py:41-55): coord_data column v
 # is the reference value for variable v in this order.
@@ -36,7 +37,9 @@ class MetaNet(nn.Module):
 class PhysicsNet(nn.Module):
     """``device=None`` places the parameters on the first CUDA device and raises
     when there is none; pass ``device="cpu"`` to build the model on the CPU.
-    ``attn_impl`` picks the encoder's attention (``ops/attention.py::fused_attention``)."""
+    ``attn_impl`` picks the encoder's full attention (``ops/attention.py::fused_attention``).
+    ``meta_cfg`` holds ``TransformerNet``'s arguments, ``attn_type`` and ``fused_qkv``
+    among them; ``name``, ``dropout`` and ``output_attention`` are dropped, as in JAX."""
 
     def __init__(self, meta_cfg: Dict[str, Any], net_cfg: Dict[str, Any],
                  compute_dtype=torch.float32, device=None, attn_impl: Optional[str] = None):
@@ -74,3 +77,11 @@ class PhysicsNet(nn.Module):
         cols = [net(tokens, coord_pe, coord_data, coord_data[:, v : v + 1], fore_h)
                 for v, net in enumerate(self.variable_nets())]
         return torch.cat(cols, dim=-1)
+
+
+@MODELS.register("PhysicsNet")
+def build_physics_net(meta_cfg: dict, net_cfg: dict, compute_dtype=torch.float32, attn_impl=None,
+                      device=None, **_):
+    """The registry's factory (JAX physics_net.py:112-119), with the port's ``device``."""
+    return PhysicsNet(dict(meta_cfg), dict(net_cfg), compute_dtype=compute_dtype, device=device,
+                      attn_impl=attn_impl)

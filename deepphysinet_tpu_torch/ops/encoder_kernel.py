@@ -339,8 +339,15 @@ def encode_fused(model, field_x: torch.Tensor, forecast_h: torch.Tensor) -> torc
     """Forward-only drop-in for ``PhysicsNet.encode``: [B, L, enc_in], [B, 1] -> tokens
     [B, ltn + L, c_out] float32 (the values of the compute dtype).  The embedding runs as
     PyTorch operators; the layers, final norm and projection in one launch per batch item.
-    Activation and compute dtype follow the model."""
+    Activation and compute dtype follow the model.  The kernel computes full attention, so
+    a model with ``attn_type='prob'`` raises ``ValueError`` where JAX's ``encode_fused``
+    computes full attention without a word (C48); ``fused_qkv`` has the same parameters
+    and the same product, so it makes no difference here."""
     net = model.meta_net.model
+    attn_type = net.encoder.attn_layers[0].attention.attn_type
+    if attn_type == "prob":
+        raise ValueError("encode_fused: the fused encoder kernel computes full attention; "
+                         f"the model has attn_type={attn_type!r}")
     xe = net.enc_embedding(field_x, forecast_h, net.learnable_token)  # [B, T, D] float32
     cdt = model.compute_dtype
     w = cast_encoder_weights(extract_encoder_weights(model), cdt)

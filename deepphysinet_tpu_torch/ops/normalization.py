@@ -1,8 +1,9 @@
-"""Inverse normalization of model outputs to physical units.
+"""Variable normalization and its inverse.
 
-Counterpart of ``deepphysinet_tpu/ops/normalization.py`` (reference
-interface/interface_physics.py:234-254), including the optional clip to
-physical bounds.
+Counterpart of ``deepphysinet_tpu/ops/normalization.py``: the forward map
+``normalize`` (reference dataset/physics_dataset.py:270-290) and the inverse of
+model outputs to physical units (reference interface/interface_physics.py:234-254),
+including the optional clip to physical bounds.
 """
 
 from __future__ import annotations
@@ -23,6 +24,40 @@ class NormSpec:
     norm_factor: Tuple = (0.0, 1.0)
     use_norm: bool = True
     bound: Optional[Tuple[float, float]] = None
+
+
+def _as_arrays(norm_factor) -> Tuple[np.ndarray, ...]:
+    """The factors as float32 arrays (a factor may be a vector: pressure-level stacks)."""
+    if isinstance(norm_factor, (int, float)):
+        return (np.float32(norm_factor),)
+    return tuple(np.asarray(f, dtype=np.float32) for f in norm_factor)
+
+
+def normalize(data: torch.Tensor, spec: NormSpec) -> torch.Tensor:
+    """Forward normalization (JAX normalization.py:51-67): ``mean_norm`` (x - mean) / std;
+    ``min_max`` with 2 factors (x - min) / (max - min), with 1 x / factor, with 3
+    (sqrt(x - min) - a_min) / (a_max - a_min).  Float32 factors, differences of factors
+    taken in float32, and the result at least float32, as JAX promotes it."""
+    if not spec.use_norm:
+        return data
+    data = data.to(torch.promote_types(data.dtype, torch.float32))
+
+    def t(f):
+        return torch.as_tensor(f, device=data.device)
+
+    if spec.norm_type.lower() == "min_max":
+        fs = _as_arrays(spec.norm_factor)
+        if len(fs) == 2:
+            lo, hi = fs
+            return (data - t(lo)) / t(hi - lo)
+        if len(fs) == 1:
+            return data / t(fs[0])
+        if len(fs) == 3:
+            a_min, a_max, lo = fs
+            return (torch.sqrt(data - t(lo)) - t(a_min)) / t(a_max - a_min)
+        raise NotImplementedError(f"min_max with {len(fs)} factors")
+    mean, std = _as_arrays(spec.norm_factor)
+    return (data - t(mean)) / t(std)
 
 
 def _as_floats(norm_factor) -> Tuple[float, ...]:

@@ -35,3 +35,22 @@ def sinecos_pe(x: torch.Tensor, freq_bands: np.ndarray, include_input: bool = Fa
 def sinecos_pe_flat(x: torch.Tensor, freq_bands: np.ndarray, dtype=torch.float32) -> torch.Tensor:
     """``sinecos_pe(include_input=False)`` cast to ``dtype`` (the decode's matmul input)."""
     return sinecos_pe(x, freq_bands).to(dtype)
+
+
+class SineCosPE:
+    """Stateless callable carrying the band configuration (JAX position_encoding.py:70-95;
+    the reference module's constructor, utils/position_encoding.py:13-14)."""
+
+    def __init__(self, input_dim: int, N_freqs: int = 32, max_freq: float = 4.0,
+                 log_sampling: bool = True, include_input: bool = True):
+        self.input_dim = input_dim
+        self.n_freqs = N_freqs
+        self.include_input = include_input
+        self.freq_bands = make_freq_bands(N_freqs, max_freq, log_sampling)
+        self.out_dim = 2 * input_dim * N_freqs + (input_dim if include_input else 0)
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        return sinecos_pe(x, self.freq_bands, self.include_input)
+
+    # reference-parity alias (torch modules are invoked via .forward)
+    forward = __call__

@@ -1,6 +1,8 @@
-"""Name -> factory registries: the four of ``deepphysinet_tpu/registry.py`` that the port uses,
-``DATASETS`` (``data/dataset.py``), ``PROJECTIONS`` (``utils/vis.py``), ``LR_SCHEDULES``
-(``train/schedules.py``) and ``INTERFACES`` (``interface/interface_physics.py``)."""
+"""Name -> factory registries: those of ``deepphysinet_tpu/registry.py`` that the port uses,
+``MODELS`` (``models/physics_net.py``, built by ``models/builder.py``), ``DATASETS``
+(``data/dataset.py``), ``PROJECTIONS`` (``utils/vis.py``), ``LR_SCHEDULES``
+(``train/schedules.py``) and ``INTERFACES`` (``interface/interface_physics.py``), and
+``BACKBONES`` (``models/backbone.py``), which JAX keeps in that module (backbone.py:21)."""
 
 from __future__ import annotations
 
@@ -40,6 +42,8 @@ class Registry:
         return self._entries.keys()
 
 
+MODELS = Registry("models")
+BACKBONES = Registry("backbones")
 DATASETS = Registry("datasets")
 PROJECTIONS = Registry("projections")
 LR_SCHEDULES = Registry("lr_schedules")

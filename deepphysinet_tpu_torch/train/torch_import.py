@@ -11,7 +11,14 @@ export_torch_state_dict`` (:144) gives, without importing jax:
   weight [d_model, enc_in, 3] transposed (2, 1, 0), no tap flip;
 * the FFN ``conv1`` / ``conv2`` are kernel-size-1 Conv1d weights [out, in, 1];
 * flax LayerNorm ``scale`` is torch ``weight``;
-* the six variable nets are stacked on a leading axis in VARIABLE_ORDER.
+* the six variable nets are stacked on a leading axis in VARIABLE_ORDER;
+* an attention layer keeps its three projections under ``fused_qkv=True``, so the
+  map is the same for either setting (and for either ``attn_type``, which adds no
+  parameter).
+
+``encoder_stack_state_dict_from_jax`` and ``resnet_state_dict_from_jax`` carry the
+JAX ``EncoderStack`` and ResNet backbones (``params``, and ``batch_stats`` into the
+norms' running statistics) into the port's modules.
 
 ``load_train_state`` carries a whole JAX ``TrainState`` across (parameters,
 Adam's first and second moments and its step count, handed over as numpy
@@ -34,6 +41,20 @@ def _t(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=np.float32))
 
 
+def _encoder_layer(sd: Dict[str, torch.Tensor], prefix: str, layer: Mapping[str, Any]) -> None:
+    """One flax ``EncoderLayer``'s parameters under ``prefix``.  Its attention has the three
+    projections whether or not it fuses them (``fused_qkv``), so one map serves both."""
+    for p in ("query_projection", "key_projection", "value_projection", "out_projection"):
+        sd[prefix + f"attention.{p}.weight"] = _t(np.asarray(layer["attention"][p]["kernel"]).T)
+        sd[prefix + f"attention.{p}.bias"] = _t(layer["attention"][p]["bias"])
+    for c in ("conv1", "conv2"):
+        sd[prefix + c + ".weight"] = _t(np.asarray(layer[c]["kernel"]).T[:, :, None])
+        sd[prefix + c + ".bias"] = _t(layer[c]["bias"])
+    for n in ("norm1", "norm2"):
+        sd[prefix + n + ".weight"] = _t(layer[n]["scale"])
+        sd[prefix + n + ".bias"] = _t(layer[n]["bias"])
+
+
 def state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """Flax ``PhysicsNet`` variables -> reference-named state_dict (float32 tensors)."""
     params = variables["params"] if "params" in variables else variables
@@ -49,19 +70,8 @@ def state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]
     sd[g + "projection.weight"] = _t(np.asarray(meta["projection"]["kernel"]).T)
     sd[g + "projection.bias"] = _t(meta["projection"]["bias"])
     for key in meta:
-        if not key.startswith("layer_"):
-            continue
-        lp = g + f"encoder.attn_layers.{int(key.split('_')[1])}."
-        layer = meta[key]
-        for p in ("query_projection", "key_projection", "value_projection", "out_projection"):
-            sd[lp + f"attention.{p}.weight"] = _t(np.asarray(layer["attention"][p]["kernel"]).T)
-            sd[lp + f"attention.{p}.bias"] = _t(layer["attention"][p]["bias"])
-        for c in ("conv1", "conv2"):
-            sd[lp + c + ".weight"] = _t(np.asarray(layer[c]["kernel"]).T[:, :, None])
-            sd[lp + c + ".bias"] = _t(layer[c]["bias"])
-        for n in ("norm1", "norm2"):
-            sd[lp + n + ".weight"] = _t(layer[n]["scale"])
-            sd[lp + n + ".bias"] = _t(layer[n]["bias"])
+        if key.startswith("layer_"):
+            _encoder_layer(sd, g + f"encoder.attn_layers.{int(key.split('_')[1])}.", meta[key])
 
     vn = params["variable_nets"]
 
@@ -75,6 +85,50 @@ def state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]
         unstack(name, vn[name])
     unstack("cat_fc1.fc.0", vn["cat_fc1"]["fc1"])
     unstack("cat_fc1.fc.2", vn["cat_fc1"]["fc2"])
+    return sd
+
+
+def encoder_stack_state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax ``EncoderStack`` variables -> the port's ``EncoderStack`` state_dict (the layers keep
+    JAX's ``stack_{i}_layer_{j}`` names)."""
+    params = variables["params"] if "params" in variables else variables
+    sd: Dict[str, torch.Tensor] = {}
+    for key, layer in params.items():
+        _encoder_layer(sd, key + ".", layer)
+    return sd
+
+
+def resnet_state_dict_from_jax(variables: Mapping[str, Any], model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """Flax ``ResNet`` variables (``params`` and ``batch_stats``) -> the state_dict of the port's
+    ``ResNet`` ``model`` of the same depth.  Flax names its modules by class and order
+    (``Conv_0``, ``BatchNorm_0``, then ``BasicBlock_0`` ... or ``Bottleneck_0`` ... across the
+    stages; in a block its convolutions and norms in call order, the residual's last); conv
+    kernels are HWIO, torch's OIHW."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd: Dict[str, torch.Tensor] = {}
+
+    def conv(prefix, p):
+        sd[prefix + "weight"] = _t(np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
+
+    def norm(prefix, p, st):
+        sd[prefix + "weight"], sd[prefix + "bias"] = _t(p["scale"]), _t(p["bias"])
+        sd[prefix + "running_mean"], sd[prefix + "running_var"] = _t(st["mean"]), _t(st["var"])
+        sd[prefix + "num_batches_tracked"] = torch.tensor(0)
+
+    conv("conv1.", params["Conv_0"])
+    norm("bn1.", params["BatchNorm_0"], stats["BatchNorm_0"])
+    blocks = [(f"layer{s + 1}.{b}.", blk) for s in range(model.n_stages)
+              for b, blk in enumerate(getattr(model, f"layer{s + 1}"))]
+    for i, (prefix, blk) in enumerate(blocks):
+        name = f"{type(blk).__name__}_{i}"
+        p, st = params[name], stats[name]
+        n = 3 if type(blk).__name__ == "Bottleneck" else 2
+        for j in range(n):
+            conv(prefix + f"conv{j + 1}.", p[f"Conv_{j}"])
+            norm(prefix + f"bn{j + 1}.", p[f"BatchNorm_{j}"], st[f"BatchNorm_{j}"])
+        if blk.downsample is not None:
+            conv(prefix + "downsample.0.", p[f"Conv_{n}"])
+            norm(prefix + "downsample.1.", p[f"BatchNorm_{n}"], st[f"BatchNorm_{n}"])
     return sd
 
 

@@ -1,1 +1,1 @@
-"""Host helpers: path names, the async worker, field rendering."""
+"""Host helpers: path names, the async worker, field rendering, FLOP counts and profiling hooks."""

@@ -424,6 +424,19 @@ tools = [all(np.isfinite(v) for s in scores for v in s.values() if isinstance(v,
          [s["global_step"] for s in scores], scores[1]["n_points"], scores[2]["n_points"], len(rows),
          all(np.isfinite(float(r[k])) for r in rows for k in ("u10", "t2", "rho")), summary["written"],
          sorted(summary["vs_model"]["pairs"])]
+# the encoder's options from the command line: one training step and one inference hour (the
+# JAX checkpoint, whose parameters either option reads) with ProbSparse attention and fused q/k/v
+opts = ["--set", "meta_cfg.attn_type=prob", "--set", "meta_cfg.fused_qkv=True"]
+out_dir = os.path.join(work, "trained_options")
+args = [out_dir if a == os.path.join(work, "trained") else a for a in train_args]
+args[args.index("--max_steps") + 1] = "1"
+trained = cli.main(args + opts)
+attention = trained.model.meta_net.model.encoder.attn_layers[0].attention
+hours_opt = cli.main(cli_args + opts + ["--set", "inference_cfg.end_time=2008-01-01_05_00_00", "--set",
+                                        f"inference_cfg.log.vis_path={os.path.join(work, 'out_options')}"])
+options = [trained.step, attention.attn_type, attention.fused_qkv,
+           all(bool(torch.isfinite(p).all()) for p in trained.model.parameters()), len(hours_opt),
+           all(bool(np.isfinite(g["T"]).all()) for _, g in hours_opt)]
 payload = load_checkpoint(os.environ["DPN_JAX_CKPT"])[0]
 disk = [len(hours), sorted(os.listdir(os.path.join(work, "out"))),
         all(bool(np.isfinite(g["T"]).all()) for _, g in hours),
@@ -444,7 +457,7 @@ print(json.dumps({"loaded": loaded, "T": list(grid["T"].shape), "pts": list(pts.
                   "sweep_hours": sweeps["n_hours"], "sweep_points": sweeps["n_points"],
                   "has_lead": "rmse_t2_f048" in sweeps and "weighted_total" in sweeps,
                   "encoded": encoded, "v2": v2, "disk": disk, "train": train, "device": device,
-                  "tools": tools, "etl": etl}))
+                  "tools": tools, "etl": etl, "options": options}))
 """
 
 
@@ -485,4 +498,4 @@ def test_port_runs_with_jax_blocked(tmp_path):
                    "train": [2, ["codes.zip", "physics_0.pth", "physics_latest.pth"], True],
                    "device": [[2, ["codes.zip", "physics_0.pth", "physics_latest.pth"], True]] * 2,
                    "tools": [True, [12] * 4, 25.0 * 37 * 65, 256.0, 1 + 25, True, 3, ["t2", "wd10m"]],
-                   "etl": [2, 3, True, 49 * 5, 11]}
+                   "etl": [2, 3, True, 49 * 5, 11], "options": [1, "prob", True, True, 1, True]}
