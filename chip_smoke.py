@@ -176,7 +176,15 @@ Phases, each of which raises (exit code 1) on failure:
                under ``attn_impl='pallas'`` (one encode and one PDE step, the single-tile kernel
                against its plain version); readings of encodes, ProbSparse attention at 4,096 tokens
                beside the flash kernel and PDE steps; ResNet-50 on the card against the CPU;
-24. timing  -- by CUDA events, medians, alternating order: each kernel and its
+24. dist    -- data-parallel training at flagship width on phase 19's tree (ROADMAP A7): (a)
+               ``python -m torch.distributed.run --nproc_per_node 1`` runs ``cli --dist`` (NCCL,
+               world size 1) host- and device-sampled with a PDE step, the child's v4s launches
+               against the expected count and the host-sampled lead times snapped to the window;
+               (b) two ranks on the one card over gloo, one PDE step each on its window, float32
+               (TF32 off) and bf16, against one process's step over both windows from the same
+               state, with the v4s launches of each rank and the gloo all-reduce's time; (c) the
+               ranks resume a one-process checkpoint and rank 0's checkpoint resumes in one process;
+25. timing  -- by CUDA events, medians, alternating order: each kernel and its
                plain version at the main paths' sizes (the attention kernels beside one
                ``scaled_dot_product_attention`` call and a bound of three terms, the
                single-tile kernel also at 1,024 tokens; the primal, v4 pair, v4s pair,
@@ -194,7 +202,7 @@ Phases, each of which raises (exit code 1) on failure:
                clock around a synchronize: one frame, one training step of each
                kind, one residual sweep, split into their parts, and one encode
                through ``PhysicsNet.encode`` and ``encode_fused``;
-25. profile -- only with ``--profile``: ``torch.profiler`` over three steps of each
+26. profile -- only with ``--profile``: ``torch.profiler`` over three steps of each
                kind, three frames and three residual sweeps, for the device's busy share.
 
 The last three lines of standard output are a JSON object with each kernel's
@@ -2609,6 +2617,305 @@ def model_options_phase(dev, cd, cfg, window, dcfg, scfg, field, batch, paths, s
                 encode_ms=enc_ms, long_ms=long_ms, step_ms=step_ms, resnet_ms=resnet_ms, seconds=phase_s)
 
 
+# phase 24: data-parallel training (ROADMAP A7): NCCL at world size 1 under torchrun, two gloo ranks
+# sharing the card against one process, checkpoints across topologies
+DIST_HOST_STEPS, DIST_DEVICE_STEPS, DIST_PDE_START = 3, 2, 1
+DIST_CHILD_TIMEOUT = 240  # seconds: the torchrun child's runs take about a minute
+# (b)'s bars: float32 (TF32 off) losses as phase 9's step (RTOL_STEP); the parameters after one Adam
+# step by the CPU tests' rule (no entry further apart than 2 lr, all but a share of the entries within
+# lr 2e-2); bf16 within C5's spread: a bf16 gradient's entries move by 7e-3 of its largest between two
+# runs of one engine, so an entry whose gradient lies within that noise of zero steps either way: the
+# losses at RTOL_STEP's bf16 bar, the parameters within 2 lr with all but one entry in 100 within lr 2e-2
+DIST_PARAM_SHARE = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+def dist_child(argv) -> int:
+    """One rank of phase 24 (a), started by ``torch.distributed.run``: the command line's ``--dist``
+    train mode in process (it joins the NCCL group of torchrun's environment and leaves it at its
+    end) with the arguments ``argv[1]`` (JSON); writes the launches of the run, the lead times its loss
+    snapped and the backend of each averaging to ``argv[0]`` (JSON)."""
+    import faulthandler
+
+    faulthandler.dump_traceback_later(DIST_CHILD_TIMEOUT - 30, exit=True)  # a hang shows where, then ends
+    out_path, args = argv[0], json.loads(argv[1])
+    from deepphysinet_tpu_torch import cli
+    from deepphysinet_tpu_torch.parallel import dryrun
+    from deepphysinet_tpu_torch.train import train_step as ts
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    snapped, snap = [], ts._snap_forecast_h
+
+    def recording_snap(fh, cfg):
+        out = snap(fh, cfg)
+        snapped.append(dict(snap=cfg.forecast_h_snap, lead=fh.tolist(), snapped=out.tolist()))
+        return out
+
+    ts._snap_forecast_h = recording_snap
+    from deepphysinet_tpu_torch.parallel import sharding
+
+    reduced, mean = [], sharding.mean_over_ranks_
+
+    def recording_mean(tensors):  # the backend each averaging runs through
+        reduced.append(torch.distributed.get_backend() if torch.distributed.is_initialized() else None)
+        return mean(tensors)
+
+    sharding.mean_over_ranks_ = recording_mean
+    before = dryrun.launch_counts()
+    t0 = time.perf_counter()
+    state = cli.main(args + ["--dist"])
+    torch.cuda.synchronize()
+    result = dict(world=int(os.environ.get("WORLD_SIZE", "0")), seconds=time.perf_counter() - t0, step=state.step,
+                  device=str(next(state.model.parameters()).device), snaps=snapped, reductions=reduced,
+                  launches={k: v - before[k] for k, v in dryrun.launch_counts().items() if v != before[k]})
+    with open(out_path, "w") as fp:
+        json.dump(result, fp)
+    return 0
+
+
+def dist_nccl_part(cfg, paths, seed_ckpt: str, tmp: str) -> dict:
+    """Phase 24 (a): the torchrun child over NCCL; returns its v4s launches by run."""
+    import shutil
+
+    from deepphysinet_tpu_torch.parallel import dryrun
+
+    # ---- (a) NCCL at world size 1 under torchrun --------------------------------------------------
+    tree = {k: paths[k] for k in ("input_path", "label_path", "constant_path", "in_coord_file", "out_coord_file")}
+    tree.update({"input_data_map_cfg.NCEP": paths["input_map_file"], "start_time": "2008-01-01_00_00_00",
+                 "end_time": "2008-01-02_00_00_00"})
+    sets = [f"train_cfg.{split}.{k}={v}" for split, seed in (("train_data", 0), ("valid_data", 1))
+            for k, v in {**tree, "seed": seed}.items()]
+    sets += ["train_cfg.log.with_vis=False", f"train_cfg.log.log_step={TRAINER_LOG_STEP}",
+             f"train_cfg.tpu.pde_start_step={DIST_PDE_START}"]
+    runs = {}
+    for name, steps, extra in (("host", DIST_HOST_STEPS, []),
+                               ("device", DIST_DEVICE_STEPS, ["train_cfg.tpu.sample_mode=device",
+                                                              "train_cfg.train_data.in_memory=True",
+                                                              "train_cfg.valid_data.in_memory=True"])):
+        ckpt_dir = os.path.join(tmp, f"dist_ckpt_{name}")
+        shutil.copytree(seed_ckpt, ckpt_dir)
+        args = ["--config_file", FLAGSHIP_CFG, "--checkpoints_path", ckpt_dir, "--mode", "train", "--max_steps",
+                str(steps), "--log_path", os.path.join(tmp, f"dist_log_{name}")]
+        for item in (*sets, *extra):
+            args += ["--set", item]
+        runs[name] = args
+    child, child_s = {}, 0.0
+    for name, args in runs.items():  # one torchrun child a run: each CLI joins and leaves its own group
+        out_json, child_log = os.path.join(tmp, f"dist_child_{name}.json"), os.path.join(tmp, f"dist_child_{name}.log")
+        t0 = time.perf_counter()
+        with open(child_log, "w") as fp:
+            proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "1",
+                                   "--master_addr", "localhost", "--master_port", str(dryrun.free_port()),
+                                   os.path.abspath(__file__), "--dist_child", out_json, json.dumps(args)],
+                                  stdout=fp, stderr=subprocess.STDOUT, timeout=DIST_CHILD_TIMEOUT + 60)
+        child_s += time.perf_counter() - t0
+        if proc.returncode != 0:
+            print(open(child_log).read()[-6000:], file=sys.stderr)
+            raise AssertionError(f"dist (a): the torchrun child of the {name}-sampled run failed "
+                                 f"(exit code {proc.returncode})")
+        child[name] = json.load(open(out_json))
+        child["world"] = child[name]["world"]
+    losses = {n: logged_losses(os.path.join(tmp, f"dist_log_{n}")) for n in runs}
+    want = {"host": v4s_launches_expected(1, DIST_HOST_STEPS, DIST_PDE_START),
+            "device": v4s_launches_expected(1, DIST_DEVICE_STEPS, DIST_PDE_START)}
+    got = {n: (child[n]["launches"].get("fused_decode_jvp_v4s", 0), child[n]["launches"].get("decode_bwd_kernel_v4s", 0))
+           for n in runs}
+    host_snaps = child["host"]["snaps"]
+    leads = sorted({x for s in host_snaps for x in s["lead"]})
+    snapped_ok = bool(host_snaps) and all(s["snap"] == 24.0 and s["snapped"] == [np.floor(x / 24.0) * 24.0 for x in
+                                                                                  s["lead"]] for s in host_snaps)
+    unsnapped_ok = all(s["snap"] == 0.0 and s["snapped"] == s["lead"] for s in child["device"]["snaps"])
+    nccl = {n: (len(child[n]["reductions"]), sorted(set(map(str, child[n]["reductions"])))) for n in runs}
+    nccl_ok = all(k > 0 and b == ["nccl"] for k, b in nccl.values())
+    log(f"[dist] (a) torchrun --nproc_per_node 1, cli --dist over NCCL (world size {child['world']}) in "
+        f"{child_s:.1f} s: host-sampled {child['host']['step']} steps in {child['host']['seconds']:.1f} s, "
+        f"device-sampled {child['device']['step']} in {child['device']['seconds']:.1f} s, on {child['host']['device']}; "
+        f"v4s forward / backward launches {got['host']} and {got['device']} (expected {want['host']} and "
+        f"{want['device']}); {sum(map(len, losses.values()))} logged losses, all finite: "
+        f"{all(np.isfinite(x).all() for x in losses.values())}; host-sampled lead times {leads} h snapped to the "
+        f"24-hour window {snapped_ok} ({len(host_snaps)} losses), the device-sampled loss's left as they are "
+        f"{unsnapped_ok}; averagings through the group (gradients and metrics, each step and validation) "
+        f"{nccl}")
+    if not nccl_ok or got != want or not snapped_ok or not unsnapped_ok or not all(losses.values()) or not all(
+            np.isfinite(x).all() for x in losses.values()) or child["host"]["step"] != DIST_HOST_STEPS:
+        raise AssertionError(f"dist (a): launches {got} (expected {want}), snapped {snapped_ok} / {unsnapped_ok}, "
+                             f"losses {losses}")
+
+    return got
+
+
+def dist_gloo_part(dev, cd, cfg, seed_ckpt: str, tmp: str):
+    """Phase 24 (b) and (c): two gloo ranks on the card against one process, checkpoints across
+    topologies; returns each case's v4s launches in each rank and the readings."""
+    from deepphysinet_tpu_torch.data.window import synthetic_batch
+    from deepphysinet_tpu_torch.parallel import dryrun
+    from deepphysinet_tpu_torch.train import checkpoint as ckpt
+    from deepphysinet_tpu_torch.train import train_step as ts
+
+    # ---- (b), (c) two gloo ranks on the card against one process; checkpoints across topologies ----
+    meta, net, opt = cfg["meta_cfg"], cfg["net_cfg"], dict(cfg["train_cfg"]["optimizer"])
+    parts = [synthetic_batch(cfg, seed=s) for s in (0, 1)]
+    glob_batch = {"field": np.concatenate([p["field"] for p in parts]),
+                  "forecast_h": np.concatenate([np.asarray(p["forecast_h"]).reshape(-1) for p in parts])}
+    for key in ("margin", "inter"):
+        glob_batch[key] = {k: np.concatenate([p[key][k] for p in parts]) for k in parts[0][key]}
+    scfg = ts.step_config_from_cfg(cfg)
+    one_ckpt, rank_ckpt = os.path.join(tmp, "dist_one_process"), os.path.join(tmp, "dist_rank0")
+    prev_tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+
+    def start_state(dtype):
+        state = ts.create_train_state(meta, net, opt, torch.Generator().manual_seed(0), compute_dtype=dtype, device=dev)
+        payload, _, step = ckpt.load_checkpoint(one_ckpt, prefix="physics")
+        ckpt.restore_train_state(state, payload, False)
+        state.step = step
+        return state
+
+    # the one-process checkpoint: phase 19's seeded weights after one PDE step on window 0 (Adam moments on)
+    state = ts.create_train_state(meta, net, opt, torch.Generator().manual_seed(0), compute_dtype=cd, device=dev)
+    payload, _, _ = ckpt.load_checkpoint(seed_ckpt, prefix="physics")
+    state.model.load_state_dict(payload["model"])
+    state, _ = ts.make_train_step(scfg)(state, ts.batch_to_device(parts[0], device=dev), True)
+    ckpt.save_checkpoint(one_ckpt, 0, state.step, state.model, state.optimizer, prefix="physics")
+    del state
+    cases = [dict(name=str(dt).split(".")[-1], kind="host", mesh=(2, 1), batch=glob_batch, cfg=scfg, with_pde=True,
+                  compute_dtype=str(dt).split(".")[-1]) for dt in (torch.float32, torch.bfloat16)]
+    spec_path = os.path.join(tmp, "dist_spec.pt")
+    torch.save(dict(meta=meta, net=net, opt=opt, checkpoint=one_ckpt, save_dir=rank_ckpt, tf32=False, cases=cases,
+                    time_reduce=3), spec_path)
+    t0 = time.perf_counter()
+    dryrun.launch(2, ["--child", spec_path, os.path.join(tmp, "dist_out"), "--backend", "gloo"], timeout=600)
+    ranks_s = time.perf_counter() - t0
+    ranks = dryrun.read_results(os.path.join(tmp, "dist_out"), 2)
+    rank_launches = []
+    readings = {}
+    def one_process(dtype, micro: bool):
+        """This process's step over both windows from the one-process checkpoint: the batch of two
+        windows (``micro=False``), or the two windows as two micro-batches of one, each encoded alone as a
+        rank encodes its window, their gradients summed before the one clip and Adam update."""
+        state = start_state(dtype)
+        t0 = time.perf_counter()
+        if not micro:
+            state, m = ts.make_train_step(scfg)(state, ts.batch_to_device(glob_batch, device=dev), True)
+        else:
+            state.optimizer.zero_grad(set_to_none=True)
+            per, var = [], []
+            for part in parts:
+                batch = ts.batch_to_device(part, device=dev)
+                total, (m, pred) = ts.make_loss_fn(state.model, scfg)(batch, True)
+                (total / len(parts)).backward()
+                per.append({k: v.detach() for k, v in m.items()})
+                with torch.no_grad():
+                    var.append(ts._variable_metrics(pred, batch.margin.labels, scfg))
+
+            def mean(dicts):
+                return {k: torch.stack([d[k] for d in dicts]).mean() for k in dicts[0]}
+
+            m = ts.apply_gradient_update(scfg, state, mean(per))
+            m.update(mean(var))
+        torch.cuda.synchronize()
+        return state, {k: float(v) for k, v in m.items()}, time.perf_counter() - t0
+
+    def against(r0, state, m_ref, dtype):
+        loss_rel = {k: abs(r0["metrics"][k] - v) / max(abs(v), 1e-30) for k, v in m_ref.items()}
+        key = max(loss_rel, key=loss_rel.get)
+        lr = max(g["lr"] for g in state.optimizer.param_groups)
+        reach, atol = 2 * lr * 1.01, lr * 2e-2
+        off = total = 0
+        worst = 0.0
+        for k, v in state.model.state_dict().items():
+            diff = (r0["params"][k] - v.detach().float().cpu()).abs()
+            worst = max(worst, float(diff.max()))
+            if not k.endswith("key_projection.bias"):
+                off += int((diff > atol).sum())
+                total += diff.numel()
+        params_ok = worst <= reach and off <= DIST_PARAM_SHARE[dtype] * total
+        return dict(loss_rel=loss_rel[key], key=key, total_rel=loss_rel["total_loss"], worst=worst, reach=reach,
+                    atol=atol, off=off, total=total, ok=loss_rel[key] <= RTOL_STEP[dtype][0] and params_ok,
+                    batch_ok=loss_rel["total_loss"] <= RTOL_VERSIONS_LOSS[dtype] and params_ok)
+
+    for case in cases:
+        dtype = getattr(torch, case["compute_dtype"])
+        r0, r1 = (r["results"][case["name"]] for r in ranks)
+        same = r0["metrics"] == r1["metrics"]
+        launches = [(r["results"][case["name"]]["launches"].get("fused_decode_jvp_v4s", 0),
+                     r["results"][case["name"]]["launches"].get("decode_bwd_kernel_v4s", 0)) for r in ranks]
+        rank_launches.append(launches)
+        cmp = {}
+        for micro in (True, False):
+            state, m_ref, secs = one_process(dtype, micro)
+            cmp[micro] = dict(against(r0, state, m_ref, dtype), total_loss=m_ref["total_loss"], seconds=secs)
+            del state
+        readings[case["name"]] = dict(micro=cmp[True], batched=cmp[False], rank_s=r0["seconds"])
+        x = cmp[True]
+        log(f"[dist] (b) two gloo ranks on {ranks[0]['device']} / {ranks[1]['device']}, one PDE step each on its "
+            f"window, {case['name']}, against one process over both windows as two micro-batches of one window (each "
+            f"encoded alone, as a rank encodes its own): total loss {r0['metrics']['total_loss']:.8g} / "
+            f"{x['total_loss']:.8g}, every metric within {x['loss_rel']:.2e} ({x['key']}; bound "
+            f"{RTOL_STEP[dtype][0]:.0e}); parameters at most {x['worst']:.3g} apart (bound {x['reach']:.3g}), {x['off']} "
+            f"of {x['total']} entries past {x['atol']:.2g} (bound {DIST_PARAM_SHARE[dtype]:.0e} of them); the step "
+            f"{x['seconds'] * 1e3:.1f} ms in one process, {r0['seconds'] * 1e3:.1f} ms in a rank (its first)")
+        x = cmp[False]
+        log(f"[dist] (b) {case['name']}, against one process over both windows as one batch of two windows (the "
+            f"encoder sums a batch of two in another order, C17): total loss {x['total_loss']:.8g}, relative "
+            f"{x['total_rel']:.2e} (bound {RTOL_VERSIONS_LOSS[dtype]:.0e}), the largest metric's {x['loss_rel']:.2e} "
+            f"({x['key']}); parameters at most {x['worst']:.3g} apart, {x['off']} of {x['total']} entries past "
+            f"{x['atol']:.2g} (bound {DIST_PARAM_SHARE[dtype]:.0e} of them); "
+            + ("held" if dtype == torch.float32 else "not held in bf16, where the step amplifies a change of the "
+               "encoder's rounding (C17)"))
+        log(f"[dist] (b) {case['name']}: the ranks' metrics equal: {same}; v4s launches a rank {launches}")
+        held = cmp[True]["ok"] and (dtype == torch.bfloat16 or cmp[False]["batch_ok"])
+        if not (same and held and launches == [(2, 2), (2, 2)] and all(np.isfinite(list(r0["metrics"].values())))):
+            raise AssertionError(f"dist (b): two ranks against one process, {case['name']}")
+    if ranks[0].get("reduce_ms"):
+        log(f"[dist] (b) gloo all-reduce of the flat gradient buffer ({ranks[0]['reduce_bytes'] / 1e6:.1f} MB, "
+            f"CUDA tensors through the host) on two ranks sharing the card: {ranks[0]['reduce_ms']} ms; the ranks ran "
+            f"in {ranks_s:.1f} s with their start")
+    # (c): rank 0's checkpoint of the bf16 step resumes in one process
+    resumed = ts.create_train_state(meta, net, opt, torch.Generator().manual_seed(0), compute_dtype=cd, device=dev)
+    payload, epoch, step = ckpt.load_checkpoint(rank_ckpt, prefix="physics")
+    ckpt.restore_train_state(resumed, payload, False)
+    r0 = ranks[0]["results"][cases[-1]["name"]]
+    same_params = all(torch.equal(v.detach().float().cpu(), r0["params"][k])
+                      for k, v in resumed.model.state_dict().items())
+    adam = sorted({int(v["step"]) for v in resumed.optimizer.state_dict()["state"].values()})
+    same_moments = all(torch.equal(a["exp_avg"].cpu(), b["exp_avg"].cpu()) and
+                       torch.equal(a["exp_avg_sq"].cpu(), b["exp_avg_sq"].cpu())
+                       for a, b in zip(resumed.optimizer.state_dict()["state"].values(),
+                                       r0["optim_state"]["state"].values()))
+    log(f"[dist] (c) the ranks resumed this process's one-step checkpoint (Adam step 1 -> {adam}); rank 0's "
+        f"checkpoint after the bf16 step resumed in one process: step {step}, parameters bit for bit {same_params}, "
+        f"Adam moments bit for bit {same_moments}")
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev_tf32
+    if not (same_params and same_moments and adam == [2] and step == 2):
+        raise AssertionError("dist (c): a checkpoint did not resume across topologies")
+    return rank_launches, readings
+
+
+def dist_phase(dev, cd, cfg, paths, seed_ckpt: str, tmp: str) -> dict:
+    """Data-parallel training at flagship width (ROADMAP A7), on phase 19's tree and its seeded
+    checkpoint.  (a) ``python -m torch.distributed.run --nproc_per_node 1`` runs ``cli --dist`` (NCCL,
+    world size 1) in a child (``dist_child``): ``DIST_HOST_STEPS`` host-sampled and
+    ``DIST_DEVICE_STEPS`` device-sampled steps, the PDE terms from step ``DIST_PDE_START`` + 1; holds
+    the logged losses finite, the child's v4s launches to ``v4s_launches_expected`` and every lead time
+    of the host-sampled loss snapped to the 24-hour window (the device-sampled loss's unsnapped).
+    (b) Two ranks on the one card over gloo (``parallel/dryrun.py::launch``, named explicitly) each run
+    one PDE step on its window of a seeded two-window batch, float32 with TF32 off and bf16, held to
+    this process's step over both windows from the same state (losses at ``RTOL_STEP``, parameters by
+    ``DIST_PARAM_SHARE``), the ranks' metrics equal, two v4s forward and backward launches in each rank.
+    (c) The ranks start from a one-process checkpoint (this process's state after one step, with its
+    Adam moments) and rank 0's checkpoint after the bf16 step resumes here in one process, its
+    parameters and Adam state bit for bit.  Prints each part's readings; returns the launch counts."""
+    t_phase = time.perf_counter()
+    got = dist_nccl_part(cfg, paths, seed_ckpt, tmp)
+    rank_launches, readings = dist_gloo_part(dev, cd, cfg, seed_ckpt, tmp)
+    log(f"[dist] phase 24 in {time.perf_counter() - t_phase:.1f} s")
+    fwd = got["host"][0] + got["device"][0] + sum(a[0] + b[0] for a, b in rank_launches)
+    bwd = got["host"][1] + got["device"][1] + sum(a[1] + b[1] for a, b in rank_launches)
+    return dict(counts={"fused_decode_jvp_v4s": fwd, "decode_bwd_kernel_v4s": bwd}, child=got, ranks=rank_launches,
+                readings=readings)
+
+
 def attention_and_encoder_timing(dev, cd, model, field, fh_norm: float, stage_builds: dict) -> dict:
     """CUDA-event times of the attention kernels (and one scaled_dot_product_attention call, the
     library yardstick the port never calls) and of the fused encoder kernel, each beside its plain
@@ -4009,11 +4316,15 @@ def main() -> int:
         # ---- 23. the encoder's model options: ProbSparse attention and fused q/k/v through the paths --
         options = model_options_phase(dev, cd, cfg, window, dcfg, scfg, field, batch, disk_paths, disk_ckpt,
                                       disk_tmp, launch_counts, reset_launch_counts)
+        torch.cuda.empty_cache()
+
+        # ---- 24. data-parallel training: NCCL at world size 1, two gloo ranks, checkpoints across ------
+        dist = dist_phase(dev, cd, cfg, disk_paths, disk_ckpt, disk_tmp)
     finally:
         shutil.rmtree(disk_tmp, ignore_errors=True)
     torch.cuda.empty_cache()
 
-    # ---- 24. timing --------------------------------------------------------------------------------
+    # ---- 25. timing --------------------------------------------------------------------------------
     hid, in_ch = cfg["net_cfg"]["hidden_channels"], cfg["net_cfg"]["in_channels"]
     two_f = in_ch // 3
 
@@ -4545,7 +4856,7 @@ def main() -> int:
     enc_timing = attention_and_encoder_timing(dev, cd, model, field, window.forecast_h / dcfg.forecast_time_period,
                                               enc_stage_builds)
 
-    # ---- 25. profile (only with --profile): the device's busy share and its largest kernels ----
+    # ---- 26. profile (only with --profile): the device's busy share and its largest kernels ----
     if "--profile" in sys.argv[1:]:
         from torch.profiler import ProfilerActivity, profile
 
@@ -4690,6 +5001,7 @@ def main() -> int:
          "launches_device_trainer": device_trainer["counts"]["fused_decode_jvp_v4s"],
          "launches_etl": etl["counts"]["fused_decode_jvp_v4s"],
          "launches_options": options["launches"]["fused_decode_jvp_v4s"],
+         "launches_dist": dist["counts"]["fused_decode_jvp_v4s"],
          "max_abs_err": fwd_err[(cd, main_n)],
          "max_rel_err": fwd_rel[(cd, main_n)], "points": main_n,
          "ms": t["fwd"], "plain_ms": t["fwd_plain"], "bound_ms": t["fwd_bound"][0],
@@ -4700,6 +5012,7 @@ def main() -> int:
          "launches_device_trainer": device_trainer["counts"]["decode_bwd_kernel_v4s"],
          "launches_etl": etl["counts"]["decode_bwd_kernel_v4s"],
          "launches_options": options["launches"]["decode_bwd_kernel_v4s"],
+         "launches_dist": dist["counts"]["decode_bwd_kernel_v4s"],
          "max_abs_err": bwd_err[(cd, main_n)],
          "max_rel_err": bwd_rel[(cd, main_n)], "points": main_n,
          "ms": t["bwd"], "plain_ms": t["bwd_plain"], "bound_ms": t["bwd_bound"][0],
@@ -4757,4 +5070,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dist_child"]:  # one rank of phase 24 (a), under torch.distributed.run
+        sys.exit(dist_child(sys.argv[2:]))
     sys.exit(main())

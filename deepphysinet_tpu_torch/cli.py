@@ -9,12 +9,21 @@ configuration (``config/config.py``), applies ``--set key.path=value`` overrides
   ``--checkpoints_path``), after a snapshot of the port's sources into the checkpoint directory
   (``codes.zip``, as ``train.py`` zips the repository's); ``--set train_cfg.tpu.sample_mode=device``
   samples the points on the device (``--set train_cfg.tpu.ds_sampler=pool`` for the pool sampler);
-  ``--dist`` (several GPUs, with either sampling) waits for ROADMAP A7;
+  ``--dist`` trains data-parallel, one process a GPU started by ``torchrun``
+  (``run_train_interface_dist``, ``train_cfg.tpu.mesh``), over NCCL unless ``--dist_backend`` names
+  another (gloo: ranks on the CPU with ``--device cpu``, or several ranks sharing a card);
 * ``test``: ``run_test_interface`` (held-out RMSE of a checkpoint), printed as one JSON line;
 * ``inference``: ``run_inference_interface`` (a checkpoint and a GeoTIFF tree in, GeoTIFFs and jpg
   renders out).
 
-It runs on the first CUDA device unless ``--device`` says otherwise.  For example, on a tree that
+It runs on the first CUDA device unless ``--device`` says otherwise (under ``--dist``, on the rank's
+card, ``cuda:LOCAL_RANK``).  Several GPUs of one node:
+
+    python -m torch.distributed.run --nproc_per_node 4 -m deepphysinet_tpu_torch.cli --dist \\
+        --config_file configs/DeepPhysiNet_NCEP_cfg.py --mode train
+
+and of several nodes, the same on each with ``--nnodes N --node_rank I --master_addr HOST
+--master_port PORT``.  For example, on a tree that
 ``data/synthetic.py::generate_synthetic_dataset`` wrote:
 
     python -m deepphysinet_tpu_torch.cli --config_file configs/DeepPhysiNet_NCEP_cfg.py \\
@@ -85,7 +94,11 @@ def main(argv: Optional[Sequence[str]] = None):
     parser.add_argument("--config_file", type=str, default="configs/DeepPhysiNet_NCEP_cfg.py")
     parser.add_argument("--checkpoints_path", type=str, default=None)
     parser.add_argument("--log_path", type=str, default=None)
-    parser.add_argument("--dist", action="store_true", help="data-parallel over several GPUs (not ported: ROADMAP A7)")
+    parser.add_argument("--dist", action="store_true",
+                        help="data-parallel training, one process a GPU, under torchrun (train mode)")
+    parser.add_argument("--dist_backend", type=str, default="nccl",
+                        help="the process group's backend under --dist: nccl (default) or gloo (ranks on the CPU "
+                             "with --device cpu, or several ranks sharing one card)")
     parser.add_argument("--max_steps", type=int, default=None, help="stop after N optimizer steps (smoke runs)")
     parser.add_argument("--mode", type=str, default=None, choices=[None, "train", "test", "inference"], nargs="?")
     parser.add_argument("--device", type=str, default=None, help="torch device, e.g. cpu; default the first CUDA device")
@@ -93,22 +106,36 @@ def main(argv: Optional[Sequence[str]] = None):
                         help="dotted config override applied to config.*, e.g. --set inference_cfg.log.with_vis=False "
                              "(values parsed as python literals when possible)")
     args = parser.parse_args(argv)
-    if args.dist:
-        raise NotImplementedError("--dist (data-parallel training over several GPUs, with host or device sampling) is "
-                                  "not ported yet: it waits for ROADMAP A7")
     from deepphysinet_tpu_torch.interface.build import builder_models
 
     cfg = Config.fromfile(args.config_file)
     if args.overrides:
         apply_overrides(cfg["config"], args.overrides)
     mode = args.mode or cfg.get("mode", "train")
-    models = builder_models(**cfg["config"], device=args.device)
+    device, owned_group = args.device, False
+    if args.dist and mode == "train":
+        # the rank's device before the interface is built: cuda:LOCAL_RANK, or the CPU for gloo ranks
+        import torch.distributed as dist
+
+        from deepphysinet_tpu_torch.parallel import multihost
+
+        owned_group = not dist.is_initialized()
+        device = multihost.initialize_distributed(args.dist_backend, device=args.device)
+    models = builder_models(**cfg["config"], device=device)
     if mode == "train":
         checkpoint_path = args.checkpoints_path or cfg["config"]["train_cfg"]["checkpoints"]["checkpoints_path"]
         os.makedirs(checkpoint_path, exist_ok=True)
-        zip_codes(PACKAGE_DIR, os.path.join(checkpoint_path, "codes.zip"))
-        return models.run_train_interface(checkpoint_path=args.checkpoints_path, log_path=args.log_path,
-                                          max_steps=args.max_steps)
+        run_kwargs = dict(checkpoint_path=args.checkpoints_path, log_path=args.log_path, max_steps=args.max_steps)
+        if not args.dist:
+            zip_codes(PACKAGE_DIR, os.path.join(checkpoint_path, "codes.zip"))
+            return models.run_train_interface(**run_kwargs)
+        if multihost.rank() == 0:
+            zip_codes(PACKAGE_DIR, os.path.join(checkpoint_path, "codes.zip"))
+        try:
+            return models.run_train_interface_dist(backend=args.dist_backend, **run_kwargs)
+        finally:
+            if owned_group and dist.is_initialized():  # the group this call joined
+                dist.destroy_process_group()
     if mode == "test":
         out = models.run_test_interface(checkpoint_path=args.checkpoints_path)
         print(json.dumps(out))

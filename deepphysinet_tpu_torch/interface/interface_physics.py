@@ -1,8 +1,7 @@
 """InterfacePhysics: the training, test and inference runtime of the port.
 
-Counterpart of ``deepphysinet_tpu/interface/interface_physics.py`` on one device and in one
-process.  Orchestration stays on the host: datasets, epochs, logging, checkpoints.  Two ways to
-feed the step, by ``train_cfg.tpu.sample_mode``:
+Counterpart of ``deepphysinet_tpu/interface/interface_physics.py``.  Orchestration stays on the host:
+datasets, epochs, logging, checkpoints.  Two ways to feed the step, by ``train_cfg.tpu.sample_mode``:
 
 * ``"host"`` (the flagship's): each batch of the ``PrefetchLoader`` (points drawn and interpolated
   by ``PhysicsDataset.__getitem__``) goes to the device and through the training step
@@ -35,8 +34,16 @@ Differences:
 * the device-sampled loop logs and validates on the loop's thread (JAX hands the metric fetch to a
   worker thread and drops a log event when that thread falls behind), and it draws from a
   ``torch.Generator`` where JAX splits keys in blocks of 8,192 (ROADMAP C37);
-* not ported: ``run_train_interface_dist`` (ROADMAP A7, with the device-sampled loop's mesh
-  branch) and the mesh helpers.
+* the data-parallel run (``run_train_interface_dist``, ``cli.py --dist`` under ``torchrun``) is one
+  process a rank (``parallel/``), where JAX drives a mesh from one controller a host: the ranks of a
+  data slot load its windows by strided loaders (``PrefetchLoader(shard_id, num_shards)``), each takes
+  its chunk of their points, and the steps average gradients and metrics over every rank
+  (``parallel/sharding.py``); the window batch is ``batch_size`` x ``mesh.data``; the lead time snaps
+  to the window under ``--dist`` (the device-sampled loss keeps it unsnapped, C38); validation is a
+  collective; only rank 0 logs, writes summaries and saves, synchronously with more than one rank;
+  the preemption flag is all-reduced every ``tpu.preempt_check_step`` steps.  Not ported: the mesh
+  helpers ``_trim_points_multiple`` and ``_feasible_valid_batch`` (a valid point count that does not
+  split over ``points`` raises).
 """
 
 from __future__ import annotations
@@ -57,6 +64,9 @@ from deepphysinet_tpu_torch.data.pipeline import PrefetchLoader
 from deepphysinet_tpu_torch.data.window import DatasetWindows, Window
 from deepphysinet_tpu_torch.device import resolve_device
 from deepphysinet_tpu_torch.models.physics_net import PhysicsNet
+from deepphysinet_tpu_torch.parallel import multihost
+from deepphysinet_tpu_torch.parallel import sharding
+from deepphysinet_tpu_torch.parallel.mesh import MeshConfig, make_mesh, shard_batch
 from deepphysinet_tpu_torch.registry import INTERFACES
 from deepphysinet_tpu_torch.train import checkpoint as ckpt
 from deepphysinet_tpu_torch.train import device_sampling as ds
@@ -119,19 +129,24 @@ def sampler_config(dataset) -> ds.SamplerConfig:
 class _DeviceSampledSteps:
     """What the device-sampled loop adds to the epochs: the loader of window cubes (two threads, a
     window a batch), the device's cube cache (``cubes``: ``tpu.device_cube_cache`` windows), the
-    generator of the draws (seeded ``global_step + 1``) and the step.  With ``DPN_LOOP_PROF`` set,
-    the loop's time a step by part after 200 steps of warm-up, printed at its end."""
+    generator of the draws (seeded ``global_step + 1``) and the step.  With a ``mesh`` the loader
+    strides over the data slots and every rank draws the global draws of ``mesh.data`` windows and
+    keeps its slot's (``parallel/sharding.py``).  With ``DPN_LOOP_PROF`` set, the loop's time a step
+    by part after 200 steps of warm-up, printed at its end."""
 
-    def __init__(self, iface, train_dataset, cfg, global_step: int):
+    def __init__(self, iface, train_dataset, cfg, global_step: int, mesh=None):
         tpu_cfg = iface.train_cfg.get("tpu", {})
         self.device = iface.device
         self.cfg = cfg
+        self.mesh = mesh
         self.scfg = sampler_config(train_dataset)
         self.use_pool = iface.ds_sampler == "pool"
-        self.train_step = ds.make_device_sampling_train_step(cfg, self.scfg)
+        self.train_step = (ds.make_device_sampling_train_step(cfg, self.scfg) if mesh is None
+                           else sharding.make_sharded_device_sampling_step(cfg, mesh, self.scfg))
         self.generator = torch.Generator(device=self.device).manual_seed(int(global_step) + 1)
+        shards = dict(shard_id=mesh.data_index, num_shards=mesh.data) if mesh is not None else {}
         self.loader = PrefetchLoader(_CubeView(train_dataset), batch_size=1, shuffle=True, drop_last=True,
-                                     num_workers=2)
+                                     num_workers=2, **shards)
         self.cubes = ds.DeviceLRU(int(tpu_cfg.get("device_cube_cache", 8)))
         self.prof = (dict(loader=0.0, cube=0.0, key=0.0, dispatch=0.0, steps=0)
                      if os.environ.get("DPN_LOOP_PROF") else None)
@@ -154,7 +169,8 @@ class _DeviceSampledSteps:
 
     def step(self, state, cube: ds.CubeBatch, with_pde: bool):
         t0 = time.perf_counter()
-        draws = ds.draw_points(self.generator, cube.field.shape[0], self.scfg, self.cfg.coord_spec)
+        n_windows = cube.field.shape[0] * (self.mesh.data if self.mesh is not None else 1)
+        draws = ds.draw_points(self.generator, n_windows, self.scfg, self.cfg.coord_spec)
         t1 = time.perf_counter()
         out = self.train_step(state, cube, draws, with_pde)
         if self.prof is not None:
@@ -270,10 +286,11 @@ class InterfacePhysics:
     # ---- training ----
 
     def run_train_interface(self, max_steps: Optional[int] = None, checkpoint_path: Optional[str] = None,
-                            log_path: Optional[str] = None, **kwargs) -> TrainState:
+                            log_path: Optional[str] = None, dist: bool = False, **kwargs) -> TrainState:
         """Train from ``train_cfg``: resume from ``physics_latest`` in the checkpoint directory or
         start afresh, then the epochs; stop after ``max_steps`` optimizer steps if given.  Returns the
-        final ``TrainState``."""
+        final ``TrainState``.  ``dist=True`` runs this rank's part of a data-parallel run over the
+        process group (``run_train_interface_dist``) on ``train_cfg.tpu.mesh``."""
         if self.sample_mode not in ("host", "device"):
             raise ValueError(f"unknown sample_mode {self.sample_mode!r} (host|device)")
         tc = self.train_cfg
@@ -294,20 +311,36 @@ class InterfacePhysics:
         vis_path = tc["log"].get("vis_path", "")
         os.makedirs(log_path, exist_ok=True)
         os.makedirs(checkpoint_path, exist_ok=True)
+        # the mesh first: one window a data slot, so the run's window batch is batch_size x data
+        # (the reference's DDP gives each rank its own windows, interface_physics.py:899-936)
+        nproc = multihost.world_size()
+        mesh = None
+        if dist:
+            mesh = make_mesh(MeshConfig(**dict(tpu_cfg.get("mesh", {}))))
+            if multihost.rank() == 0:
+                print(f"mesh: {mesh.shape}; effective window batch: {batch_size * mesh.data}")
+        elif nproc > 1:
+            raise RuntimeError("several ranks without the dist path: call run_train_interface_dist")
+        is_main = multihost.rank() == 0
+        shards = dict(shard_id=mesh.data_index, num_shards=mesh.data) if mesh is not None else {}
 
         train_dataset = self._dataset(tc["train_data"])
         valid_dataset = self._dataset(tc["valid_data"])
         window_h = train_dataset.input_time_step * train_dataset.input_time_step_nums
         pred_t_span = float(window_h * 3600)
         self.pred_t_span = pred_t_span
-        cfg = self._step_cfg(pred_t_span, train_dataset.forecast_time_period)
+        # the dist path snaps lead times to the window grid (reference interface_physics.py:996-997);
+        # the single-process path normalizes them as they are
+        cfg = self._step_cfg(pred_t_span, train_dataset.forecast_time_period,
+                             forecast_h_snap=float(window_h) if dist else 0.0)
 
         sched_cfg = tc.get("lr_schedule")
         opt_cfg = dict(tc["optimizer"])
         base_lr = float(opt_cfg.get("lr", 1e-4))
         schedule = build_lr_schedule(lr=base_lr, **sched_cfg) if sched_cfg else (lambda e: base_lr)
-        train_loader = PrefetchLoader(train_dataset, batch_size, shuffle=True, drop_last=True, num_workers=num_workers)
-        valid_loader = PrefetchLoader(valid_dataset, batch_size, shuffle=True, drop_last=True, num_workers=1)
+        train_loader = PrefetchLoader(train_dataset, batch_size, shuffle=True, drop_last=True, num_workers=num_workers,
+                                      **shards)
+        valid_loader = PrefetchLoader(valid_dataset, batch_size, shuffle=True, drop_last=True, num_workers=1, **shards)
 
         # ---- state init / resume ----
         payload, current_epoch, global_step = ckpt.load_checkpoint(checkpoint_path, prefix="physics")
@@ -320,9 +353,11 @@ class InterfacePhysics:
             print(f"resume from epoch {current_epoch} global_step {global_step}")
             ckpt.restore_train_state(state, payload, bool(tpu_cfg.get("allow_partial_resume", False)))
             state.step = global_step
+        # the log file and the summaries on rank 0 only: on a shared file system two ranks starting in the
+        # same second would write the same log file
         date_str = datetime.datetime.now().strftime("%Y-%m-%d_%H_%M_%S")
-        log_fp = open(os.path.join(log_path, f"log_{date_str}.txt"), "w")
-        summary = _summary_writer(log_path)
+        log_fp = open(os.path.join(log_path, f"log_{date_str}.txt") if is_main else os.devnull, "w")
+        summary = _summary_writer(log_path) if is_main else _NullWriter()
         if payload is not None:
             log_fp.write(f"resume from epoch {current_epoch} global_step {global_step}\n")
         # a resumed run starts at schedule(current_epoch), not the optimizer's base rate
@@ -332,18 +367,28 @@ class InterfacePhysics:
 
         device_mode = self.sample_mode == "device"
         if device_mode:
-            sampled = self.device_sampling = _DeviceSampledSteps(self, train_dataset, cfg, global_step)
+            sampled = self.device_sampling = _DeviceSampledSteps(self, train_dataset, cfg, global_step, mesh)
             loader = sampled.loader
+        elif mesh is not None:
+            train_step = sharding.make_sharded_train_step(cfg, mesh)
+            eval_step = sharding.make_sharded_eval_step(cfg, mesh)
+            loader = train_loader
         else:
             train_step = make_train_step(cfg)
             eval_step = make_eval_step(cfg)
             loader = train_loader
+
+        def local(batch: Batch) -> Batch:
+            """This rank's point chunk of its windows (a data slot's loader delivers its windows)."""
+            return batch if mesh is None else shard_batch(batch, mesh, rows=False)
         time_metric = TimeMetric()
         loop_metric = TimeMetric()  # never reset: the device-sampled log line's t:
         # SIGTERM: finish the step, save physics_latest, stop (the reference resumes at epoch ends only)
         preempted = {"flag": False}
         previous_handler = self._install_preemption_handler(preempted)
-        async_ckpt = ckpt.AsyncCheckpointer() if bool(tpu_cfg.get("async_ckpt", True)) else None
+        preempt_check = int(tpu_cfg.get("preempt_check_step", 20))  # the ranks' agreement cadence
+        # epoch saves off the loop's thread with one process; with more, synchronous rank-0 saves
+        async_ckpt = ckpt.AsyncCheckpointer() if bool(tpu_cfg.get("async_ckpt", True)) and nproc == 1 else None
         meta_kwargs = dict(
             dx=self.dx, dy=self.dy, dt=self.dt,
             pred_x_span=self.dx * self.lon_size,
@@ -377,7 +422,7 @@ class InterfacePhysics:
                         state, metrics = sampled.step(state, cube, with_pde)
                         clock["cube"].append(t2 - t1)
                     else:
-                        batch = self._to_batch(data)
+                        batch = local(self._to_batch(data))
                         t2 = time.perf_counter()
                         state, metrics = train_step(state, batch, with_pde)
                         clock["copy"].append(t2 - t1)
@@ -394,29 +439,32 @@ class InterfacePhysics:
                         steps_since_log = 0
                         self._log_device_sampled(sampled, valid_dataset, cfg, state, metrics, with_pde, epoch,
                                                  num_epoch, global_step, fps, loop_metric.get_time(), log_fp,
-                                                 summary, clock, t3)
+                                                 summary, clock, t3, is_main)
                     elif global_step % log_step == 1 or (max_steps and global_step >= max_steps):
-                        fps = time_metric.get_fps(steps_since_log * batch_size)
+                        fps = time_metric.get_fps(steps_since_log * batch_size * (mesh.data if mesh else 1))
                         time_metric.reset()
                         steps_since_log = 0
-                        m = self._fetch_metrics(metrics)
-                        t4 = time.perf_counter()
-                        clock["fetch"].append(t4 - t3)
-                        fh = float(np.asarray(data["forecast_h"]).reshape(-1)[0])
-                        line = ",".join([
-                            f"epoch:{epoch}/{num_epoch}", f"batch:{batch_id}/{len(train_loader)}",
-                            f"iter:{global_step}", f"train loss:{m['total_loss']:.6f}",
-                            f"margin_loss:{m['margin_loss']:.6f}", f"forecast:{int(fh):03d}h",
-                            f"grad:{m['grad_norm']:.3e}", f"fps:{fps:.3f}"])
-                        print("=========training=========")
-                        print(line)
-                        log_fp.write(line + "\n")
-                        log_fp.flush()
-                        for k, v in m.items():
-                            summary.add_scalar(f"training/{k}", v, global_step)
-                        summary.add_scalar(f"training_f{int(fh):03d}/margin_loss", m["margin_loss"], global_step)
+                        t4 = t3
+                        if is_main:  # every rank holds the same averaged metrics; rank 0 reads and writes them
+                            m = self._fetch_metrics(metrics)
+                            t4 = time.perf_counter()
+                            clock["fetch"].append(t4 - t3)
+                            fh = float(np.asarray(data["forecast_h"]).reshape(-1)[0])
+                            line = ",".join([
+                                f"epoch:{epoch}/{num_epoch}", f"batch:{batch_id}/{len(train_loader)}",
+                                f"iter:{global_step}", f"train loss:{m['total_loss']:.6f}",
+                                f"margin_loss:{m['margin_loss']:.6f}", f"forecast:{int(fh):03d}h",
+                                f"grad:{m['grad_norm']:.3e}", f"fps:{fps:.3f}"])
+                            print("=========training=========")
+                            print(line)
+                            log_fp.write(line + "\n")
+                            log_fp.flush()
+                            for k, v in m.items():
+                                summary.add_scalar(f"training/{k}", v, global_step)
+                            summary.add_scalar(f"training_f{int(fh):03d}/margin_loss", m["margin_loss"], global_step)
 
-                        # ---- the interleaved validation batch (reference :639-751) ----
+                        # ---- the interleaved validation batch (reference :639-751); with several ranks
+                        # a collective every rank enters, rank 0 logs ----
                         vdata = None
                         if len(valid_loader) > 0:
                             try:
@@ -425,7 +473,9 @@ class InterfacePhysics:
                                 valid_iter = iter(valid_loader)
                                 vdata = next(valid_iter)
                         if vdata is not None:
-                            vm = self._fetch_metrics(eval_step(state.model, self._to_batch(vdata), with_pde))
+                            vmetrics = eval_step(state.model, local(self._to_batch(vdata)), with_pde)
+                        if vdata is not None and is_main:
+                            vm = self._fetch_metrics(vmetrics)
                             vline = f"valid loss:{vm['total_loss']:.6f},margin:{vm['margin_loss']:.6f}"
                             print("=========validation=========")
                             print(vline)
@@ -434,12 +484,14 @@ class InterfacePhysics:
                                 summary.add_scalar(f"validation/{k}", v, global_step)
                             clock["valid"].append(time.perf_counter() - t4)
 
-                        if with_vis and vis_path:
+                        if with_vis and vis_path and nproc == 1:
                             self._render_grid(state.model, train_dataset, data, cfg,
                                               os.path.join(vis_path, "train_results"), global_step, with_pde)
 
-                    if self._agreed_preemption(preempted):
-                        self._preemption_save(async_ckpt, checkpoint_path, epoch, global_step, state, **meta_kwargs)
+                    if self._agreed_preemption(preempted, nproc, global_step, preempt_check):
+                        if is_main:
+                            self._preemption_save(async_ckpt, checkpoint_path, epoch, global_step, state,
+                                                  **meta_kwargs)
                         preemption_saved = True
                         stop = True
                         break
@@ -452,7 +504,7 @@ class InterfacePhysics:
                 # the rate steps once per epoch, as the reference's scheduler (:831-837), not only on save epochs
                 lr = schedule(epoch + 1)
                 set_learning_rate(state.optimizer, lr)
-                if (epoch % save_step == 0 or is_last) and not preemption_saved:
+                if (epoch % save_step == 0 or is_last) and not preemption_saved and is_main:
                     if not device_mode:  # the JAX device-sampled loop writes no rate summary
                         summary.add_scalar("learning_rate", lr, global_step)
                     t_save = time.perf_counter()
@@ -462,6 +514,8 @@ class InterfacePhysics:
                 sampled.print_profile()
             if async_ckpt is not None:
                 async_ckpt.close()  # drain in-flight saves
+            if nproc > 1:  # every rank returns after rank 0's last save is on disk
+                torch.distributed.barrier()
         finally:
             # never leak a mid-write checkpoint past an exception
             if async_ckpt is not None:
@@ -473,12 +527,19 @@ class InterfacePhysics:
         return state
 
     def _log_device_sampled(self, sampled, valid_dataset, cfg, state, metrics, with_pde, epoch, num_epoch,
-                            global_step, fps, elapsed, log_fp, summary, clock, t_step) -> None:
+                            global_step, fps, elapsed, log_fp, summary, clock, t_step, is_main: bool = True) -> None:
         """A log step of the device-sampled loop: its validation, then one device-to-host copy of
-        the train and valid scalars, the ``[device-sampled]`` line and the summaries."""
+        the train and valid scalars, the ``[device-sampled]`` line and the summaries.  With several
+        ranks the validation is a collective that every rank enters; rank 0 alone reads and writes."""
         vm_arrays = None
-        if self.device_valid and len(valid_dataset) > 0:
+        mesh = sampled.mesh
+        if mesh is not None and multihost.world_size() > 1:
+            if self.device_valid and len(valid_dataset) >= mesh.data:
+                vm_arrays = self._device_mode_validation_dist(valid_dataset, cfg, sampled.scfg, state, with_pde, mesh)
+        elif self.device_valid and len(valid_dataset) > 0:
             vm_arrays = self._device_mode_validation(valid_dataset, cfg, sampled.scfg, state, with_pde, fetch=False)
+        if not is_main:
+            return
         t_valid = time.perf_counter()
         fetch = dict(metrics)
         if vm_arrays is not None:
@@ -501,6 +562,15 @@ class InterfacePhysics:
             log_fp.write(vline + "\n")
             for k, v in vm.items():
                 summary.add_scalar(f"validation/{k}", v, global_step)
+
+    def run_train_interface_dist(self, backend: Optional[str] = None, **kwargs) -> TrainState:
+        """Data-parallel training, one process a rank (the reference's DDP path,
+        interface_physics.py:848-1404): joins the process group of ``torchrun``'s environment
+        (``parallel/multihost.py``; ``backend`` NCCL unless named, gloo for ranks on the CPU or sharing
+        a card), moves this interface to the rank's device, and runs ``run_train_interface(dist=True)``.
+        Each rank loads its data slot's windows; rank 0 logs and saves."""
+        self.device = multihost.initialize_distributed(backend, device="cpu" if self.device.type == "cpu" else None)
+        return self.run_train_interface(dist=True, **kwargs)
 
     _MAX_CONSECUTIVE_VALID_FAILURES = 3
 
@@ -568,6 +638,34 @@ class InterfacePhysics:
                   f"{self._valid_failures}/{self._MAX_CONSECUTIVE_VALID_FAILURES}")
             return None
 
+    def _device_mode_validation_dist(self, valid_dataset, cfg, scfg, state, with_pde, mesh):
+        """A validation of the data-parallel device-sampled loop, a collective: each data slot scores its
+        window of the rotation (``_valid_windows_cap``, at least one a slot), its points the slot's rows of
+        the draws of a generator seeded 7919 for ``mesh.data`` windows, the metrics averaged over every
+        rank.  No failure is skipped: a rank that left a collective would strand the others."""
+        if not hasattr(self, "_valid_sharded_step"):
+            self._valid_sharded_step = sharding.make_sharded_device_sampling_eval_step(
+                cfg, mesh, self._valid_scfg(scfg, valid_dataset))
+            self._valid_item = 0
+            self._n_valid_rot = self._valid_windows_cap(valid_dataset, floor=mesh.data)
+            self._valid_dist_cubes = ds.DeviceLRU(self._n_valid_rot)
+        idx = (self._valid_item + mesh.data_index) % self._n_valid_rot
+        self._valid_item += mesh.data
+        scfg_v = self._valid_scfg(scfg, valid_dataset)
+        use_pool = self.ds_sampler == "pool"
+
+        def build():
+            cube = ds.cube_batch_from_items(
+                [valid_dataset.get_cube_item(idx)], pool_pad=scfg_v.n_margin if use_pool else None,
+                keep_label_cube=not use_pool, expect_dims=ds.expected_cube_dims(scfg_v, cfg.coord_spec))
+            cube = ds.cube_to_device(cube, self.device)
+            return ds.attach_pool_nwp(cube, scfg_v, cfg.coord_spec) if use_pool else cube
+
+        cube = self._valid_dist_cubes.get(idx, build)
+        generator = torch.Generator(device=self.device).manual_seed(7919)
+        draws = ds.draw_points(generator, mesh.data, scfg_v, cfg.coord_spec)
+        return self._valid_sharded_step(state.model, cube, draws, with_pde)
+
     @staticmethod
     def _install_preemption_handler(flag: dict):
         """SIGTERM -> ``flag["flag"] = True`` (the loop finishes the step, checkpoints, stops); returns
@@ -588,10 +686,16 @@ class InterfacePhysics:
         if previous is not None:
             signal.signal(signal.SIGTERM, previous)
 
-    @staticmethod
-    def _agreed_preemption(preempted: dict) -> bool:
-        """The JAX interface's agreement on the preemption flag, single-process: the local flag."""
-        return bool(preempted["flag"])
+    def _agreed_preemption(self, preempted: dict, nproc: int = 1, global_step: int = 0, check_every: int = 20) -> bool:
+        """Whether every rank stops now: SIGTERM reaches each process alone, and a rank that stopped
+        while another entered the next collective would strand it.  With several ranks the flag is
+        all-reduced (max) every ``check_every`` steps (``train_cfg.tpu.preempt_check_step``), a
+        condition on ``global_step`` alone, which every rank shares; one process reads its flag."""
+        if nproc <= 1:
+            return bool(preempted["flag"])
+        if check_every > 1 and global_step % check_every != 0:
+            return False
+        return multihost.all_ranks_max(bool(preempted["flag"]), self.device)
 
     @staticmethod
     def _drain_async_ckpt(async_ckpt) -> None:

@@ -219,13 +219,18 @@ def test_partial_resume_raises_without_the_flag_and_resets_the_moments_with_it(j
     assert all(torch.equal(p.detach(), params[n]) for n, p in state.model.named_parameters())
 
 
-def test_unported_modes_name_their_roadmap_items(tmp_path):
+def test_unported_modes_name_their_roadmap_items(tmp_path, monkeypatch):
     cfg_file = os.path.join(REPO, "configs", "DeepPhysiNet_NCEP_cfg.py")
-    with pytest.raises(NotImplementedError, match="A7"):
+    # --dist is ported (A7): ranks on the CPU take gloo only, named; NCCL, the default, refuses them
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    monkeypatch.setenv("LOCAL_RANK", "0")
+    with pytest.raises(ValueError, match="gloo"):
         cli.main(["--config_file", cfg_file, "--mode", "train", "--dist", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="A7"):  # several GPUs with the points sampled on the device
+    with pytest.raises(ValueError, match="gloo"):  # several GPUs with the points sampled on the device
         cli.main(["--config_file", cfg_file, "--mode", "train", "--dist", "--device", "cpu",
                   "--set", "train_cfg.tpu.sample_mode=device"])
+    monkeypatch.delenv("WORLD_SIZE")
+    monkeypatch.delenv("LOCAL_RANK")
     from deepphysinet_tpu_torch.config import Config
 
     cfg = Config.fromfile(cfg_file)["config"]
