@@ -184,6 +184,15 @@ Phases, each of which raises (exit code 1) on failure:
                (TF32 off) and bf16, against one process's step over both windows from the same
                state, with the v4s launches of each rank and the gloo all-reduce's time; (c) the
                ranks resume a one-process checkpoint and rank 0's checkpoint resumes in one process;
+24b. parity -- the kernel paths at flagship width against the JAX package
+               (``deepphysinet_tpu_torch/diagnostics/flagship_parity.py``): the seeded weights' and
+               inputs' checksums against ``flagship_record.npz`` (which the JAX package writes on the
+               CPU), then float32 (TF32 off) and bf16 readings of the port on the card, each held to
+               the record's at the larger of a floor and four times JAX's own spread: the encoded
+               tokens, ``predict_grid``'s frame (the primal kernel), the v4s forward's fields at 4,096
+               points, ``fused_residual_losses(version=7)`` at 40,960 points, one PDE step's losses,
+               gradient norms, gradient and update probes (the v4s pair), and in float32 the B = 2
+               step and its two micro-batches, with the three kernels' launch counts;
 25. timing  -- by CUDA events, medians, alternating order: each kernel and its
                plain version at the main paths' sizes (the attention kernels beside one
                ``scaled_dot_product_attention`` call and a bound of three terms, the
@@ -2916,6 +2925,62 @@ def dist_phase(dev, cd, cfg, paths, seed_ckpt: str, tmp: str) -> dict:
                 readings=readings)
 
 
+# phase 24b: the port's kernel paths at flagship width against the JAX package's record
+PARITY_KERNELS = ("decode_primal_v4t", "fused_decode_jvp_v4s", "decode_bwd_kernel_v4s")  # rows 5, 12, 13
+
+
+def parity_phase(dev) -> dict:
+    """The kernel paths at flagship width held to the JAX package's numbers
+    (``deepphysinet_tpu_torch/diagnostics/flagship_record.npz``, which the JAX package writes on the
+    CPU): the weights and inputs that ``flagship_parity`` makes from the record's seed must give its
+    checksums; then ``port_readings`` on the card (the ``'kernel'`` engine, version 7), float32 with
+    TF32 off and bf16, each reading held to the record's at its bar (``flagship_parity.compare``),
+    the primal decode and both v4s kernels launched in each dtype.  Logs each reading's largest
+    error beside its bar, and the port's B = 2 step against its two micro-batches beside what JAX's
+    parted by (``flagship_parity.b2_micro_rows``, logged, not held).  Returns the launch counts, the
+    rows and each dtype's seconds."""
+    from deepphysinet_tpu_torch.diagnostics import flagship_parity as fp
+    from deepphysinet_tpu_torch.models.physics_net import PhysicsNet
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    meta, record = fp.load_record()
+    cfg = fp.flagship_config()
+    template = PhysicsNet(cfg["meta_cfg"], cfg["net_cfg"], device="cpu")
+    sd = fp.seeded_state_dict(template, meta["seed"])
+    inputs = fp.flagship_inputs(cfg, meta["seed"])
+    bad = fp.checksum_mismatches(meta, fp.checksums(sd, inputs))
+    log(f"[parity] record written by {meta['written_by']} (jax {meta['jax']}); {len(meta['checksums'])} "
+        f"checksums of the weights and inputs, {len(bad)} differ")
+    if bad:
+        raise AssertionError(f"the seeded weights or inputs differ from the record's: {bad[:20]}")
+    launches, rows_all, seconds = {}, [], {}
+    for dtype in ("float32", "bfloat16"):
+        t0 = time.perf_counter()
+        readings, launches[dtype] = fp.port_readings(cfg, sd, inputs, fp.DTYPES[dtype], device=dev)
+        torch.cuda.synchronize()
+        seconds[dtype] = time.perf_counter() - t0
+        rows = fp.compare(readings, meta, record, dtype)
+        rows_all += rows
+        for line in fp.format_rows(rows):
+            log(f"[parity] {line}")
+        log(f"[parity] {dtype}: launches {launches[dtype]} in {seconds[dtype]:.1f} s")
+        if dtype == "float32":  # the question of phase 24 (b): B = 2 against two micro-batches
+            for line in fp.format_rows(fp.b2_micro_rows(readings, meta, record)):
+                log(f"[parity] the port's B = 2 against its micro-batches beside JAX's: {line}")
+        missing = [k for k in PARITY_KERNELS if launches[dtype][k] <= 0]
+        if missing:
+            raise AssertionError(f"parity ({dtype}): the kernel paths launched no {missing}")
+    failed = [r for r in rows_all if not r["ok"]]
+    log(f"[parity] phase 24b in {time.perf_counter() - t_phase:.1f} s; {len(rows_all) - len(failed)} of "
+        f"{len(rows_all)} readings within their bars")
+    if failed:
+        raise AssertionError("the kernel paths part from the JAX record: "
+                             + "; ".join(fp.format_rows(failed)))
+    return dict(launches=launches, rows=rows_all, seconds=seconds)
+
+
 def attention_and_encoder_timing(dev, cd, model, field, fh_norm: float, stage_builds: dict) -> dict:
     """CUDA-event times of the attention kernels (and one scaled_dot_product_attention call, the
     library yardstick the port never calls) and of the fused encoder kernel, each beside its plain
@@ -4324,6 +4389,10 @@ def main() -> int:
         shutil.rmtree(disk_tmp, ignore_errors=True)
     torch.cuda.empty_cache()
 
+    # ---- 24b. the kernel paths at flagship width against the JAX package's record ---------------------
+    parity = parity_phase(dev)
+    torch.cuda.empty_cache()
+
     # ---- 25. timing --------------------------------------------------------------------------------
     hid, in_ch = cfg["net_cfg"]["hidden_channels"], cfg["net_cfg"]["in_channels"]
     two_f = in_ch // 3
@@ -4991,6 +5060,7 @@ def main() -> int:
          "launches_tools": tools["launches"].get("decode_primal_v4t", 0),
          "launches_etl": etl["infer_launches"] + etl["test_launches"],
          "launches_options": options["launches"]["decode_primal_v4t"],
+         "launches_parity": sum(n["decode_primal_v4t"] for n in parity["launches"].values()),
          "max_abs_err": errs[(cd, GRID_POINTS)], "max_rel_err": rel_errs[(cd, GRID_POINTS)],
          "points": GRID_POINTS,
          "ms": k_ms, "plain_ms": p_ms, "bound_ms": primal_bound[0], "bound_by": primal_bound[1],
@@ -5002,6 +5072,7 @@ def main() -> int:
          "launches_etl": etl["counts"]["fused_decode_jvp_v4s"],
          "launches_options": options["launches"]["fused_decode_jvp_v4s"],
          "launches_dist": dist["counts"]["fused_decode_jvp_v4s"],
+         "launches_parity": sum(n["fused_decode_jvp_v4s"] for n in parity["launches"].values()),
          "max_abs_err": fwd_err[(cd, main_n)],
          "max_rel_err": fwd_rel[(cd, main_n)], "points": main_n,
          "ms": t["fwd"], "plain_ms": t["fwd_plain"], "bound_ms": t["fwd_bound"][0],
@@ -5013,6 +5084,7 @@ def main() -> int:
          "launches_etl": etl["counts"]["decode_bwd_kernel_v4s"],
          "launches_options": options["launches"]["decode_bwd_kernel_v4s"],
          "launches_dist": dist["counts"]["decode_bwd_kernel_v4s"],
+         "launches_parity": sum(n["decode_bwd_kernel_v4s"] for n in parity["launches"].values()),
          "max_abs_err": bwd_err[(cd, main_n)],
          "max_rel_err": bwd_rel[(cd, main_n)], "points": main_n,
          "ms": t["bwd"], "plain_ms": t["bwd_plain"], "bound_ms": t["bwd_bound"][0],

@@ -13,3 +13,7 @@ The hand-written CUDA kernels live in ``csrc/`` and are compiled with ``nvcc``
 at first use; on CPU tensors every kernel wrapper runs its plain PyTorch
 version instead.
 """
+
+from deepphysinet_tpu_torch.version import __version__
+
+__all__ = ["__version__"]

@@ -1,8 +1,9 @@
 """ctypes binding of the C++ host kernels of ``native/src/dpn_native.cc``.
 
-Counterpart of ``deepphysinet_tpu/native/__init__.py`` for the two entry points the port's data
-layer calls, ``trilinear`` (``data/dataset.py``) and ``lzw_decode`` (``data/geotiff.py``), with the
-same numpy / Python fallbacks, so the host data layer runs where no compiler exists.  The library
+Counterpart of ``deepphysinet_tpu/native/__init__.py``: the two entry points the port's data
+layer calls, ``trilinear`` (``data/dataset.py``) and ``lzw_decode`` (``data/geotiff.py``), and the
+row helpers ``gather`` and ``pack_tokens``, with the same numpy / Python fallbacks, so the host
+data layer runs where no compiler exists.  The library
 is built at first use with the local g++ (as the JAX package builds it: ``-O3 -march=native
 -fopenmp``, then without OpenMP and ``-march``) into ``csrc/build/libdpn_native.so`` of this
 package, which ``.gitignore`` lists, and again whenever the source is newer; the library that the
@@ -74,6 +75,11 @@ def _load() -> Optional[ctypes.CDLL]:
         u8p = ctypes.POINTER(ctypes.c_uint8)
         lib.dpn_lzw_decode.argtypes = [u8p, i64, u8p, i64]
         lib.dpn_lzw_decode.restype = i64
+        i64p = ctypes.POINTER(ctypes.c_int64)
+        lib.dpn_gather.argtypes = [f32p, i64, i64, i64p, i64p, i64, f32p]
+        lib.dpn_gather.restype = None
+        lib.dpn_pack_tokens.argtypes = [f32p, i64, i64, i64, f32p, f32p, f32p]
+        lib.dpn_pack_tokens.restype = None
         _LIB = lib
         return _LIB
 
@@ -109,6 +115,35 @@ def trilinear(cube: np.ndarray, lon: np.ndarray, lat: np.ndarray, t: np.ndarray,
     f64p = ctypes.POINTER(ctypes.c_double)
     lib.dpn_trilinear(_fp32(cube), V, H, W, T, lon0, dlon, lat0, dlat, t0, dt,
                       lon.ctypes.data_as(f64p), lat.ctypes.data_as(f64p), t.ctypes.data_as(f64p), n, _fp32(out))
+    return out
+
+
+def gather(img: np.ndarray, xs: np.ndarray, ys: np.ndarray) -> np.ndarray:
+    """``img[y, x]`` of a [H, W] raster at N integer points, each index clipped to the raster."""
+    lib = _load()
+    img = np.ascontiguousarray(img, np.float32)
+    xs = np.ascontiguousarray(xs, np.int64)
+    ys = np.ascontiguousarray(ys, np.int64)
+    if lib is None:
+        return img[np.clip(ys, 0, img.shape[0] - 1), np.clip(xs, 0, img.shape[1] - 1)]
+    out = np.empty(len(xs), np.float32)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    lib.dpn_gather(_fp32(img), img.shape[0], img.shape[1], xs.ctypes.data_as(i64p),
+                   ys.ctypes.data_as(i64p), len(xs), _fp32(out))
+    return out
+
+
+def pack_tokens(raster: np.ndarray, mean: np.ndarray, std: np.ndarray) -> np.ndarray:
+    """[H, W, C] raster -> normalized [C, H*W] token rows."""
+    lib = _load()
+    raster = np.ascontiguousarray(raster, np.float32)
+    h, w, c = raster.shape
+    mean = np.ascontiguousarray(np.broadcast_to(mean, (c,)), np.float32)
+    std = np.ascontiguousarray(np.broadcast_to(std, (c,)), np.float32)
+    if lib is None:
+        return ((raster.reshape(-1, c).T - mean[:, None]) / std[:, None]).astype(np.float32)
+    out = np.empty((c, h * w), np.float32)
+    lib.dpn_pack_tokens(_fp32(raster), h, w, c, _fp32(mean), _fp32(std), _fp32(out))
     return out
 
 

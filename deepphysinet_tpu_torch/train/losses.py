@@ -2,8 +2,6 @@
 
 Counterpart of ``deepphysinet_tpu/train/losses.py``: pure functions
 ``loss(pred, target) -> scalar`` with mean reduction, accumulated in float32.
-``CrossEntropyLoss`` is not ported: nothing on the training or inference path
-names it (the configurations use ``WeightSmoothL1Loss`` and ``MSELoss``).
 """
 
 from __future__ import annotations
@@ -44,11 +42,27 @@ def smooth_l1_loss(beta: float = 1.0, **_) -> Loss:
     return weight_smooth_l1_loss(beta=beta)
 
 
+def cross_entropy_loss(**_) -> Loss:
+    """Mean negative log-likelihood of ``logits`` [..., C] under integer class ``labels`` [...]
+    or class probabilities [..., C]."""
+
+    def loss(logits, labels):
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        if labels.dim() == logits.dim() - 1:  # integer class labels
+            nll = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+        else:
+            nll = -torch.sum(labels.float() * logp, dim=-1)
+        return torch.mean(nll)
+
+    return loss
+
+
 LOSSES: Dict[str, Callable[..., Loss]] = {
     "MSELoss": mse_loss,
     "L1Loss": l1_loss,
     "WeightSmoothL1Loss": weight_smooth_l1_loss,
     "SmoothL1Loss": smooth_l1_loss,
+    "CrossEntropyLoss": cross_entropy_loss,
 }
 
 
