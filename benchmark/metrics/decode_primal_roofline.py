@@ -1,0 +1,12 @@
+"""The primal decode kernel's least time over its device time in the traced stretch, %.
+
+The least time of each launch is the larger of its FLOPs over the precision's peak and its bytes
+over the memory bandwidth (``lib/yardstick.py``), for the points the frame gives each launch."""
+
+from benchmark.lib.roofline import share
+
+FAMILY = "decode_primal"
+
+
+def read(run):
+    return share(run, FAMILY)
